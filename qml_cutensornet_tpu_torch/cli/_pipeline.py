@@ -1,0 +1,223 @@
+"""Shared CLI pipeline: argv parsing, engine config, data prep, Gram builds
+(port of ``qml_cutensornet_tpu/cli/_pipeline.py``).
+
+The positional contract is the reference's:
+
+    python -m qml_cutensornet_tpu_torch.cli.main_no_test <backend> <num_features>
+        <layers> <gamma> <distance> <n_illicit> <n_licit> <data_seed> <data_file>
+
+``backend`` is GPU, CPU or TPU; it selects the truncation criterion name
+only ("cutoff" for CPU, else "fidelity"; the rule is the same). Knobs
+without a positional slot come from the environment, with the reference's
+names where the port supports them:
+
+    QMLTPU_DEVICE          cuda | cpu (default cuda; cuda without a card
+                           raises, it never falls back)
+    QMLTPU_CHI             bond cap (default min(2^(nq//2), 64))
+    QMLTPU_PRECISION       f32 | f64 (default f32)
+    QMLTPU_SVD             subspace (the only method ported)
+    QMLTPU_SUBSPACE_ITERS  power iterations (default 2)
+    QMLTPU_OVERSAMPLE      subspace oversampling (default 16 at chi >= 128)
+    QMLTPU_POWER_PRECISION / QMLTPU_TILE_PRECISION  inherit | highest
+    QMLTPU_TILE_BLOCK      sites per tile-scan step (default 2 at chi <= 128)
+    QMLTPU_SIM_BATCH       circuits per batch (default 32)
+    QMLTPU_TILE            Gram tile side (default 32)
+    QMLTPU_STAGED, QMLTPU_CHUNK_LEN, QMLTPU_NORMALIZE  as in the reference
+
+Knobs of features not ported yet raise: QMLTPU_ROUTING other than tracked,
+QMLTPU_MESH > 1, QMLTPU_FUSED_SPLIT=0 (the port has only the fused
+kernels), QMLTPU_FUSED_GATE=1, QMLTPU_MGS_PAIR=1, QMLTPU_SHARD_MPS,
+QMLTPU_BRICK_CAPS=1, QMLTPU_CHECKPOINT=1 and QMLTPU_CHI=auto.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pathlib
+import sys
+
+import numpy as np
+
+from qml_cutensornet_tpu_torch.config import SimConfig
+from qml_cutensornet_tpu_torch.models.ansatz import KernelStateAnsatz
+from qml_cutensornet_tpu_torch.models.entanglement import entanglement_graph
+from qml_cutensornet_tpu_torch.models.gram import build_kernel_matrix
+from qml_cutensornet_tpu_torch.utils.data import load_and_prepare
+from qml_cutensornet_tpu_torch.utils.naming import run_info
+
+INPUT_ERROR_MSG = (
+    "\nCall script as 'python main.py <backend> <num_features> <layers> <gamma> "
+    "<distance> <n_illicit> <n_licit> <data_seed> <data_file>'."
+    "\nThe value of <backend> must be GPU, CPU or TPU."
+)
+
+# The truncation error assigned to the simulation (reference main.py:73).
+TRUNCATION_ERROR = 1e-16
+
+
+@dataclasses.dataclass
+class RunParams:
+    backend: str
+    num_features: int
+    reps: int
+    gamma: float
+    nearest_neighbors: int
+    n_illicit: int
+    n_licit: int
+    data_seed: int
+    data_file: str
+
+    @property
+    def entanglement_map(self):
+        return entanglement_graph(nq=self.num_features, nn=self.nearest_neighbors)
+
+
+def _env_flag(name: str, default: str = "0") -> bool:
+    return os.environ.get(name, default) != "0"
+
+
+def check_unported_knobs() -> None:
+    """Raise on environment knobs whose features the port does not have."""
+    routing = os.environ.get("QMLTPU_ROUTING", "tracked")
+    if routing != "tracked":
+        raise NotImplementedError(f"QMLTPU_ROUTING={routing} is not ported (tracked only)")
+    mesh = os.environ.get("QMLTPU_MESH")
+    if mesh is not None and int(mesh) > 1:
+        raise NotImplementedError("QMLTPU_MESH > 1 (multi-device Gram) is not ported")
+    if not _env_flag("QMLTPU_FUSED_SPLIT", "1"):
+        raise NotImplementedError("QMLTPU_FUSED_SPLIT=0 (unfused split) is not ported")
+    if os.environ.get("QMLTPU_SHARD_MPS", "0") != "0":
+        raise NotImplementedError("QMLTPU_SHARD_MPS is not ported")
+    for knob in ("QMLTPU_FUSED_GATE", "QMLTPU_MGS_PAIR", "QMLTPU_BRICK_CAPS",
+                 "QMLTPU_CHECKPOINT"):
+        if _env_flag(knob):
+            raise NotImplementedError(f"{knob}=1 is not ported")
+    if os.environ.get("QMLTPU_CHI") == "auto":
+        raise NotImplementedError("QMLTPU_CHI=auto is not ported")
+
+
+def parse_argv(argv=None) -> RunParams:
+    argv = sys.argv if argv is None else argv
+    if len(argv) <= 9:
+        raise ValueError(INPUT_ERROR_MSG)
+    backend = str(argv[1])
+    if backend not in ("GPU", "CPU", "TPU"):
+        raise ValueError(INPUT_ERROR_MSG)
+    check_unported_knobs()
+    return RunParams(
+        backend=backend,
+        num_features=int(argv[2]),
+        reps=int(argv[3]),
+        gamma=float(argv[4]),
+        nearest_neighbors=int(argv[5]),
+        n_illicit=int(argv[6]),
+        n_licit=int(argv[7]),
+        data_seed=int(argv[8]),
+        data_file=str(argv[9]),
+    )
+
+
+def default_chi(num_features: int) -> int:
+    return int(min(2 ** (num_features // 2), 64))
+
+
+def sim_config(params: RunParams) -> SimConfig:
+    chi_env = os.environ.get("QMLTPU_CHI")
+    chi = int(chi_env) if chi_env is not None else default_chi(params.num_features)
+    over_env = os.environ.get("QMLTPU_OVERSAMPLE")
+    oversample = int(over_env) if over_env is not None else (16 if chi >= 128 else 0)
+    tb_env = os.environ.get("QMLTPU_TILE_BLOCK")
+    tile_block = int(tb_env) if tb_env is not None else (2 if chi <= 128 else 1)
+    return SimConfig(
+        chi=chi,
+        truncation_error=TRUNCATION_ERROR,
+        criterion="cutoff" if params.backend == "CPU" else "fidelity",
+        precision=os.environ.get("QMLTPU_PRECISION", "f32"),
+        svd_method=os.environ.get("QMLTPU_SVD", "subspace"),
+        subspace_iters=int(os.environ.get("QMLTPU_SUBSPACE_ITERS", 2)),
+        oversample=oversample,
+        power_precision=os.environ.get("QMLTPU_POWER_PRECISION", "inherit"),
+        tile_precision=os.environ.get("QMLTPU_TILE_PRECISION", "inherit"),
+        fused_split=True,
+        tile_block=tile_block,
+    )
+
+
+def engine_kwargs() -> dict:
+    return dict(
+        sim_batch=int(os.environ.get("QMLTPU_SIM_BATCH", 32)),
+        tile=int(os.environ.get("QMLTPU_TILE", 32)),
+        device=os.environ.get("QMLTPU_DEVICE", "cuda"),
+    )
+
+
+def make_ansatz(params: RunParams) -> KernelStateAnsatz:
+    return KernelStateAnsatz(
+        num_qubits=params.num_features,
+        reps=params.reps,
+        gamma=params.gamma,
+        entanglement_map=params.entanglement_map,
+        hadamard_init=True,
+        routing=os.environ.get("QMLTPU_ROUTING", "tracked"),
+    )
+
+
+def echo_params(params: RunParams, n_procs: int) -> None:
+    """Parameter echo in the reference's format."""
+    print("\nUsing the following parameters:")
+    print("")
+    print(f"\tn_procs: {n_procs}")
+    print(f"\tbackend: {params.backend}")
+    print("")
+    print(f"\tnum_features: {params.num_features}")
+    print(f"\treps: {params.reps}")
+    print(f"\tgamma: {params.gamma}")
+    print(f"\tinteraction distance: {params.nearest_neighbors}")
+    print(f"\tentanglement_map: {params.entanglement_map}")
+    print("")
+    print(f"\tn_illicit: {params.n_illicit}")
+    print(f"\tn_licit: {params.n_licit}")
+    print("")
+    print(f"\tdata_seed: {params.data_seed}")
+    print(f"\tdata_file: {params.data_file}")
+    print("")
+    sys.stdout.flush()
+
+
+def prepare(params: RunParams):
+    return load_and_prepare(
+        "datasets/" + params.data_file,
+        params.num_features,
+        params.n_illicit,
+        params.n_licit,
+        params.data_seed,
+    )
+
+
+def info_names(params: RunParams):
+    args = (
+        params.num_features,
+        params.reps,
+        params.gamma,
+        params.nearest_neighbors,
+        params.n_illicit,
+        params.data_seed,
+        params.data_file,
+    )
+    return run_info("train", *args), run_info("test", *args)
+
+
+def build(params: RunParams, ansatz, X, Y=None, info_file=None):
+    pathlib.Path("kernels").mkdir(exist_ok=True)
+    pathlib.Path("data").mkdir(exist_ok=True)
+    return build_kernel_matrix(
+        ansatz,
+        X=np.asarray(X),
+        Y=None if Y is None else np.asarray(Y),
+        info_file=info_file,
+        truncation_error=TRUNCATION_ERROR,
+        cfg=sim_config(params),
+        loglevel=20,
+        **engine_kwargs(),
+    )

@@ -1,0 +1,163 @@
+"""Batched Matrix Product State engine on complex tensors (port of
+``qml_cutensornet_tpu/ops/mps.py``).
+
+An :class:`MPS` holds a BATCH of padded states: ``tensors [B, n, chi, 2,
+chi]`` (batch, site, left bond, physical, right bond), ``fidelity [B]``
+(product of per-update kept fractions) and ``bond_dims [B, n-1]`` (true bond
+dimensions). Truncated and padded entries are exact zeros, so contractions
+over the padded dimensions equal the true ones. The op stream is the same
+for every state of a batch, so sites and directions are Python ints.
+
+The update functions write the changed site tensors into ``tensors`` and
+``bond_dims`` IN PLACE (one full-state copy per op saved) and return an
+``MPS`` sharing those tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from qml_cutensornet_tpu_torch.config import SimConfig
+from qml_cutensornet_tpu_torch.models.ansatz import DIR_L
+from qml_cutensornet_tpu_torch.ops import orth
+from qml_cutensornet_tpu_torch.ops.svd import truncated_svd
+
+
+@dataclasses.dataclass
+class MPS:
+    tensors: torch.Tensor  # [B, n, chi, 2, chi] complex
+    fidelity: torch.Tensor  # [B] real
+    bond_dims: torch.Tensor  # [B, n-1] int32
+
+
+def zero_state(batch: int, n: int, cfg: SimConfig, device: torch.device) -> MPS:
+    """|0...0> for every state: each site tensor is e_0 ⊗ |0> ⊗ e_0."""
+    if n < 2:
+        raise ValueError("MPS needs at least 2 sites.")
+    t = torch.zeros((batch, n, cfg.chi, 2, cfg.chi), dtype=cfg.complex_dtype, device=device)
+    t[:, :, 0, 0, 0] = 1.0
+    return MPS(
+        tensors=t,
+        fidelity=torch.ones(batch, dtype=cfg.real_dtype, device=device),
+        bond_dims=torch.ones((batch, n - 1), dtype=torch.int32, device=device),
+    )
+
+
+def apply_1q_all(mps: MPS, u2: torch.Tensor) -> MPS:
+    """The same 1-qubit gate ``u2 [2, 2]`` on every site of every state."""
+    t = torch.einsum("st,znatb->znasb", u2, mps.tensors)
+    return dataclasses.replace(mps, tensors=t)
+
+
+def apply_diag_all(mps: MPS, phases: torch.Tensor) -> MPS:
+    """Per-site diagonal 1-qubit gates given as ``phases [B, n, 2]``."""
+    return dataclasses.replace(mps, tensors=mps.tensors * phases[:, :, None, :, None])
+
+
+def apply_1q(mps: MPS, site: int, u2: torch.Tensor) -> MPS:
+    """1-qubit gates ``u2 [B, 2, 2]`` at ``site``."""
+    mps.tensors[:, site] = torch.einsum("zst,zatb->zasb", u2, mps.tensors[:, site])
+    return mps
+
+
+def apply_2site(mps: MPS, site: int, u4: torch.Tensor, cfg: SimConfig,
+                direction: int | None = None) -> MPS:
+    """Two-qubit gates ``u4 [B, 4, 4]`` on sites ``(site, site+1)``: contract
+    the pair into theta, apply the gate, split back with the truncated
+    factorization. ``direction`` DIR_L (1) leaves the orthogonality center
+    at ``site`` by factoring theta^T (plain transpose); otherwise it ends at
+    ``site+1``."""
+    chi = mps.tensors.shape[2]
+    B = mps.tensors.shape[0]
+    a = mps.tensors[:, site]
+    b = mps.tensors[:, site + 1]
+    theta = torch.einsum("zasb,zbtc->zastc", a, b)
+    g = u4.reshape(B, 2, 2, 2, 2)
+    theta = torch.einsum("zstuv,zauvc->zastc", g, theta)
+    m = theta.reshape(B, 2 * chi, 2 * chi)
+    is_left = direction == DIR_L
+    if is_left:
+        m = m.transpose(1, 2).contiguous()
+    fl, fr, kept_fraction, rank = truncated_svd(m, cfg, keep=chi)
+    if is_left:
+        new_a, new_b = fr.transpose(1, 2), fl.transpose(1, 2)
+    else:
+        new_a, new_b = fl, fr
+    mps.tensors[:, site] = new_a.reshape(B, chi, 2, chi)
+    mps.tensors[:, site + 1] = new_b.reshape(B, chi, 2, chi)
+    mps.bond_dims[:, site] = rank
+    return MPS(mps.tensors, mps.fidelity * kept_fraction.to(mps.fidelity.dtype), mps.bond_dims)
+
+
+def move_center(mps: MPS, site: int, direction: int, cfg: SimConfig) -> MPS:
+    """Move the orthogonality center across bond ``(site, site+1)`` with the
+    fused Q+R (kernel K2 on CUDA tensors). Exact: no truncation. DIR_R (0)
+    leaves the center at ``site+1``, DIR_L (1) at ``site``; a move toward
+    where the center already sits is an exact no-op (chunk padding)."""
+    chi = mps.tensors.shape[2]
+    B = mps.tensors.shape[0]
+    a = mps.tensors[:, site]
+    b = mps.tensors[:, site + 1]
+    if direction == DIR_L:
+        th = b.reshape(B, chi, 2 * chi).mH.contiguous()  # t^H [2chi, chi]
+        q, r = orth.qr(th)  # t^H = q r
+        new_b = q.mH.reshape(B, chi, 2, chi)  # row-orthonormal
+        new_a = torch.einsum("zasb,zbj->zasj", a, r.mH)
+    else:
+        q, r = orth.qr(a.reshape(B, 2 * chi, chi).contiguous())
+        new_a = q.reshape(B, chi, 2, chi)
+        new_b = torch.einsum("zij,zjsc->zisc", r, b)
+    mps.tensors[:, site] = new_a
+    mps.tensors[:, site + 1] = new_b
+    return mps
+
+
+def vdot(a: MPS, b: MPS) -> torch.Tensor:
+    """<a_z|b_z> per batch element by transfer-matrix contraction: ``[B]``."""
+    ta, tb = a.tensors, b.tensors
+    B, n, chi = ta.shape[0], ta.shape[1], ta.shape[2]
+    m = torch.zeros((B, chi, chi), dtype=ta.dtype, device=ta.device)
+    m[:, 0, 0] = 1.0
+    for i in range(n):
+        t = torch.einsum("zab,zbsd->zasd", m, tb[:, i])
+        m = torch.einsum("zasc,zasd->zcd", ta[:, i].conj(), t)
+    return m[:, 0, 0]
+
+
+def norm_sq(a: MPS) -> torch.Tensor:
+    return vdot(a, a).real
+
+
+def max_bond(mps: MPS) -> torch.Tensor:
+    return mps.bond_dims.max(dim=1).values
+
+
+def to_dense(tensors: np.ndarray, n: int) -> np.ndarray:
+    """Contract ONE padded MPS ``[n, chi, 2, chi]`` (numpy complex) into a
+    dense statevector ``[2**n]``. Host/test only (exponential)."""
+    v = tensors[0][0]
+    for i in range(1, n):
+        v = np.tensordot(v, tensors[i], axes=[[-1], [0]])
+    return v[..., 0].reshape(-1)
+
+
+def mps_from_reference(re, im, fidelity, bond_dims, device="cpu") -> MPS:
+    """Build a port MPS from reference-engine arrays (numpy or anything
+    ``np.asarray`` takes): ``re, im [B, n, chi, 2, chi]``, ``fidelity [B]``,
+    ``bond_dims [B, n-1]``. Carries one reference state into the port."""
+    re, im = np.asarray(re), np.asarray(im)
+    return MPS(
+        tensors=torch.complex(torch.from_numpy(re.copy()), torch.from_numpy(im.copy())).to(device),
+        fidelity=torch.as_tensor(np.asarray(fidelity).copy(), device=device),
+        bond_dims=torch.as_tensor(np.asarray(bond_dims, dtype=np.int32).copy(), device=device),
+    )
+
+
+def mps_to_numpy(mps: MPS):
+    """``(tensors complex [B, n, chi, 2, chi], fidelity [B], bond_dims [B,
+    n-1])`` as numpy arrays on the host."""
+    return (mps.tensors.detach().cpu().numpy(), mps.fidelity.detach().cpu().numpy(),
+            mps.bond_dims.detach().cpu().numpy())

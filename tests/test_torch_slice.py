@@ -1,0 +1,105 @@
+"""The PyTorch port's train-Gram slice end to end on the CPU: the port's
+``build_kernel_matrix`` against the dense statevector model in f64 (1e-10,
+roundoff of an untruncated chi-16 run) and against the JAX reference in
+f32 with staged chi on (3e-5: the reference's own fused-vs-unfused Gram
+bar, tests/test_pallas_split.py), the port CLI ``main_no_test`` on
+``QMLTPU_DEVICE=cpu``, and the knobs and devices that must raise."""
+
+import dataclasses
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from qml_cutensornet_tpu.config import SimConfig as RefConfig
+from qml_cutensornet_tpu.models.ansatz import KernelStateAnsatz as RefAnsatz
+from qml_cutensornet_tpu.models.gram import build_kernel_matrix as ref_build
+from qml_cutensornet_tpu.ops import dense
+from qml_cutensornet_tpu_torch.cli import _pipeline, main_no_test
+from qml_cutensornet_tpu_torch.config import SimConfig
+from qml_cutensornet_tpu_torch.models.ansatz import KernelStateAnsatz
+from qml_cutensornet_tpu_torch.models.entanglement import entanglement_graph
+from qml_cutensornet_tpu_torch.models.gram import build_kernel_matrix
+from qml_cutensornet_tpu_torch.ops import _build
+from qml_cutensornet_tpu_torch.utils import device as port_device
+from qml_cutensornet_tpu_torch.utils.data import load_and_prepare, preprocess_elliptic
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+NQ, REPS, D, CHI = 8, 1, 2, 16
+
+
+def _points(seed, n=5):
+    return np.random.default_rng(seed).uniform(0.0, 2.0, size=(n, NQ))
+
+
+def _dense_kernel(X, reps, em):
+    return np.array([[dense.kernel_entry(a, b, reps, 1.0, em) for b in X] for a in X])
+
+
+def test_f64_gram_matches_dense():
+    X = _points(0)
+    em = entanglement_graph(NQ, D)
+    K = build_kernel_matrix(KernelStateAnsatz(NQ, REPS, 1.0, em), X,
+                            cfg=SimConfig(chi=CHI, precision="f64"),
+                            sim_batch=4, tile=4, device="cpu")
+    np.testing.assert_allclose(K, _dense_kernel(X, REPS, em), atol=1e-10)
+
+
+def test_f32_gram_matches_reference(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("QMLTPU_STAGED", "1")
+    X = _points(1)
+    em = entanglement_graph(NQ, D)
+    rcfg = RefConfig(chi=CHI, precision="f32", svd_method="subspace", subspace_iters=2,
+                     tile_block=2)
+    K_ref = ref_build(RefAnsatz(NQ, REPS, 1.0, em), X, cfg=rcfg, sim_batch=4, tile=4,
+                      info_file="ref")
+    K = build_kernel_matrix(KernelStateAnsatz(NQ, REPS, 1.0, em), X,
+                            cfg=SimConfig.from_reference(dataclasses.asdict(rcfg)),
+                            sim_batch=4, tile=4, device="cpu", info_file="port")
+    np.testing.assert_allclose(K, K_ref, atol=3e-5)
+    np.testing.assert_allclose(K, _dense_kernel(X, REPS, em), atol=3e-5)
+    port_prof = json.loads(pathlib.Path("port.json").read_text())
+    ref_prof = json.loads(pathlib.Path("ref.json").read_text())
+    assert set(port_prof) == set(ref_prof)
+    for key in ("avg_fidelity", "ave max chi x", "chi", "lenX"):
+        np.testing.assert_allclose(port_prof[key][0], ref_prof[key][0], rtol=1e-6)
+
+
+def test_cli_main_no_test_on_cpu(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("QMLTPU_DEVICE", "cpu")
+    preprocess_elliptic(str(ROOT / "datasets/elliptic_bitcoin_dataset_v1"), "datasets/v1.csv")
+    argv = ["main_no_test", "GPU", "6", "1", "1.0", "1", "5", "5", "1", "v1.csv"]
+    K = main_no_test.main(argv)
+    x_train = load_and_prepare("datasets/v1.csv", 6, 5, 5, 1)[0]
+    # chi defaults to min(2^(6//2), 64) = 8: exact for 6 qubits.
+    np.testing.assert_allclose(K, _dense_kernel(x_train, 1, entanglement_graph(6, 1)),
+                               atol=1e-5)
+    info = "train_Nf6_r1_g1.0_p0.0_nn1_mslinear_Ntr5_s1_v1"
+    np.testing.assert_array_equal(np.load(f"kernels/{info}.npy"), K)
+    assert json.loads(pathlib.Path(f"{info}.json").read_text())["lenX"] == [8, "entries"]
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("QMLTPU_ROUTING", "brick"), ("QMLTPU_MESH", "2"), ("QMLTPU_FUSED_GATE", "1"),
+    ("QMLTPU_MGS_PAIR", "1"), ("QMLTPU_SHARD_MPS", "all"), ("QMLTPU_CHI", "auto"),
+    ("QMLTPU_CHECKPOINT", "1"), ("QMLTPU_FUSED_SPLIT", "0"),
+])
+def test_unported_knobs_raise(monkeypatch, knob, value):
+    monkeypatch.setenv(knob, value)
+    with pytest.raises(NotImplementedError):
+        _pipeline.parse_argv(["m", "GPU", "6", "1", "1.0", "1", "5", "5", "1", "v1.csv"])
+
+
+def test_cuda_device_without_card_raises(monkeypatch):
+    """No silent CPU fallback: asking for CUDA where there is none raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="QMLTPU_DEVICE"):
+        port_device.resolve_device("cuda")
+    em = entanglement_graph(4, 1)
+    with pytest.raises(RuntimeError):
+        build_kernel_matrix(KernelStateAnsatz(4, 1, 1.0, em), np.ones((2, 4)),
+                            cfg=SimConfig(chi=4), device="cuda")
