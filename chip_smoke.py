@@ -5,30 +5,59 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: torch sees a card; print ``nvidia-smi`` name and power limit.
-2. build: compile ``qml_cutensornet_tpu_torch/csrc`` with nvcc (timed),
-   print the ptxas resource lines, and check that a launch asking for more
-   dynamic shared memory than the card allows raises (negative control).
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (chi 8..64, batch 32 and 100, 1 and 2 power
-   iterations; full-rank, rank-deficient, zero-padded and graded inputs),
-   on basis-invariant quantities, each against its stated tolerance; then
-   kernel and plain times at the main-path shape with CUDA events.
-4. main path: the port's ``cli.main_no_test`` at the repo's headline shape
-   (32 qubits, r=2, d=6, chi 64, f32, 102 train points of the pinned v1
-   data); the launch counters must show both kernels ran and no plain
-   version ran on a CUDA tensor; K must be symmetric with unit diagonal and
-   its leading 8x8 block within 1e-6 of the f64 golden.
+2. build: compile ``qml_cutensornet_tpu_torch/csrc`` with nvcc (one process
+   per source, all at once; timed), print the ptxas resource lines, and check
+   that a launch asking for more dynamic shared memory than the card allows
+   raises (negative control).
+3. kernels: each of the four kernels against its plain PyTorch version on
+   the card at the main paths' shapes (chi 8..64, batch 32 and 100, 1 and 2
+   power iterations; full-rank, rank-deficient, zero-padded and graded
+   inputs; the basis-only kernel also at the blocked route's panel shapes,
+   the gate kernel on both feeds and at chi 128; and the shapes that only
+   the chi-128 and chi-256 runs give: K1 with 16 oversampled columns, K2 at
+   [32, 256, 128] on its global-scratch layout, K3 on the 16-column last
+   panel of a 144- or 272-column split), on basis-invariant quantities, each
+   against its stated tolerance; then kernel, plain-version and library-call
+   times at the main-path shape with CUDA events, beside the least time the
+   card could take for the same work (``bound_ms``).
+4. default route: the port's ``cli.main_no_test`` at the repo's headline
+   shape (32 qubits, r=2, d=6, chi 64, f32, 102 train points of the pinned v1
+   data): kernels K1 and K2 carry it; K symmetric with unit diagonal, its
+   leading 8x8 block within 1e-6 of the f64 golden.
+5. fused-gate route: the port's ``cli.main`` (train Gram, test Gram, SVC
+   sweep) with ``QMLTPU_FUSED_GATE=1`` at the same shape: kernel K4 on every
+   two-site update (with chunks of 128 ops the staged ramp of this shape has
+   a chi-32 and a chi-64 stage only, and the gate kernel takes both; a chi-8
+   stage, which its shape rule refuses, would stay on K1); the train K
+   against the golden and within 3e-5 of the default route's; the test K's
+   shape, orientation and range; the sweep's rows and each fit's KKT
+   conditions.
+6. unfused route: ``cli.main_no_test`` with ``QMLTPU_FUSED_SPLIT=0`` on one
+   sim batch at the headline shape (kernel K3 on every orthonormalization,
+   K1 and K2 never), held to the default route on the same points; then a
+   chi-256 run (16 qubits, r=2, d=6, one sim batch; stages chi 32, 64 and
+   256) whose chi-256 stage orthonormalizes every split iterate (272 columns)
+   and every center move (256 columns) through the blocked route, K3 on
+   panels of 32, held to the port's own f64 run on the card at 1e-5 on v1
+   data; the same on the tied-spectrum v2 data, whose f32-vs-f64 error is
+   printed, not gated; and a chi-128 run (stages 32, 64, 128), where the
+   default oversampling makes the split 144 columns wide, so that it leaves
+   K1 for the blocked route while the center moves stay on K2, held to its
+   f64 run likewise.
 
-The last two lines of stdout are the kernels summary JSON and the result
-JSON ``{"ok": true, "device": {...}}``.
+On every route the launch counters must equal the counts worked out from
+the op stream and the routing rules, and no plain version may have run on a
+CUDA tensor. The last three lines of stdout are the card's name and power
+limit, the kernels summary JSON and the result JSON ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -38,10 +67,14 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-ARGV = ["main_no_test", "GPU", "32", "2", "1.0", "6", "64", "64", "5",
-        "elliptic_preproc_bench.csv"]
+CSV_V1, CSV_V2 = "elliptic_preproc_bench.csv", "elliptic_preproc_v2.csv"
+ARGV = ["main", "GPU", "32", "2", "1.0", "6", "64", "64", "5", CSV_V1]
+# 20 + 20 points: 32 train points, one sim batch.
+ARGV_ONE_BATCH = ["main", "GPU", "32", "2", "1.0", "6", "20", "20", "5", CSV_V1]
+ARGV_CHI256 = ["main", "GPU", "16", "2", "1.0", "6", "20", "20", "5", CSV_V1]
 GOLDEN = ROOT / "runs/golden/bench_nq32_r2_d6_g1.0_N8.npz"
 RAW_V1 = ROOT / "datasets/elliptic_bitcoin_dataset_v1"
+RAW_V2 = ROOT / "datasets/elliptic_bitcoin_dataset"  # generator version 2: tied levels
 WORK = ROOT / "build" / "smoke"
 
 # Tolerances, f32 kernel vs plain version on the same card. The two run the
@@ -52,18 +85,33 @@ TOL_PROJ = 2e-5  # projectors QQ^H; the reference's fused-vs-unfused bar on q/r
 TOL_PROD = 2e-5  # products QR (relative to max |input|); same bar
 TOL_ORTH = 5e-6  # |Q^H Q - I| on non-zero columns; the reference kernel tests' bar
 TOL_S2 = 2e-5  # sorted squared singular values, relative to the largest
+TOL_TOT = 1e-5  # ||theta||^2 of the gate kernel, relative
 TOL_GOLDEN = 1e-6  # leading 8x8 Gram block vs the f64 golden (ROADMAP bar)
+TOL_ROUTES = 3e-5  # Gram of one route vs another; the reference's fused-vs-unfused bar
+TOL_F64 = 1e-5  # chi-256 and chi-128 f32 Gram vs the port's f64 Gram on the card
+TOL_KKT = 1e-3  # the SVC's stopping tolerance
+
+# Published peaks of one H100 SXM at its full 700 W power limit: f32 outside
+# the tensor cores, and HBM3 bandwidth. ``bound_ms`` is the larger of the
+# kernel's operations over the first and its bytes over the second.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+KERNEL_TABLE = (
+    ("split", "qml_cutensornet_tpu_torch/csrc/subspace_split.cu",
+     "qml_cutensornet_tpu/ops/pallas_split.py:145"),
+    ("orth_r", "qml_cutensornet_tpu_torch/csrc/orth_r.cu",
+     "qml_cutensornet_tpu/ops/pallas_qr.py:241"),
+    ("orth", "qml_cutensornet_tpu_torch/csrc/orth.cu",
+     "qml_cutensornet_tpu/ops/pallas_qr.py:232"),
+    ("gate_split", "qml_cutensornet_tpu_torch/csrc/gate_split.cu",
+     "qml_cutensornet_tpu/ops/pallas_split.py:158"),
+)
+KERNEL_NAMES = tuple(row[0] for row in KERNEL_TABLE)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ----------------------------------------------------------------- inputs
@@ -104,19 +152,38 @@ def make_input(rng, kind, B, m, k, chi):
     return (x / np.abs(x).max()).astype(np.complex64)
 
 
+def make_pair(rng, kind, B, chi, dev):
+    """Two site tensors ``a, b [B, chi, 2, chi]`` of the given kind and
+    random unitary gates ``g [B, 4, 4]``, on the card."""
+    a = make_input(rng, kind, B, 2 * chi, chi, chi).reshape(B, chi, 2, chi)
+    b = make_input(rng, kind, B, chi, 2 * chi, chi).reshape(B, chi, 2, chi)
+    g, _ = np.linalg.qr(_crandn(rng, B, 4, 4))
+    return tuple(torch.from_numpy(x).to(dev) for x in (a, b, g.astype(np.complex64)))
+
+
 # -------------------------------------------------------------- comparisons
 
-def compare(qk, rk, qp, rp, x, what, with_s2):
+def compare(qk, rk, qp, rp, x, what, with_s2, surplus=False):
     """Basis-invariant comparison of kernel (qk, rk) and plain (qp, rp)
     factorizations of x; asserts the tolerances and returns the larger of
     the projector and product errors. ``with_s2`` also compares the sorted
-    squared row norms of r (the split's singular-value estimates)."""
-    proj = (qk @ qk.mH - qp @ qp.mH).abs().max().item()
+    squared row norms of r (the split's singular-value estimates).
+
+    ``surplus`` is for a split with more columns than x has rank (the
+    oversampled split of a state whose live bond is below the cap). The
+    surplus columns are rounding residuals at the dependent-column cutoff:
+    here and there one survives it, in the kernel or in the plain version,
+    as a unit vector orthogonal to the rest whose row of r is zero to
+    rounding. Which ones survive is not a property of the function, so the
+    sets of kept columns and the bare projectors are not compared; the
+    product q r (the projector weighted by what it is applied to), the sorted
+    s2, the orthonormality of every kept column and the exact zeros are."""
+    proj = 0.0 if surplus else (qk @ qk.mH - qp @ qp.mH).abs().max().item()
     scale = x.abs().max().item()
     prod = ((qk @ rk - qp @ rp).abs().max().item()) / scale
     nzk = qk.abs().pow(2).sum(1) > 0.25
     nzp = qp.abs().pow(2).sum(1) > 0.25
-    assert torch.equal(nzk, nzp), f"{what}: kernel and plain keep different columns"
+    assert surplus or torch.equal(nzk, nzp), f"{what}: kernel and plain keep different columns"
     dead = (~nzk)[:, None, :].expand_as(qk)
     assert torch.count_nonzero(qk[dead]) == 0, f"{what}: dropped columns not exact zeros"
     zero_rows = (x.abs().sum(2) == 0)[:, :, None].expand_as(qk)
@@ -129,13 +196,33 @@ def compare(qk, rk, qp, rp, x, what, with_s2):
         s2k = torch.sort(rk.abs().pow(2).sum(2), dim=1, descending=True).values
         s2p = torch.sort(rp.abs().pow(2).sum(2), dim=1, descending=True).values
         s2 = ((s2k - s2p).abs().max() / s2p.max()).item()
-    log(f"  {what}: proj {proj:.2e} prod {prod:.2e} orth {orth:.2e} s2 {s2:.2e} "
-        f"kept {int(nzk.sum(1).min())}..{int(nzk.sum(1).max())}")
+    log(f"  {what}: proj {'not compared' if surplus else f'{proj:.2e}'} prod {prod:.2e} "
+        f"orth {orth:.2e} s2 {s2:.2e} kept {int(nzk.sum(1).min())}..{int(nzk.sum(1).max())}")
     assert proj <= TOL_PROJ, f"{what}: projector error {proj} > {TOL_PROJ}"
     assert prod <= TOL_PROD, f"{what}: product error {prod} > {TOL_PROD}"
     assert orth <= TOL_ORTH, f"{what}: orthonormality error {orth} > {TOL_ORTH}"
     assert s2 <= TOL_S2, f"{what}: sorted s2 error {s2} > {TOL_S2}"
     return max(proj, prod)
+
+
+def compare_orth(orth_mod, v, what):
+    """Kernel K3 against its plain version on ``v`` (r = q^H v on both sides)."""
+    qk, qp = orth_mod.orth_cuda(v), orth_mod.orth_plain(v)
+    torch.cuda.synchronize()
+    return compare(qk, qk.mH @ v, qp, qp.mH @ v, v, what, False)
+
+
+def compare_gate(split_mod, A, Bm, g, v0, iters, what):
+    """Kernel K4 against its plain version: the factorization of theta and
+    ``tot = ||theta||^2``."""
+    qk, rk, totk = split_mod.gate_subspace_factor_cuda(A, Bm, g, v0, iters)
+    qp, rp, totp = split_mod.gate_subspace_factor_plain(A, Bm, g, v0, iters)
+    torch.cuda.synchronize()
+    theta = split_mod.gate_theta(A, Bm, g)
+    tot_err = max(((totk - totp).abs() / totp).max().item(),
+                  ((totk - theta.abs().pow(2).sum((1, 2))).abs() / totp).max().item())
+    assert tot_err <= TOL_TOT, f"{what}: tot error {tot_err} > {TOL_TOT}"
+    return max(compare(qk, rk, qp, rp, theta, what, True), tot_err)
 
 
 def time_ms(fn, reps):
@@ -151,51 +238,44 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_kernels(dev):
-    from qml_cutensornet_tpu_torch.ops import orth, split
-    from qml_cutensornet_tpu_torch.ops.svd import start_block
+# ------------------------------------------------------------------ bounds
+# Operations and bytes from the shapes. One complex multiply-add is 8 real
+# operations; complex64 is 8 bytes. Each input is read once and each output
+# written once, whatever the kernel reads again.
 
-    rng = np.random.default_rng(20261016)
-    err = {"orth_r": 0.0, "split": 0.0}
-    for B in (32, 100):
-        for chi in (8, 16, 32, 64):
-            m = 2 * chi
-            for kind in ("full", "rankdef", "padded", "graded"):
-                v = torch.from_numpy(make_input(rng, kind, B, m, chi, chi)).to(dev)
-                qk, rk = orth.orth_r_cuda(v)
-                qp, rp = orth.orth_r_plain(v)
-                torch.cuda.synchronize()
-                err["orth_r"] = max(err["orth_r"], compare(
-                    qk, rk, qp, rp, v, f"orth_r B={B} chi={chi} {kind}", False))
-                th = torch.from_numpy(make_input(rng, kind, B, m, m, chi)).to(dev)
-                v0 = start_block(m, chi, th.dtype, dev)
-                for iters in (1, 2):
-                    qk, rk = split.subspace_factor_cuda(th, v0, iters)
-                    qp, rp = split.subspace_factor_plain(th, v0, iters)
-                    torch.cuda.synchronize()
-                    err["split"] = max(err["split"], compare(
-                        qk, rk, qp, rp, th, f"split B={B} chi={chi} iters={iters} {kind}", True))
+def _orth_ops(length, ncols):
+    """BCGS2 of ``ncols`` vectors of ``length``: every column is projected
+    twice (coefficient + update) against all earlier columns, then normed
+    and scaled."""
+    return 8.0 * 2 * length * ncols * (ncols - 1) + 8.0 * length * ncols
 
-    # Times at the main path's shape: chi 64, one sim batch of 32, iters 2.
-    B, chi = 32, 64
-    v = torch.from_numpy(make_input(rng, "full", B, 2 * chi, chi, chi)).to(dev)
-    th = torch.from_numpy(make_input(rng, "full", B, 2 * chi, 2 * chi, chi)).to(dev)
-    v0 = start_block(2 * chi, chi, th.dtype, dev)
-    times = {}
-    for name, kern, plain in (
-        ("orth_r", lambda: orth.orth_r_cuda(v), lambda: orth.orth_r_plain(v)),
-        ("split", lambda: split.subspace_factor_cuda(th, v0, 2),
-         lambda: split.subspace_factor_plain(th, v0, 2)),
-    ):
-        p1 = time_ms(plain, 3)
-        k1 = time_ms(kern, 20)
-        k2 = time_ms(kern, 20)
-        p2 = time_ms(plain, 3)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"  time {name} B={B} chi={chi}: kernel {k1:.4f} / {k2:.4f} ms, "
-            f"plain {p1:.4f} / {p2:.4f} ms")
-    return err, times
 
+def _chain_ops(m, k, nc, iters):
+    products = (2 * iters + 1) * 8.0 * m * k * nc
+    return products + iters * (_orth_ops(k, nc) + _orth_ops(m, nc))
+
+
+def bound(ops, nbytes):
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_bounds(B, chi, iters):
+    m, k, nc = 2 * chi, 2 * chi, chi
+    c = 8.0  # bytes per complex64
+    return {
+        "split": bound(B * _chain_ops(m, k, nc, iters),
+                       c * (B * m * k + m * nc + B * m * nc + B * nc * k)),
+        "orth_r": bound(B * (_orth_ops(m, chi) + 8.0 * chi * chi * m),
+                        c * B * (2 * m * chi + chi * chi)),
+        "orth": bound(B * _orth_ops(m, chi), c * B * 2 * m * chi),
+        "gate_split": bound(
+            B * (_chain_ops(m, k, nc, iters) + 8.0 * m * chi * k + 8.0 * 4 * m * k),
+            c * (B * (2 * m * chi + 16) + m * nc + B * m * nc + B * nc * k) + 4.0 * B),
+    }
+
+
+# ----------------------------------------------------------------- phases
 
 def phase_build(dev):
     from qml_cutensornet_tpu_torch.ops import _build, orth
@@ -223,51 +303,330 @@ def phase_build(dev):
     return build_s
 
 
-def phase_main_path(dev, smi):
-    from qml_cutensornet_tpu_torch.cli import main_no_test
+def phase_kernels(dev):
+    from qml_cutensornet_tpu_torch.ops import orth, split
+    from qml_cutensornet_tpu_torch.ops.svd import gate_feeds, start_block
+
+    rng = np.random.default_rng(20261016)
+    kinds = ("full", "rankdef", "padded", "graded")
+    err = dict.fromkeys(KERNEL_NAMES, 0.0)
+
+    def worst(name, value):
+        err[name] = max(err[name], value)
+
+    for B in (32, 100):
+        for chi in (8, 16, 32, 64):
+            m = 2 * chi
+            v0 = start_block(m, chi, torch.complex64, dev)
+            for kind in kinds:
+                v = torch.from_numpy(make_input(rng, kind, B, m, chi, chi)).to(dev)
+                qk, rk = orth.orth_r_cuda(v)
+                qp, rp = orth.orth_r_plain(v)
+                torch.cuda.synchronize()
+                worst("orth_r", compare(qk, rk, qp, rp, v,
+                                        f"orth_r B={B} chi={chi} {kind}", False))
+                worst("orth", compare_orth(orth, v, f"orth B={B} chi={chi} {kind}"))
+                th = torch.from_numpy(make_input(rng, kind, B, m, m, chi)).to(dev)
+                a, b, g = make_pair(rng, kind, B, chi, dev)
+                for iters in (1, 2):
+                    qk, rk = split.subspace_factor_cuda(th, v0, iters)
+                    qp, rp = split.subspace_factor_plain(th, v0, iters)
+                    torch.cuda.synchronize()
+                    worst("split", compare(
+                        qk, rk, qp, rp, th, f"split B={B} chi={chi} iters={iters} {kind}", True))
+                    for feed, is_left in (("n", False), ("t", True)):
+                        worst("gate_split", compare_gate(
+                            split, *gate_feeds(a, b, g, is_left), v0, iters,
+                            f"gate_split B={B} chi={chi} iters={iters} {kind} feed={feed}"))
+
+    # K3 at the blocked route's panel shapes: 32 columns, m = 2 chi for chi
+    # 64, 256 and 1024 (the last with panel and finished vectors in global
+    # scratch); K4 at chi 128, where rows and theta are in global scratch.
+    # At chi 128 and 256 the split is chi + 16 columns wide, so its last
+    # panel has 16 columns.
+    for m, k in ((128, 32), (256, 32), (256, 16), (512, 32), (512, 16), (2048, 32)):
+        for kind in kinds:
+            v = torch.from_numpy(make_input(rng, kind, 32, m, k, m // 2)).to(dev)
+            worst("orth", compare_orth(orth, v, f"orth panel B=32 m={m} k={k} {kind}"))
+    v0 = start_block(256, 128, torch.complex64, dev)
+    for kind in ("full", "padded"):
+        a, b, g = make_pair(rng, kind, 8, 128, dev)
+        worst("gate_split", compare_gate(split, *gate_feeds(a, b, g, False), v0, 1,
+                                         f"gate_split B=8 chi=128 iters=1 {kind} feed=n"))
+
+    # The other shapes of the chi-128 and chi-256 runs. A cap of 128 or more
+    # sets the oversample to 16 at every stage, so K1 runs the chi-32 and
+    # chi-64 stages with nc = chi + 16 columns; the chi-128 stage's center
+    # moves give K2 v [32, 256, 128], whose rows do not fit in shared memory
+    # (the global-scratch layout).
+    for chi in (32, 64):
+        m = 2 * chi
+        v0 = start_block(m, chi + 16, torch.complex64, dev)
+        for kind in kinds:
+            th = torch.from_numpy(make_input(rng, kind, 32, m, m, chi)).to(dev)
+            qk, rk = split.subspace_factor_cuda(th, v0, 2)
+            qp, rp = split.subspace_factor_plain(th, v0, 2)
+            torch.cuda.synchronize()
+            # rankdef and padded inputs have rank chi, below nc
+            worst("split", compare(qk, rk, qp, rp, th,
+                                   f"split B=32 chi={chi} nc={chi + 16} iters=2 {kind}", True,
+                                   surplus=kind in ("rankdef", "padded")))
+    for kind in kinds:
+        v = torch.from_numpy(make_input(rng, kind, 32, 256, 128, 128)).to(dev)
+        qk, rk = orth.orth_r_cuda(v)
+        qp, rp = orth.orth_r_plain(v)
+        torch.cuda.synchronize()
+        worst("orth_r", compare(qk, rk, qp, rp, v, f"orth_r B=32 chi=128 {kind}", False))
+
+    # Times at the main paths' largest shape: chi 64, one sim batch of 32,
+    # iters 2. The library calls are yardsticks only; no path calls them.
+    B, chi = 32, 64
+    v = torch.from_numpy(make_input(rng, "full", B, 2 * chi, chi, chi)).to(dev)
+    th = torch.from_numpy(make_input(rng, "full", B, 2 * chi, 2 * chi, chi)).to(dev)
+    A, Bm, g = gate_feeds(*make_pair(rng, "full", B, chi, dev), False)
+    v0 = start_block(2 * chi, chi, th.dtype, dev)
+    panel = torch.from_numpy(make_input(rng, "full", B, 512, 32, 256)).to(dev)
+    times = {}
+    for name, kern, plain, library in (
+        ("orth_r", lambda: orth.orth_r_cuda(v), lambda: orth.orth_r_plain(v),
+         lambda: torch.linalg.qr(v, mode="reduced")),
+        ("orth", lambda: orth.orth_cuda(v), lambda: orth.orth_plain(v),
+         lambda: torch.linalg.qr(v, mode="reduced")),
+        ("split", lambda: split.subspace_factor_cuda(th, v0, 2),
+         lambda: split.subspace_factor_plain(th, v0, 2), None),
+        ("gate_split", lambda: split.gate_subspace_factor_cuda(A, Bm, g, v0, 2),
+         lambda: split.gate_subspace_factor_plain(A, Bm, g, v0, 2), None),
+    ):
+        p1 = time_ms(plain, 3)
+        k1 = time_ms(kern, 20)
+        lib = time_ms(library, 5) if library else None
+        k2 = time_ms(kern, 20)
+        p2 = time_ms(plain, 3)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, lib)
+        log(f"  time {name} B={B} chi={chi}: kernel {k1:.4f} / {k2:.4f} ms, "
+            f"plain {p1:.4f} / {p2:.4f} ms, library call "
+            f"{'none' if lib is None else f'{lib:.4f} ms (torch.linalg.qr)'}")
+    log(f"  time orth panel v [32,512,32]: kernel {time_ms(lambda: orth.orth_cuda(panel), 20):.4f}"
+        f" ms, torch.linalg.qr {time_ms(lambda: torch.linalg.qr(panel), 5):.4f} ms")
+    log(f"  context only (another function: the full decomposition): torch.linalg.svd of theta "
+        f"[32,128,128] {time_ms(lambda: torch.linalg.svd(th), 3):.4f} ms")
+    return err, times
+
+
+def expected_launches(argv, n_batches):
+    """Kernel launches the simulation of ``n_batches`` sim batches must make
+    under the current environment, from the op stream's chunk plan and the
+    routing rules: per two-site gate one K4 launch where the stage is
+    gate-split eligible, else one K1 launch where the fused split takes the
+    shape, else 2 * iters orthonormalizations by K3; per center move one K2
+    launch with the fused split up to ``orth.MAX_K`` columns, else one
+    orthonormalization by K3. An orthonormalization of more columns than that
+    is one K3 launch per panel of ``blocked_qr.PANEL``."""
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.models import simulate
+    from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX
+    from qml_cutensornet_tpu_torch.ops import blocked_qr, orth, svd
+
+    params = pipe.parse_argv(list(argv))
+    cfg = pipe.sim_config(params)
+    chunk_len = int(os.environ.get("QMLTPU_CHUNK_LEN", "128"))
+    staged = os.environ.get("QMLTPU_STAGED", "1") != "0"
+    segs, chunk_chis, final_chi = simulate.stream_chunk_plan(
+        pipe.make_ansatz(params).schedule, cfg, chunk_len, staged)
+    iters = max(1, cfg.subspace_iters)
+
+    def panels(k):
+        return 1 if k <= orth.MAX_K else -(-k // blocked_qr.PANEL)
+
+    count = dict.fromkeys(KERNEL_NAMES, 0)
+    by_stage: dict = {}
+    cur = next((st[0] for st in chunk_chis if st), final_chi)
+    for (_, _, gk, _, _, _, n_chunks), stages in zip(segs, chunk_chis):
+        for c in range(n_chunks):
+            cur = max(cur, stages[c])
+            nc = cur + max(0, cfg.oversample)
+            for kind in gk[c * chunk_len:(c + 1) * chunk_len]:
+                if kind >= GATE_RX:
+                    continue
+                gates_moves = by_stage.setdefault(cur, [0, 0])
+                if kind == GATE_I:
+                    gates_moves[1] += 1
+                    if cfg.fused_split and cur <= orth.MAX_K:
+                        count["orth_r"] += 1
+                    else:
+                        count["orth"] += panels(cur)
+                    continue
+                gates_moves[0] += 1
+                if svd.gate_split_eligible(dataclasses.replace(cfg, chi=cur), cur):
+                    count["gate_split"] += 1
+                elif cfg.fused_split and svd.fused_split_supported(2 * cur, 2 * cur, nc):
+                    count["split"] += 1
+                else:
+                    count["orth"] += 2 * iters * panels(nc)
+    log(f"  op stream per sim batch, stage chi -> [two-site gates, center moves]: {by_stage}")
+    return {k: n * n_batches for k, n in count.items()}
+
+
+def run_counted(entry, argv, n_batches, what):
+    """Drive one entry point with the counters set to 0 just before and read
+    just after; the launches must equal the expected counts and no plain
+    version may have run on a CUDA tensor."""
     from qml_cutensornet_tpu_torch.ops import _build
-    from qml_cutensornet_tpu_torch.utils.data import load_and_prepare, preprocess_elliptic
-    from qml_cutensornet_tpu_torch.utils.naming import run_info
 
-    (WORK / "datasets").mkdir(parents=True, exist_ok=True)
-    csv = WORK / "datasets" / ARGV[-1]
-    preprocess_elliptic(dataset_dir=str(RAW_V1), out_csv=str(csv))
-    golden = np.load(GOLDEN)
-    x_train = load_and_prepare(str(csv), 32, 64, 64, 5)[0]
-    x_err = float(np.abs(x_train[:8] - golden["x"]).max())
-    assert x_err <= 1e-12, f"first 8 train rows differ from the golden x by {x_err}"
-
-    os.chdir(WORK)
-    os.environ["QMLTPU_DEVICE"] = "cuda"
+    want = expected_launches(argv, n_batches)
     _build.reset_counters()
     t0 = time.perf_counter()
-    K = main_no_test.main(list(ARGV))
+    out = entry.main(list(argv))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    plain_on_cuda = dict(_build.PLAIN_ON_CUDA)
-    log(f"main path launches {launches}, plain versions on CUDA tensors {plain_on_cuda}")
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched on the main path"
-    assert sum(plain_on_cuda.values()) == 0, "a plain version ran on a CUDA tensor"
+    launches, plain_on_cuda = dict(_build.LAUNCHES), dict(_build.PLAIN_ON_CUDA)
+    log(f"{what}: launches {launches}, plain versions on CUDA tensors {plain_on_cuda}, "
+        f"main() {wall:.3f} s")
+    assert launches == want, f"{what}: launches {launches} != expected {want}"
+    assert sum(plain_on_cuda.values()) == 0, f"{what}: a plain version ran on a CUDA tensor"
+    return out, launches
 
-    assert K.shape == (102, 102) and np.isfinite(K).all(), K.shape
+
+def check_train_gram(K, n, what):
+    assert K.shape == (n, n) and np.isfinite(K).all(), (what, K.shape)
     # Off-diagonal tiles are mirrored exactly; inside a diagonal tile K[i,j]
     # and K[j,i] come from different f32 contraction orders.
     sym_err = float(np.abs(K - K.T).max())
-    assert sym_err <= 1e-6, f"K is not symmetric: {sym_err}"
+    assert sym_err <= 1e-6, f"{what}: K is not symmetric: {sym_err}"
     diag_err = float(np.abs(np.diag(K) - 1.0).max())
-    assert diag_err <= 1e-12, f"diagonal of K off by {diag_err}"
-    gold_err = float(np.abs(K[:8, :8] - golden["k"]).max())
-    info = run_info("train", 32, 2, 1.0, 6, 64, 5, ARGV[-1])
+    assert diag_err <= 1e-12, f"{what}: diagonal of K off by {diag_err}"
+
+
+def profile_line(info, smi, what):
     prof = json.loads((WORK / f"{info}.json").read_text())
-    log(f"main path [{smi}]: max_abs_err vs f64 golden {gold_err:.3e} "
-        f"(tol {TOL_GOLDEN}), avg_fidelity {prof['avg_fidelity'][0]:.8f}, "
-        f"avg_max_chi {prof['ave max chi x'][0]:.2f}, sim {prof['r0_circ_sim'][0]:.3f} s, "
-        f"tiles {prof['kernel_mat_time'][0]:.3f} s, build_kernel_matrix "
-        f"{prof['total_time'][0]:.3f} s, main() {wall:.3f} s")
+    return (f"{what} [{smi}]: avg_fidelity {prof['avg_fidelity'][0]:.8f}, avg_max_chi "
+            f"{prof['ave max chi x'][0]:.2f}, sim {prof['r0_circ_sim'][0]:.3f} s, tiles "
+            f"{prof['kernel_mat_time'][0]:.3f} s, build_kernel_matrix "
+            f"{prof['total_time'][0]:.3f} s")
+
+
+def phase_default_route(smi, golden):
+    from qml_cutensornet_tpu_torch.cli import main_no_test
+    from qml_cutensornet_tpu_torch.utils.naming import run_info
+
+    K, launches = run_counted(main_no_test, ARGV, 4, "default route")
+    assert launches["split"] > 0 and launches["orth_r"] > 0
+    check_train_gram(K, 102, "default route")
+    gold_err = float(np.abs(K[:8, :8] - golden["k"]).max())
+    log(profile_line(run_info("train", 32, 2, 1.0, 6, 64, 5, CSV_V1), smi, "default route")
+        + f", max_abs_err vs f64 golden {gold_err:.3e} (tol {TOL_GOLDEN})")
     assert gold_err <= TOL_GOLDEN, f"8x8 block off the golden by {gold_err}"
+    return K, launches
+
+
+def phase_fused_gate_route(smi, golden, K_default):
+    from qml_cutensornet_tpu_torch.cli import main
+    from qml_cutensornet_tpu_torch.models import svm
+    from qml_cutensornet_tpu_torch.utils.data import load_and_prepare
+    from qml_cutensornet_tpu_torch.utils.device import environ
+    from qml_cutensornet_tpu_torch.utils.naming import run_info
+
+    with environ(QMLTPU_FUSED_GATE="1"):
+        # 4 sim batches for the train Gram, 4 + 1 for the test Gram
+        (K, K_test, test_rows, train_rows), launches = run_counted(
+            main, ARGV, 9, "fused-gate route")
+    assert launches["gate_split"] > 0 and launches["split"] == 0 and launches["orth_r"] > 0
+    check_train_gram(K, 102, "fused-gate route")
+    gold_err = float(np.abs(K[:8, :8] - golden["k"]).max())
+    route_err = float(np.abs(K - K_default).max())
+    args = (32, 2, 1.0, 6, 64, 5, CSV_V1)
+    log(profile_line(run_info("train", *args), smi, "fused-gate route, train Gram")
+        + f", max_abs_err vs f64 golden {gold_err:.3e} (tol {TOL_GOLDEN}), vs the default "
+        f"route's K {route_err:.3e} (tol {TOL_ROUTES})")
+    log(profile_line(run_info("test", *args), smi, "fused-gate route, test Gram"))
+    assert gold_err <= TOL_GOLDEN, f"fused-gate 8x8 block off the golden by {gold_err}"
+    assert route_err <= TOL_ROUTES, f"fused-gate K off the default route's by {route_err}"
+
+    x_train, y_train, x_test, y_test = load_and_prepare(
+        str(WORK / "datasets" / CSV_V1), 32, 64, 64, 5)
+    assert K_test.shape == (len(x_test), len(x_train)) == (26, 102), K_test.shape
+    assert np.isfinite(K_test).all() and K_test.min() >= 0.0 and K_test.max() <= 1.0 + 1e-6, (
+        K_test.min(), K_test.max())
+    t0 = time.perf_counter()
+    for rows in (test_rows, train_rows):
+        rows = np.asarray(rows)
+        assert rows.shape == (11, 5) and np.isfinite(rows).all()
+        assert list(rows[:, 0]) == svm.REGULARIZATION_SWEEP
+        assert rows[:, 1:].min() >= 0.0 and rows[:, 1:].max() <= 1.0
+    worst_kkt = 0.0
+    for C in svm.REGULARIZATION_SWEEP:
+        worst_kkt = max(worst_kkt, svm.SVC(C=C, tol=TOL_KKT).fit(K, y_train).kkt_violation_)
+    assert worst_kkt <= TOL_KKT, f"an SVC fit violates its KKT conditions by {worst_kkt}"
+    best = np.asarray(test_rows)[np.argmax(np.asarray(test_rows)[:, 4])]
+    log(f"fused-gate route, SVC sweep: 11 + 11 rows, worst KKT violation {worst_kkt:.3e} "
+        f"(tol {TOL_KKT}), best test row [C, acc, prec, rec, auc] {best.tolist()}, "
+        f"11 refits {time.perf_counter() - t0:.3f} s on the host")
     return launches
+
+
+def phase_unfused_route(smi):
+    from qml_cutensornet_tpu_torch.cli import main_no_test
+    from qml_cutensornet_tpu_torch.utils.data import preprocess_elliptic
+    from qml_cutensornet_tpu_torch.utils.device import environ
+    from qml_cutensornet_tpu_torch.utils.naming import run_info
+
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    # (a) the headline shape, one sim batch, every orthonormalization by K3
+    info = run_info("train", 32, 2, 1.0, 6, 20, 5, CSV_V1)
+    with environ(QMLTPU_FUSED_SPLIT="0"):
+        K, launches = run_counted(main_no_test, ARGV_ONE_BATCH, 1, "unfused route")
+    assert launches["orth"] > 0 and launches["split"] == launches["orth_r"] == 0
+    add(launches)
+    check_train_gram(K, 32, "unfused route")
+    log(profile_line(info, smi, "unfused route, one sim batch"))
+    K_fused, _ = run_counted(main_no_test, ARGV_ONE_BATCH, 1, "default route, same points")
+    log(profile_line(info, smi, "default route, same points"))
+    err = float(np.abs(K - K_fused).max())
+    log(f"unfused route vs default route on the same 32 points: max_abs_err {err:.3e} "
+        f"(tol {TOL_ROUTES})")
+    assert err <= TOL_ROUTES, f"unfused K off the default route's by {err}"
+
+    # (b) 16 qubits above chi 64, where K1 no longer takes the split (nc =
+    # chi + 16 > 128): the unfused chain with the blocked route, K3 on
+    # panels of 32. Cap 256 (stages 32, 64, 256): every split iterate (272
+    # columns) and center move (256 columns) of the chi-256 stage is blocked.
+    # Cap 128 (stages 32, 64, 128): the split iterates (144 columns) are
+    # blocked, the center moves stay on K2. Each f32 run is held to the
+    # port's own f64 run on the card at the same cap.
+    preprocess_elliptic(dataset_dir=str(RAW_V2), out_csv=str(WORK / "datasets" / CSV_V2))
+    for chi, data, csv in (("256", "v1", CSV_V1), ("256", "tied-spectrum v2", CSV_V2),
+                           ("128", "v1", CSV_V1)):
+        argv = ARGV_CHI256[:-1] + [csv]
+        info = run_info("train", 16, 2, 1.0, 6, 20, 5, csv)
+        what = f"chi {chi}, {data} data"
+        with environ(QMLTPU_CHI=chi):
+            K32, launches = run_counted(main_no_test, argv, 1, f"{what}, f32")
+            log(profile_line(info, smi, f"{what}, f32"))
+            assert launches["orth"] > 0
+            add(launches)
+            with environ(QMLTPU_PRECISION="f64"):
+                K64, _ = run_counted(main_no_test, argv, 1, f"{what}, f64")
+                log(profile_line(info, smi, f"{what}, f64"))
+        diff = np.abs(K32 - K64)
+        err, at = float(diff.max()), np.unravel_index(np.argmax(diff), diff.shape)
+        off = K64[~np.eye(32, dtype=bool)]
+        log(f"{what}: f32 vs f64 on the card max_abs_err {err:.3e} at entry "
+            f"{tuple(int(i) for i in at)} (f64 value {K64[at]:.6f}); f64 off-diagonal entries "
+            f"median {np.median(off):.3e}, max {off.max():.6f}; f32 asymmetry "
+            f"{np.abs(K32 - K32.T).max():.3e}")
+        if data == "v1":
+            check_train_gram(K32, 32, f"{what}, f32")
+            assert err <= TOL_F64, f"{what}: f32 Gram off its f64 Gram by {err}"
+        else:
+            # Near-duplicate points: entries near 1, whose rounding the unit
+            # diagonal does not absorb; reported, not gated.
+            log(f"tied-spectrum answer (not gated): f32-vs-f64 error {err:.3e} at nq 16, chi 256")
+    return total
 
 
 def main() -> int:
@@ -275,27 +634,50 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
               file=sys.stderr)
         return 2
+    from qml_cutensornet_tpu_torch.utils.data import load_and_prepare, preprocess_elliptic
+    from qml_cutensornet_tpu_torch.utils.device import nvidia_smi
+
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | python {sys.version.split()[0]}")
     phase_build(dev)
     err, times = phase_kernels(dev)
-    launches = phase_main_path(dev, smi)
-    summary = {"kernels": [
-        {"name": "split", "route": "cuda",
-         "source": "qml_cutensornet_tpu_torch/csrc/subspace_split.cu",
-         "replaces": "qml_cutensornet_tpu/ops/pallas_split.py:145",
-         "launches": launches["split"], "max_abs_err": err["split"],
-         "ms": times["split"][0], "plain_ms": times["split"][1]},
-        {"name": "orth_r", "route": "cuda",
-         "source": "qml_cutensornet_tpu_torch/csrc/orth_r.cu",
-         "replaces": "qml_cutensornet_tpu/ops/pallas_qr.py:241",
-         "launches": launches["orth_r"], "max_abs_err": err["orth_r"],
-         "ms": times["orth_r"][0], "plain_ms": times["orth_r"][1]},
-    ]}
+    log(f"kernels phase done at {time.perf_counter() - t_start:.1f} s")
+
+    (WORK / "datasets").mkdir(parents=True, exist_ok=True)
+    csv = WORK / "datasets" / CSV_V1
+    preprocess_elliptic(dataset_dir=str(RAW_V1), out_csv=str(csv))
+    golden = np.load(GOLDEN)
+    x_train = load_and_prepare(str(csv), 32, 64, 64, 5)[0]
+    x_err = float(np.abs(x_train[:8] - golden["x"]).max())
+    assert x_err <= 1e-12, f"first 8 train rows differ from the golden x by {x_err}"
+    os.chdir(WORK)
+    os.environ["QMLTPU_DEVICE"] = "cuda"
+
+    by_path = {}
+    K_default, by_path["default"] = phase_default_route(smi, golden)
+    log(f"default route done at {time.perf_counter() - t_start:.1f} s")
+    by_path["fused_gate"] = phase_fused_gate_route(smi, golden, K_default)
+    log(f"fused-gate route done at {time.perf_counter() - t_start:.1f} s")
+    by_path["unfused"] = phase_unfused_route(smi)
+    log(f"unfused routes done at {time.perf_counter() - t_start:.1f} s")
+
+    bounds = kernel_bounds(32, 64, 2)
+    kernels = []
+    for name, source, replaces in KERNEL_TABLE:
+        launches = sum(p[name] for p in by_path.values())
+        assert launches > 0, f"kernel {name} never launched on any main path"
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches,
+            "launches_by_path": {path: p[name] for path, p in by_path.items()},
+            "max_abs_err": err[name], "ms": times[name][0], "plain_ms": times[name][1],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": times[name][2]})
     print(smi)
-    print(json.dumps(summary))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,14 +20,16 @@ names where the port supports them:
     QMLTPU_OVERSAMPLE      subspace oversampling (default 16 at chi >= 128)
     QMLTPU_POWER_PRECISION / QMLTPU_TILE_PRECISION  inherit | highest
     QMLTPU_TILE_BLOCK      sites per tile-scan step (default 2 at chi <= 128)
+    QMLTPU_FUSED_SPLIT     1 (default): split by kernel K1, center move by K2;
+                           0: the unfused chain (kernel K3 + matrix products)
+    QMLTPU_FUSED_GATE      1: two-site updates by kernel K4 (default 0)
     QMLTPU_SIM_BATCH       circuits per batch (default 32)
     QMLTPU_TILE            Gram tile side (default 32)
     QMLTPU_STAGED, QMLTPU_CHUNK_LEN, QMLTPU_NORMALIZE  as in the reference
 
 Knobs of features not ported yet raise: QMLTPU_ROUTING other than tracked,
-QMLTPU_MESH > 1, QMLTPU_FUSED_SPLIT=0 (the port has only the fused
-kernels), QMLTPU_FUSED_GATE=1, QMLTPU_MGS_PAIR=1, QMLTPU_SHARD_MPS,
-QMLTPU_BRICK_CAPS=1, QMLTPU_CHECKPOINT=1 and QMLTPU_CHI=auto.
+QMLTPU_MESH > 1, QMLTPU_MGS_PAIR=1, QMLTPU_SHARD_MPS, QMLTPU_BRICK_CAPS=1,
+QMLTPU_CHECKPOINT=1 and QMLTPU_CHI=auto.
 """
 
 from __future__ import annotations
@@ -85,12 +87,9 @@ def check_unported_knobs() -> None:
     mesh = os.environ.get("QMLTPU_MESH")
     if mesh is not None and int(mesh) > 1:
         raise NotImplementedError("QMLTPU_MESH > 1 (multi-device Gram) is not ported")
-    if not _env_flag("QMLTPU_FUSED_SPLIT", "1"):
-        raise NotImplementedError("QMLTPU_FUSED_SPLIT=0 (unfused split) is not ported")
     if os.environ.get("QMLTPU_SHARD_MPS", "0") != "0":
         raise NotImplementedError("QMLTPU_SHARD_MPS is not ported")
-    for knob in ("QMLTPU_FUSED_GATE", "QMLTPU_MGS_PAIR", "QMLTPU_BRICK_CAPS",
-                 "QMLTPU_CHECKPOINT"):
+    for knob in ("QMLTPU_MGS_PAIR", "QMLTPU_BRICK_CAPS", "QMLTPU_CHECKPOINT"):
         if _env_flag(knob):
             raise NotImplementedError(f"{knob}=1 is not ported")
     if os.environ.get("QMLTPU_CHI") == "auto":
@@ -139,7 +138,8 @@ def sim_config(params: RunParams) -> SimConfig:
         oversample=oversample,
         power_precision=os.environ.get("QMLTPU_POWER_PRECISION", "inherit"),
         tile_precision=os.environ.get("QMLTPU_TILE_PRECISION", "inherit"),
-        fused_split=True,
+        fused_split=_env_flag("QMLTPU_FUSED_SPLIT", "1"),
+        fused_gate=_env_flag("QMLTPU_FUSED_GATE"),
         tile_block=tile_block,
     )
 

@@ -6,15 +6,19 @@ complex tensors: ``precision`` names the real dtype under them ("f32" ->
 complex64, "f64" -> complex128).
 
 Fields whose behaviour the port does not implement yet raise on a
-non-default value instead of being ignored: ``fused_gate``, ``mgs_pair``,
+non-default value instead of being ignored: ``mgs_pair``,
 ``brick_struct_caps``, any ``svd_method`` other than "subspace", and
 ``power_precision`` / ``tile_precision`` other than "inherit" / "highest".
 Because "subspace" is the only factorization ported, it is also the
 default here (the reference's dataclass default is "svd"; its CLI and bench
-default is "subspace"). ``fused_split`` is kept for field parity only: the
-port's split and center move always run the fused kernels on CUDA tensors
-(the reference's unfused chain is not ported). ``fused_interpret`` (Pallas interpret mode) has no counterpart and is
-dropped; :meth:`SimConfig.from_reference` discards it.
+default is "subspace"). ``fused_split`` and ``fused_gate`` mean what they
+mean in the reference: ``fused_split`` routes the split through kernel K1
+and the center move through K2 (off: kernel K3 and matrix products, the
+reference's unfused chain), and ``fused_gate`` on top of it routes the
+two-site update through K4. As in the reference the dataclass default of
+both is off and the CLI turns ``fused_split`` on. ``fused_interpret``
+(Pallas interpret mode) has no counterpart and is dropped;
+:meth:`SimConfig.from_reference` discards it.
 """
 
 from __future__ import annotations
@@ -78,7 +82,7 @@ class SimConfig:
         if self.svd_method != "subspace":
             raise NotImplementedError(
                 f"svd_method={self.svd_method!r} is not ported; use 'subspace'")
-        for name in ("fused_gate", "mgs_pair", "brick_struct_caps"):
+        for name in ("mgs_pair", "brick_struct_caps"):
             if getattr(self, name):
                 raise NotImplementedError(f"{name}=True is not ported")
         for name in ("power_precision", "tile_precision"):

@@ -15,7 +15,8 @@
 // then writes q[b] [m, nc] = V^T (the port's column layout) and
 // r[b] [nc, k] = conj(V) theta (= q^H theta). Both orthonormalizations are
 // the BCGS2 routine of bcgs2.cuh (same constants and zero invariants as
-// pallas_qr.orth_rows_body).
+// pallas_qr.orth_rows_body). The chain itself is split_chain.cuh, shared
+// with the gate + theta-build kernel (gate_split.cu).
 //
 // What bounds it on Hopper: latency of the serial BCGS2 column chains
 // (2 * iters orthonormalizations of nc dependent column steps each); the
@@ -34,48 +35,9 @@
 
 #include <cstddef>
 
-#include "bcgs2.cuh"
+#include "split_chain.cuh"
 
 namespace qk {
-
-template <typename T>
-__host__ __device__ size_t split_smem_bytes(int m, int k, int nc, bool rows_in_smem) {
-  const size_t ldp = (size_t)(m > k ? m : k) + 1;
-  size_t cx = (size_t)PANEL * ldp + (size_t)nc * PANEL;
-  if (rows_in_smem) cx += (size_t)nc * ((size_t)k + 1) + (size_t)nc * ((size_t)m + 1);
-  return cx * sizeof(Cx<T>) + (size_t)(NWARPS + PANEL) * sizeof(T);
-}
-
-// V[j * ldv + mm] = sum_kk theta[mm, kk] W[j * ldw + kk]. Each thread holds
-// MB rows mm for one j (neighbouring threads: neighbouring j, conflict-free
-// on the padded W rows; theta reads broadcast). No barrier.
-template <typename T>
-__device__ void theta_times_w(const Cx<T>* th, int m, int k, const Cx<T>* W, int ldw,
-                              Cx<T>* V, int ldv, int nc) {
-  constexpr int MB = 4;
-  const int ngrp = (m + MB - 1) / MB;
-  for (int idx = threadIdx.x; idx < ngrp * nc; idx += NTHREADS) {
-    const int j = idx % nc, m0 = (idx / nc) * MB;
-    T ar[MB], ai[MB];
-#pragma unroll
-    for (int u = 0; u < MB; ++u) ar[u] = ai[u] = 0;
-    const Cx<T>* wj = W + (size_t)j * ldw;
-    for (int kk = 0; kk < k; ++kk) {
-      const Cx<T> w = wj[kk];
-#pragma unroll
-      for (int u = 0; u < MB; ++u) {
-        if (m0 + u < m) {
-          const Cx<T> t = th[(size_t)(m0 + u) * k + kk];
-          ar[u] += t.re * w.re - t.im * w.im;
-          ai[u] += t.re * w.im + t.im * w.re;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < MB; ++u)
-      if (m0 + u < m) V[(size_t)j * ldv + m0 + u] = Cx<T>{ar[u], ai[u]};
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
@@ -84,49 +46,11 @@ split_kernel(const Cx<T>* __restrict__ theta, const Cx<T>* __restrict__ v0,
              int m, int k, int nc, int iters, int rows_in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x;
-  const int ldw = k + 1, ldv = m + 1, ldp = (m > k ? m : k) + 1;
-  const Cx<T>* th = theta + (size_t)b * m * k;
-
-  Cx<T>* p = reinterpret_cast<Cx<T>*>(smem_raw);
-  Cx<T>* W;
-  Cx<T>* V;
-  if (rows_in_smem) {
-    W = p;
-    p += (size_t)nc * ldw;
-    V = p;
-    p += (size_t)nc * ldv;
-  } else {
-    W = scratch + (size_t)b * nc * (ldw + ldv);
-    V = W + (size_t)nc * ldw;
-  }
-  Cx<T>* panel = p;
-  p += (size_t)PANEL * ldp;
-  Cx<T>* coef = p;
-  p += (size_t)nc * PANEL;
-  T* red = reinterpret_cast<T*>(p);
-
-  for (int it = 0; it < iters; ++it) {
-    if (it == 0) {
-      // W[j][kk] = sum_mm v0[mm, j] conj(theta[mm, kk])
-      gemm_xty<T, false, true>(v0, 1, nc, th, k, W, ldw, nc, k, m);
-    } else {
-      // W[j][kk] = sum_mm V[j][mm] conj(theta[mm, kk])
-      gemm_xty<T, false, true>(V, ldv, 1, th, k, W, ldw, nc, k, m);
-    }
-    __syncthreads();
-    bcgs2<T>(Src<T>{W, ldw, 1}, W, ldw, nc, k, panel, ldp, coef, red);
-    theta_times_w<T>(th, m, k, W, ldw, V, ldv, nc);
-    __syncthreads();
-    bcgs2<T>(Src<T>{V, ldv, 1}, V, ldv, nc, m, panel, ldp, coef, red);
-  }
-
-  Cx<T>* qb = q + (size_t)b * m * nc;
-  for (int idx = threadIdx.x; idx < m * nc; idx += NTHREADS) {
-    const int j = idx % nc, mm = idx / nc;
-    qb[idx] = V[(size_t)j * ldv + mm];
-  }
-  // r[j][kk] = sum_mm conj(V[j][mm]) theta[mm, kk]
-  gemm_xty<T, true, false>(V, ldv, 1, th, k, r + (size_t)b * nc * k, k, nc, k, m);
+  const ChainWork<T> w = chain_carve<T>(reinterpret_cast<Cx<T>*>(smem_raw),
+                                        scratch + (size_t)b * chain_rows_cx(m, k, nc), m, k, nc,
+                                        rows_in_smem != 0);
+  split_chain<T>(theta + (size_t)b * m * k, v0, q + (size_t)b * m * nc,
+                 r + (size_t)b * nc * k, w, m, k, nc, iters);
 }
 
 template <typename T>
@@ -150,8 +74,8 @@ int split_launch(const void* theta, const void* v0, void* q, void* r, void* scra
 extern "C" {
 
 long long qk_split_smem(int m, int k, int nc, int dbl, int rows_in_smem) {
-  return dbl ? (long long)qk::split_smem_bytes<double>(m, k, nc, rows_in_smem != 0)
-             : (long long)qk::split_smem_bytes<float>(m, k, nc, rows_in_smem != 0);
+  return dbl ? (long long)qk::chain_smem_bytes<double>(m, k, nc, rows_in_smem != 0)
+             : (long long)qk::chain_smem_bytes<float>(m, k, nc, rows_in_smem != 0);
 }
 
 int qk_split_launch(const void* theta, const void* v0, void* q, void* r, void* scratch, int B,

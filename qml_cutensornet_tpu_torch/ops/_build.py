@@ -1,10 +1,11 @@
 """Build ``csrc/*.cu`` with ``nvcc`` and load it with ``ctypes``.
 
-The kernels have a plain C interface (no PyTorch headers), so one ``nvcc``
-call builds them in seconds. The shared library goes into
-``build/kernels/`` next to the package (``.gitignore`` lists ``build/``),
-named by a hash of the sources and flags, so a fresh checkout builds on
-first use and a rebuilt source never loads a stale library.
+The kernels have a plain C interface (no PyTorch headers), so ``nvcc``
+builds each source in seconds; one ``nvcc`` process per source, all started
+together. Each source becomes its own shared library in ``build/kernels/``
+next to the package (``.gitignore`` lists ``build/``), named by a hash of
+the sources, headers and flags, so a fresh checkout builds on first use and
+a rebuilt source never loads a stale library.
 
 Launch bookkeeping lives here too: ``LAUNCHES`` counts kernel launches per
 kernel (incremented by each wrapper right after its launch succeeded), and
@@ -22,30 +23,46 @@ import pathlib
 import shutil
 import subprocess
 import time
+import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("orth_r.cu", "subspace_split.cu")
-HEADERS = ("bcgs2.cuh",)
+HEADERS = ("bcgs2.cuh", "split_chain.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"split": 0, "orth_r": 0}
-PLAIN_ON_CUDA = {"split": 0, "orth_r": 0}
+KERNELS = ("split", "orth_r", "orth", "gate_split")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
 # Filled by the first load(): {"seconds": build time (0 if cached),
-# "path": library path, "log": nvcc output}.
+# "path": the libraries' directory, "log": nvcc output}.
 BUILD_INFO: dict = {}
 
 _LIB = None
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    "qk_orth_r_smem": ([_i, _i, _i, _i], _ll),
-    "qk_orth_r_launch": ([_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _ll, _vp], _i),
-    "qk_split_smem": ([_i, _i, _i, _i, _i], _ll),
-    "qk_split_launch": ([_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _ll, _vp], _i),
-    "qk_smem_optin": ([_i], _ll),
-    "qk_error_string": ([_i], ctypes.c_char_p),
+# source -> {C entry point: (argtypes, restype)}
+SOURCES = {
+    "orth_r.cu": {
+        "qk_orth_r_smem": ([_i, _i, _i, _i], _ll),
+        "qk_orth_r_launch": ([_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _ll, _vp], _i),
+        "qk_smem_optin": ([_i], _ll),
+        "qk_error_string": ([_i], ctypes.c_char_p),
+    },
+    "subspace_split.cu": {
+        "qk_split_smem": ([_i, _i, _i, _i, _i], _ll),
+        "qk_split_launch": ([_vp] * 5 + [_i] * 7 + [_ll, _vp], _i),
+    },
+    "orth.cu": {
+        "qk_orth_smem": ([_i, _i, _i, _i], _ll),
+        "qk_orth_scratch": ([_i, _i, _i], _ll),
+        "qk_orth_launch": ([_vp, _vp, _vp, _i, _i, _i, _i, _i, _ll, _vp], _i),
+    },
+    "gate_split.cu": {
+        "qk_gate_split_smem": ([_i, _i, _i, _i, _i], _ll),
+        "qk_gate_split_scratch": ([_i, _i, _i, _i], _ll),
+        "qk_gate_split_launch": ([_vp] * 8 + [_i] * 7 + [_ll, _vp], _i),
+    },
 }
 
 
@@ -65,37 +82,52 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); cannot build the CUDA kernels")
 
 
-def _source_key() -> str:
+def _source_key(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in (source, *HEADERS):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
 def load():
-    """The kernels' shared library, built on first use."""
+    """The kernels' C entry points (attributes of the returned namespace),
+    built on first use: every source that has no library yet is compiled by
+    its own ``nvcc`` process, all of them running at once."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    so = BUILD_DIR / f"libqk_{_source_key()}.so"
     t0 = time.perf_counter()
-    log = ""
-    if not so.is_file():
+    paths = {src: BUILD_DIR / f"libqk_{pathlib.Path(src).stem}_{_source_key(src)}.so"
+             for src in SOURCES}
+    procs = []
+    for src, so in paths.items():
+        if so.is_file():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [str(CSRC / s) for s in SOURCES]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        log = proc.stdout + proc.stderr
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs.append((cmd, tmp, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for cmd, tmp, so, proc in procs:  # wait for every process before raising
+        out = proc.communicate()[0]
+        log += out
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(so), log=log)
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    lib = types.SimpleNamespace()
+    for src, so in paths.items():
+        cdll = ctypes.CDLL(str(so))
+        for name, (argtypes, restype) in SOURCES[src].items():
+            fn = getattr(cdll, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            setattr(lib, name, fn)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(BUILD_DIR), log=log)
     _LIB = lib
     return lib
 

@@ -23,7 +23,11 @@ import torch
 from qml_cutensornet_tpu_torch.config import SimConfig
 from qml_cutensornet_tpu_torch.models.ansatz import DIR_L
 from qml_cutensornet_tpu_torch.ops import orth
-from qml_cutensornet_tpu_torch.ops.svd import truncated_svd
+from qml_cutensornet_tpu_torch.ops.svd import (
+    gate_split_eligible,
+    truncated_svd,
+    truncated_svd_gate,
+)
 
 
 @dataclasses.dataclass
@@ -69,16 +73,31 @@ def apply_2site(mps: MPS, site: int, u4: torch.Tensor, cfg: SimConfig,
     the pair into theta, apply the gate, split back with the truncated
     factorization. ``direction`` DIR_L (1) leaves the orthogonality center
     at ``site`` by factoring theta^T (plain transpose); otherwise it ends at
-    ``site+1``."""
+    ``site+1``.
+
+    When :func:`gate_split_eligible` (``cfg.fused_gate``), theta is built and
+    gate-applied inside kernel K4 and never formed here; the factors then
+    come back with s-major rows and are reshaped on the write-back."""
     chi = mps.tensors.shape[2]
     B = mps.tensors.shape[0]
     a = mps.tensors[:, site]
     b = mps.tensors[:, site + 1]
+    is_left = direction == DIR_L
+    if gate_split_eligible(cfg, chi):
+        left, right, kept_fraction, rank = truncated_svd_gate(a, b, u4, cfg, chi, is_left)
+        if is_left:
+            # theta^T factors: left [(t be), keep], right [keep, (s al)].
+            new_a = right.reshape(B, chi, 2, chi).permute(0, 3, 2, 1)
+            new_b = left.reshape(B, 2, chi, chi).permute(0, 3, 1, 2)
+        else:
+            # left [(s al), keep] -> new_a [al, s, keep]
+            new_a = left.reshape(B, 2, chi, chi).transpose(1, 2)
+            new_b = right.reshape(B, chi, 2, chi)
+        return _write_pair(mps, site, new_a, new_b, kept_fraction, rank)
     theta = torch.einsum("zasb,zbtc->zastc", a, b)
     g = u4.reshape(B, 2, 2, 2, 2)
     theta = torch.einsum("zstuv,zauvc->zastc", g, theta)
     m = theta.reshape(B, 2 * chi, 2 * chi)
-    is_left = direction == DIR_L
     if is_left:
         m = m.transpose(1, 2).contiguous()
     fl, fr, kept_fraction, rank = truncated_svd(m, cfg, keep=chi)
@@ -86,15 +105,22 @@ def apply_2site(mps: MPS, site: int, u4: torch.Tensor, cfg: SimConfig,
         new_a, new_b = fr.transpose(1, 2), fl.transpose(1, 2)
     else:
         new_a, new_b = fl, fr
-    mps.tensors[:, site] = new_a.reshape(B, chi, 2, chi)
-    mps.tensors[:, site + 1] = new_b.reshape(B, chi, 2, chi)
+    return _write_pair(mps, site, new_a.reshape(B, chi, 2, chi), new_b.reshape(B, chi, 2, chi),
+                       kept_fraction, rank)
+
+
+def _write_pair(mps: MPS, site: int, new_a, new_b, kept_fraction, rank) -> MPS:
+    mps.tensors[:, site] = new_a
+    mps.tensors[:, site + 1] = new_b
     mps.bond_dims[:, site] = rank
     return MPS(mps.tensors, mps.fidelity * kept_fraction.to(mps.fidelity.dtype), mps.bond_dims)
 
 
 def move_center(mps: MPS, site: int, direction: int, cfg: SimConfig) -> MPS:
-    """Move the orthogonality center across bond ``(site, site+1)`` with the
-    fused Q+R (kernel K2 on CUDA tensors). Exact: no truncation. DIR_R (0)
+    """Move the orthogonality center across bond ``(site, site+1)`` by
+    ``orth.qr``: the fused Q+R (kernel K2) with ``cfg.fused_split`` up to chi
+    128, else kernel K3 (blocked above chi 128) and a matrix product for r.
+    Exact: no truncation. DIR_R (0)
     leaves the center at ``site+1``, DIR_L (1) at ``site``; a move toward
     where the center already sits is an exact no-op (chunk padding)."""
     chi = mps.tensors.shape[2]
@@ -103,11 +129,11 @@ def move_center(mps: MPS, site: int, direction: int, cfg: SimConfig) -> MPS:
     b = mps.tensors[:, site + 1]
     if direction == DIR_L:
         th = b.reshape(B, chi, 2 * chi).mH.contiguous()  # t^H [2chi, chi]
-        q, r = orth.qr(th)  # t^H = q r
+        q, r = orth.qr(th, fused=cfg.fused_split)  # t^H = q r
         new_b = q.mH.reshape(B, chi, 2, chi)  # row-orthonormal
         new_a = torch.einsum("zasb,zbj->zasj", a, r.mH)
     else:
-        q, r = orth.qr(a.reshape(B, 2 * chi, chi).contiguous())
+        q, r = orth.qr(a.reshape(B, 2 * chi, chi).contiguous(), fused=cfg.fused_split)
         new_a = q.reshape(B, chi, 2, chi)
         new_b = torch.einsum("zij,zjsc->zisc", r, b)
     mps.tensors[:, site] = new_a

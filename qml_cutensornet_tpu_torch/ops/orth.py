@@ -1,20 +1,30 @@
-"""Kernel K2, the fused Q+R orthonormalizer, and its plain PyTorch version.
+"""Kernels K2 (fused Q+R) and K3 (basis only), the BCGS2 orthonormalizers,
+and their plain PyTorch versions.
 
-Port of ``qml_cutensornet_tpu/ops/pallas_qr.py`` (``orth_rows_body`` and
-``_make_orth_r_kernel``). :func:`qr` returns, for each ``v[b] [m, k]``, an
-orthonormal basis ``q`` of its columns by blocked classical Gram-Schmidt
-with reorthogonalization (BCGS2: panels of 16 columns, two CGS passes
-against finished columns, then MGS2 within the panel) and ``r = q^H v``
-(``[k, k]``, not triangular; ``q @ r == v`` to roundoff). Columns whose
-residual norm^2 falls to ``DEP_TOL2`` times their original norm^2 or below
-are numerically dependent and come out as exact zeros; exact-zero columns
-and rows of ``v`` stay exactly zero. The basis is defined only up to a
-unitary mixing within the span, so callers use basis-invariant quantities.
+Port of ``qml_cutensornet_tpu/ops/pallas_qr.py`` (``orth_rows_body``,
+``_make_orth_r_kernel``, ``_make_orth_kernel``) and of the routing of
+``ops/cpx.py`` (``qr``, ``qr_orth``). For each ``v[b] [m, k]`` the basis
+``q`` of its columns comes from blocked classical Gram-Schmidt with
+reorthogonalization (BCGS2: panels of 16 columns, two CGS passes against
+finished columns, then MGS2 within the panel); ``r = q^H v`` (``[k, k]``,
+not triangular; ``q @ r == v`` to roundoff). Columns whose residual norm^2
+falls to ``DEP_TOL2`` times their original norm^2 or below are numerically
+dependent and come out as exact zeros; exact-zero columns and rows of ``v``
+stay exactly zero. The basis is defined only up to a unitary mixing within
+the span, so callers use basis-invariant quantities.
 
-Routing: a CPU tensor runs :func:`orth_r_plain`; a CUDA tensor runs the
-CUDA kernel (``csrc/orth_r.cu`` + ``csrc/bcgs2.cuh``) or raises. The kernel
-takes k <= 128 (a partial last panel is fine) and m <= 256, in complex64
-(complex128 runs the double instantiation of the same kernel).
+Routing: a CPU tensor runs the plain version; a CUDA tensor runs the CUDA
+kernel or raises.
+
+- :func:`qr` ``(v, fused)``: up to 128 columns, ``fused`` runs K2
+  (``csrc/orth_r.cu``: q and r in one launch; m <= 256), otherwise K3 and
+  ``r = q^H v`` as a batched matrix product; above 128 columns the blocked
+  route (``ops/blocked_qr.py``, K3 on each panel) and the same product.
+- :func:`qr_orth`: K3 (``csrc/orth.cu``: k <= 128, any m) up to 128 columns,
+  the blocked route above.
+
+Both kernels run complex64 and, through the double instantiation of the
+same code, complex128. A partial last panel is fine.
 """
 
 from __future__ import annotations
@@ -31,15 +41,22 @@ MAX_K = 128
 MAX_M = 256
 
 
-def orth_plain(v: torch.Tensor) -> torch.Tensor:
+def abs2(x: torch.Tensor) -> torch.Tensor:
+    """``|x|^2`` elementwise, real."""
+    return x.real * x.real + x.imag * x.imag
+
+
+def bcgs2_plain(v: torch.Tensor) -> torch.Tensor:
     """BCGS2 orthonormal basis of the columns of ``v [B, m, k]`` (complex),
-    written with torch ops: the same algorithm and constants as the kernel."""
+    written with torch ops: the same algorithm and constants as the kernels.
+    Shared by the plain versions of all four kernels (each of which counts
+    its own use on CUDA tensors)."""
     B, m, k = v.shape
     q = torch.zeros_like(v)
     for p0 in range(0, k, PANEL):
         pw = min(PANEL, k - p0)
         a = v[:, :, p0:p0 + pw]
-        n2_orig = (a.real * a.real + a.imag * a.imag).sum(1)  # [B, pw]
+        n2_orig = abs2(a).sum(1)  # [B, pw]
         if p0:
             done = q[:, :, :p0]
             for _ in range(2):
@@ -51,27 +68,57 @@ def orth_plain(v: torch.Tensor) -> torch.Tensor:
                 for _ in range(2):
                     c = (qp.conj() * x[:, :, None]).sum(1)  # [B, t]
                     x = x - (qp * c[:, None, :]).sum(2)
-            n2 = (x.real * x.real + x.imag * x.imag).sum(1)
+            n2 = abs2(x).sum(1)
             keep = (n2 > DEP_TOL2 * n2_orig[:, t]).to(n2.dtype)
             inv = torch.rsqrt(n2 + TINY) * keep
             q[:, :, p0 + t] = x * inv[:, None]
     return q
 
 
+def orth_plain(v: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: the BCGS2 basis."""
+    if v.is_cuda:
+        _build.PLAIN_ON_CUDA["orth"] += 1
+    return bcgs2_plain(v)
+
+
 def orth_r_plain(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K2: ``(q, q^H v)``."""
     if v.is_cuda:
         _build.PLAIN_ON_CUDA["orth_r"] += 1
-    q = orth_plain(v)
+    q = bcgs2_plain(v)
     return q, q.mH @ v
 
 
-def qr(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused orthonormalization ``v [B, m, k] -> (q [B, m, k], r [B, k, k])``:
-    the kernel for CUDA tensors, the plain version for CPU tensors."""
+def orth(v: torch.Tensor) -> torch.Tensor:
+    """Orthonormal basis ``v [B, m, k] -> q [B, m, k]`` for k <= 128: kernel
+    K3 for CUDA tensors, its plain version for CPU tensors."""
     if v.device.type == "cpu":
-        return orth_r_plain(v)
-    return orth_r_cuda(v)
+        return orth_plain(v)
+    return orth_cuda(v)
+
+
+def qr_orth(v: torch.Tensor) -> torch.Tensor:
+    """Orthonormal basis of the columns of ``v [B, m, k]`` at any k: K3 up
+    to 128 columns, the blocked route (K3 on panels of 32) above."""
+    if v.shape[-1] <= MAX_K:
+        return orth(v.contiguous())
+    from qml_cutensornet_tpu_torch.ops import blocked_qr
+
+    return blocked_qr.qr_orth_blocked(v)
+
+
+def qr(v: torch.Tensor, fused: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """``v [B, m, k] -> (q [B, m, k], r [B, k, k])`` with ``q r == v``. Up to
+    128 columns with ``fused``: K2, one launch for both (its plain version
+    for CPU tensors). Otherwise the basis from :func:`qr_orth` and
+    ``r = q^H v`` as a batched matrix product."""
+    if fused and v.shape[-1] <= MAX_K:
+        if v.device.type == "cpu":
+            return orth_r_plain(v)
+        return orth_r_cuda(v)
+    q = qr_orth(v)
+    return q, q.mH @ v
 
 
 def _check_input(v: torch.Tensor, name: str) -> bool:
@@ -107,3 +154,26 @@ def orth_r_cuda(v: torch.Tensor, smem_bytes: int | None = None):
     _build.check(rc, "orth_r kernel launch")
     _build.LAUNCHES["orth_r"] += 1
     return q, r
+
+
+def orth_cuda(v: torch.Tensor) -> torch.Tensor:
+    """Launch K3 on ``v [B, m, k]`` (k <= 128, any m). The finished vectors
+    and the working panel go to shared memory while they fit and to a global
+    scratch buffer otherwise (``place`` in ``csrc/orth.cu``)."""
+    dbl = _check_input(v, "orth")
+    if v.dim() != 3:
+        raise ValueError(f"orth: expected [B, m, k], got {tuple(v.shape)}")
+    B, m, k = v.shape
+    if not (1 <= k <= MAX_K and m >= 1 and B >= 1):
+        raise ValueError(f"orth: kernel takes k <= {MAX_K}; got m={m}, k={k}")
+    lib = _build.load()
+    optin = _build.smem_optin(v.device.index)
+    place = next((p for p in (2, 1) if lib.qk_orth_smem(m, k, int(dbl), p) <= optin), 0)
+    q = torch.empty_like(v)
+    scratch = torch.empty((B, lib.qk_orth_scratch(m, k, place)), dtype=v.dtype, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    rc = lib.qk_orth_launch(v.data_ptr(), q.data_ptr(), scratch.data_ptr(), B, m, k, int(dbl),
+                            place, lib.qk_orth_smem(m, k, int(dbl), place), stream)
+    _build.check(rc, "orth kernel launch")
+    _build.LAUNCHES["orth"] += 1
+    return q

@@ -1,4 +1,5 @@
-"""Kernel K1, the fused subspace split, and its plain PyTorch version.
+"""Kernels K1 (fused subspace split) and K4 (gate + theta build + split),
+and their plain PyTorch versions.
 
 Port of ``qml_cutensornet_tpu/ops/pallas_split.py`` (``_make_split_kernel``
 / ``_split_chain``). For each ``theta[b] [m, k]`` and the shared start
@@ -11,9 +12,19 @@ and returns ``q = v [B, m, nc]`` (a masked isometry approximating the top
 left singular subspace; zero columns exactly zero) and ``r = q^H theta
 [B, nc, k]``. ``orth`` is the BCGS2 orthonormalizer of ``ops/orth.py``.
 
-Routing: a CPU tensor runs :func:`subspace_factor_plain`; a CUDA tensor runs
-the CUDA kernel (``csrc/subspace_split.cu``) or raises. The kernel takes
-nc <= 128, m, k <= 256, iters >= 1, in complex64 (complex128 runs the
+:func:`gate_subspace_factor` is the port of ``_make_gate_split_kernel``
+(with ``_gate_combine``): it takes the two site tensors as ``A [B, 2chi,
+chi]`` (rows ``(u, alpha)`` u-major) and ``Bm [B, chi, 2chi]`` (columns
+``(v, beta)`` v-major) and the gate ``g [B, 4, 4]`` (``g[2s+t, 2u+v]``),
+builds ``theta[(s alpha), (t beta)] = sum_uv g[2s+t, 2u+v] (A Bm)[(u alpha),
+(v beta)]`` and runs the same chain on it, returning ``(q [B, 2chi, nc],
+r [B, nc, 2chi], tot [B])`` with ``tot = ||theta||_F^2`` (theta itself is
+not returned: the truncation mask needs only its weight).
+
+Routing: a CPU tensor runs the plain version; a CUDA tensor runs the CUDA
+kernel (``csrc/subspace_split.cu``, ``csrc/gate_split.cu``; both run the
+chain of ``csrc/split_chain.cuh``) or raises. The kernels take nc <= 128,
+m, k <= 256 (chi <= 128), iters >= 1, in complex64 (complex128 runs the
 double instantiation).
 """
 
@@ -22,21 +33,26 @@ from __future__ import annotations
 import torch
 
 from qml_cutensornet_tpu_torch.ops import _build
-from qml_cutensornet_tpu_torch.ops.orth import _check_input, orth_plain
+from qml_cutensornet_tpu_torch.ops.orth import _check_input, abs2, bcgs2_plain
 
 MAX_NC = 128
 MAX_MK = 256
 
 
-def subspace_factor_plain(theta: torch.Tensor, v0: torch.Tensor, iters: int):
-    """Plain version of K1: the double-multiply chain with the plain BCGS2."""
-    if theta.is_cuda:
-        _build.PLAIN_ON_CUDA["split"] += 1
+def _chain_plain(theta: torch.Tensor, v0: torch.Tensor, iters: int):
+    """The double-multiply chain with the plain BCGS2."""
     v = v0.expand(theta.shape[0], *v0.shape)
     for _ in range(iters):
-        w = orth_plain(theta.mH @ v)
-        v = orth_plain(theta @ w)
+        w = bcgs2_plain(theta.mH @ v)
+        v = bcgs2_plain(theta @ w)
     return v, v.mH @ theta
+
+
+def subspace_factor_plain(theta: torch.Tensor, v0: torch.Tensor, iters: int):
+    """Plain version of K1."""
+    if theta.is_cuda:
+        _build.PLAIN_ON_CUDA["split"] += 1
+    return _chain_plain(theta, v0, iters)
 
 
 def subspace_factor(theta: torch.Tensor, v0: torch.Tensor, iters: int):
@@ -75,3 +91,72 @@ def subspace_factor_cuda(theta: torch.Tensor, v0: torch.Tensor, iters: int):
     _build.check(rc, "split kernel launch")
     _build.LAUNCHES["split"] += 1
     return q, r
+
+
+def gate_theta(A: torch.Tensor, Bm: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``theta [B, 2chi, 2chi]`` of the gate applied to the pair, from the
+    u-major / v-major stacks: the 4 x 4 combine over the four chi x chi
+    quadrants of ``A @ Bm``."""
+    B, m, chi = A.shape
+    t0 = (A @ Bm).reshape(B, 2, chi, 2, chi)
+    theta = torch.einsum("zstuv,zuavb->zsatb", g.reshape(B, 2, 2, 2, 2), t0)
+    return theta.reshape(B, m, m)
+
+
+def gate_subspace_factor_plain(A, Bm, g, v0, iters: int):
+    """Plain version of K4."""
+    if A.is_cuda:
+        _build.PLAIN_ON_CUDA["gate_split"] += 1
+    theta = gate_theta(A, Bm, g)
+    tot = abs2(theta).sum((1, 2))
+    q, r = _chain_plain(theta, v0, iters)
+    return q, r, tot
+
+
+def gate_subspace_factor(A, Bm, g, v0, iters: int):
+    """``A [B, 2chi, chi]``, ``Bm [B, chi, 2chi]``, ``g [B, 4, 4]``, ``v0
+    [2chi, nc]`` -> ``(q [B, 2chi, nc], r [B, nc, 2chi], tot [B])``: kernel
+    K4 for CUDA tensors, its plain version for CPU tensors."""
+    if A.device.type == "cpu":
+        return gate_subspace_factor_plain(A, Bm, g, v0, iters)
+    return gate_subspace_factor_cuda(A, Bm, g, v0, iters)
+
+
+def gate_subspace_factor_cuda(A, Bm, g, v0, iters: int):
+    """Launch K4. theta lives in shared memory when it fits beside the
+    chain's working rows, otherwise in a global scratch buffer, as do the
+    rows when they do not fit (``csrc/gate_split.cu``)."""
+    dbl = _check_input(A, "gate_split A")
+    for t, name in ((Bm, "B"), (g, "g"), (v0, "v0")):
+        _check_input(t, f"gate_split {name}")
+        if t.dtype != A.dtype or t.device != A.device:
+            raise ValueError("gate_split: A, B, g and v0 must share dtype and device")
+    if A.dim() != 3 or A.shape[1] != 2 * A.shape[2]:
+        raise ValueError(f"gate_split: expected A [B, 2chi, chi], got {tuple(A.shape)}")
+    B, m, chi = A.shape
+    if tuple(Bm.shape) != (B, chi, m) or tuple(g.shape) != (B, 4, 4) or (
+            v0.dim() != 2 or v0.shape[0] != m):
+        raise ValueError(f"gate_split: expected B [B, chi, 2chi], g [B, 4, 4], v0 [2chi, nc]; "
+                         f"got {tuple(Bm.shape)}, {tuple(g.shape)}, {tuple(v0.shape)}")
+    nc = v0.shape[1]
+    if not (1 <= nc <= MAX_NC and 1 <= m <= MAX_MK and iters >= 1):
+        raise ValueError(f"gate_split: kernel takes nc <= {MAX_NC}, 2chi <= {MAX_MK}, "
+                         f"iters >= 1; got chi={chi}, nc={nc}, iters={iters}")
+    lib = _build.load()
+    optin = _build.smem_optin(A.device.index)
+    rows = lib.qk_gate_split_smem(chi, nc, int(dbl), 1, 0) <= optin
+    th = rows and lib.qk_gate_split_smem(chi, nc, int(dbl), 1, 1) <= optin
+    smem_bytes = lib.qk_gate_split_smem(chi, nc, int(dbl), int(rows), int(th))
+    q = torch.empty((B, m, nc), dtype=A.dtype, device=A.device)
+    r = torch.empty((B, nc, m), dtype=A.dtype, device=A.device)
+    tot = torch.empty(B, dtype=A.real.dtype, device=A.device)
+    scratch = torch.empty((B, lib.qk_gate_split_scratch(chi, nc, int(rows), int(th))),
+                          dtype=A.dtype, device=A.device)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    rc = lib.qk_gate_split_launch(A.data_ptr(), Bm.data_ptr(), g.data_ptr(), v0.data_ptr(),
+                                  q.data_ptr(), r.data_ptr(), tot.data_ptr(),
+                                  scratch.data_ptr(), B, chi, nc, int(iters), int(dbl),
+                                  int(rows), int(th), smem_bytes, stream)
+    _build.check(rc, "gate_split kernel launch")
+    _build.LAUNCHES["gate_split"] += 1
+    return q, r, tot

@@ -1,17 +1,31 @@
 """Truncated factorization of the two-site update, subspace method (port of
 ``qml_cutensornet_tpu/ops/svd.py``: ``_subspace_start``, ``_split_subspace``,
-``_finish_subspace``, ``_mask_from_s2``, ``truncated_svd``).
+``_finish_subspace``, ``_mask_from_s2``, ``truncated_svd``,
+``gate_split_eligible``, ``truncated_svd_gate``).
 
 ``truncated_svd(theta [B, m, k], cfg, keep)`` returns ``(left [B, m, keep],
 right [B, keep, k], kept_fraction [B], rank [B])`` with ``left`` a masked
 isometry spanning (an approximation of) the kept left singular subspace and
-``right = left^H theta``. The subspace comes from the fused split
-(``ops/split.py``: kernel K1 on CUDA tensors, its plain version on CPU
-tensors), started from the same fixed numpy block as the reference so port
-and reference iterate from the same v0. Per-direction squared singular
-values are the row norms of ``r``; the truncation mask is the reference's
-sorted-threshold eps rule plus the sv-ratio floor and ``value_of_zero``.
-Discarded directions are exact zeros (the padding invariant).
+``right = left^H theta``. The subspace comes from ``iters`` rounds of
+``w = orth(theta^H v)``, ``v = orth(theta w)``, started from the same fixed
+numpy block as the reference so port and reference iterate from the same
+v0. Three routes run that chain:
+
+- fused split (``cfg.fused_split`` and a shape kernel K1 takes: nc <= 128,
+  m, k <= 256): one launch of K1 (``ops/split.py``);
+- unfused split (``cfg.fused_split`` off, or a shape K1 does not take, such
+  as chi 128 with the default oversampling of 16, nc = 144): the products
+  as ``torch.matmul`` and every orthonormalization through
+  ``orth.qr_orth`` (kernel K3, on panels of 32 above 128 columns);
+- fused gate (``truncated_svd_gate``, taken by ``ops/mps.apply_2site`` when
+  :func:`gate_split_eligible`): one launch of K4 builds theta from the two
+  site tensors and the gate, and runs the chain; theta is never formed by
+  torch ops, and its squared norm comes from the kernel.
+
+Per-direction squared singular values are the row norms of ``r``; the
+truncation mask is the reference's sorted-threshold eps rule plus the
+sv-ratio floor and ``value_of_zero``. Discarded directions are exact zeros
+(the padding invariant).
 """
 
 from __future__ import annotations
@@ -20,7 +34,7 @@ import numpy as np
 import torch
 
 from qml_cutensornet_tpu_torch.config import SimConfig
-from qml_cutensornet_tpu_torch.ops import split
+from qml_cutensornet_tpu_torch.ops import orth, split
 
 
 def _subspace_start(m: int, keep: int, dtype_name: str):
@@ -48,23 +62,34 @@ def start_block(m: int, nc: int, dtype: torch.dtype, device: torch.device) -> to
     return v0
 
 
-def _abs2(x: torch.Tensor) -> torch.Tensor:
-    return x.real * x.real + x.imag * x.imag
+def fused_split_supported(m: int, k: int, nc: int) -> bool:
+    """Shapes kernel K1 takes (the reference's ``fused_split_supported``
+    without its panel-alignment and dtype rules: the Hopper kernel takes
+    partial panels and has a double instantiation)."""
+    return nc <= split.MAX_NC and m <= split.MAX_MK and k <= split.MAX_MK
 
 
 def _split_subspace(theta: torch.Tensor, cfg: SimConfig, keep: int):
     B, m, k = theta.shape
     nc = keep + max(0, cfg.oversample)
     v0 = start_block(m, nc, theta.dtype, theta.device)
-    q, r = split.subspace_factor(theta, v0, max(1, cfg.subspace_iters))
-    total = _abs2(theta).sum((1, 2))
+    iters = max(1, cfg.subspace_iters)
+    if cfg.fused_split and fused_split_supported(m, k, nc):
+        q, r = split.subspace_factor(theta, v0, iters)
+    else:
+        v = v0.expand(B, m, nc)
+        for _ in range(iters):
+            w = orth.qr_orth(theta.mH @ v)
+            v = orth.qr_orth(theta @ w)
+        q, r = v, v.mH @ theta
+    total = orth.abs2(theta).sum((1, 2))
     return _finish_subspace(q, r, total, cfg, keep, nc)
 
 
 def _finish_subspace(q, r, total, cfg: SimConfig, keep: int, nc: int):
     """Squared singular values from the right factor's row norms, top-keep
     gather when oversampled, truncation mask, masked factors."""
-    s2 = _abs2(r).sum(2)  # [B, nc]
+    s2 = orth.abs2(r).sum(2)  # [B, nc]
     if nc > keep:
         sel = torch.argsort(-s2, dim=1, stable=True)[:, :keep]
         q = torch.gather(q, 2, sel[:, None, :].expand(-1, q.shape[1], -1))
@@ -110,3 +135,55 @@ def truncated_svd(theta: torch.Tensor, cfg: SimConfig, keep: int):
     if cfg.svd_method != "subspace":
         raise NotImplementedError(f"svd_method={cfg.svd_method!r} is not ported")
     return _split_subspace(theta, cfg, keep)
+
+
+def gate_split_eligible(cfg: SimConfig, chi: int) -> bool:
+    """Whether a two-site update at bond cap ``chi`` takes the fused-gate
+    route (kernel K4). The shape rules are the reference's
+    (``gate_split_supported``): chi a multiple of 8, nc = chi + oversample a
+    multiple of 16 and at most 128, chi at most 128. So on the staged ramp
+    the chi-8 stage (nc = 8) stays on the fused or unfused split and the
+    stages from chi 16 go to K4, as in the reference. Unlike the reference
+    the port also takes f64 (the kernel's double instantiation)."""
+    if not (cfg.fused_split and cfg.fused_gate):
+        return False
+    nc = chi + max(0, cfg.oversample)
+    return chi % 8 == 0 and nc % 16 == 0 and fused_split_supported(2 * chi, 2 * chi, nc)
+
+
+def gate_feeds(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, is_left: bool):
+    """Kernel K4's inputs for the pair ``a, b [B, chi, 2, chi]`` and gate ``g
+    [B, 4, 4]``: ``(A [B, 2chi, chi], Bm [B, chi, 2chi], g)`` whose theta is
+    the pair's theta (``is_left`` false) or its plain transpose (``is_left``
+    true). The transposed case never transposes theta: it swaps the stacks
+    and permutes the gate, ``g'[2t+s, 2v+u] = g[2s+t, 2u+v]``."""
+    B, chi = a.shape[0], a.shape[1]
+    if is_left:
+        A = b.permute(0, 2, 3, 1).reshape(B, 2 * chi, chi)  # rows (t, be), cols b
+        Bm = a.permute(0, 3, 2, 1).reshape(B, chi, 2 * chi)  # rows b, cols (u, al)
+        perm = [0, 2, 1, 3]
+        g = g[:, perm][:, :, perm]
+    else:
+        A = a.transpose(1, 2).reshape(B, 2 * chi, chi)  # rows (u, al), cols b
+        Bm = b.reshape(B, chi, 2 * chi)  # rows b, cols (v, be)
+    return A.contiguous(), Bm.contiguous(), g.contiguous()
+
+
+def truncated_svd_gate(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, cfg: SimConfig,
+                       keep: int, is_left: bool):
+    """The two-site update's factorization without forming theta by torch
+    ops: ``a, b [B, chi, 2, chi]`` site tensors, ``g [B, 4, 4]`` the gate.
+    Returns ``(left [B, 2chi, keep], right [B, keep, 2chi], kept_fraction,
+    rank)`` for theta (``is_left`` false) or theta^T (``is_left`` true).
+
+    Layout contract (differs from :func:`truncated_svd` on the row side):
+    ``left`` rows are s-major, ``left[s * chi + al]`` is the (spin s, bond
+    al) component; ``right`` columns are t-major. For ``is_left`` the roles
+    read t-major rows and s-major columns. The caller owns the write-back
+    reshapes (``ops/mps.apply_2site``)."""
+    chi = a.shape[1]
+    nc = keep + max(0, cfg.oversample)
+    v0 = start_block(2 * chi, nc, a.dtype, a.device)
+    q, r, total = split.gate_subspace_factor(*gate_feeds(a, b, g, is_left), v0,
+                                             max(1, cfg.subspace_iters))
+    return _finish_subspace(q, r, total, cfg, keep, nc)

@@ -15,6 +15,10 @@ exactly the device asked for, or raises.
 
 from __future__ import annotations
 
+import contextlib
+import os
+import subprocess
+
 import torch
 
 
@@ -45,6 +49,32 @@ def resolve_device(name: str) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def nvidia_smi() -> str:
+    """Name and power limit of the first card as ``nvidia-smi`` reports them
+    (a card set below its maximum power runs slower under load, so every
+    measurement is printed beside this line)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def environ(**knobs: str):
+    """Set environment knobs (``QMLTPU_*``) for one run and restore them
+    after it."""
+    old = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 set_full_f32()

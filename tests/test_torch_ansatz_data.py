@@ -71,9 +71,15 @@ def test_config_from_reference_and_unported_fields():
     port = SimConfig.from_reference(dataclasses.asdict(ref))
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    # The route flags are carried faithfully in every combination.
+    for fs in (False, True):
+        for fg in (False, True):
+            ref = RefConfig(svd_method="subspace", fused_split=fs, fused_gate=fg)
+            port = SimConfig.from_reference(dataclasses.asdict(ref))
+            assert (port.fused_split, port.fused_gate) == (fs, fg)
     with pytest.raises(NotImplementedError):
         SimConfig.from_reference(dataclasses.asdict(RefConfig()))  # svd_method="svd"
-    for bad in (dict(fused_gate=True), dict(mgs_pair=True), dict(brick_struct_caps=True),
+    for bad in (dict(mgs_pair=True), dict(brick_struct_caps=True),
                 dict(svd_method="eigh"), dict(power_precision="high"),
                 dict(tile_precision="bfloat16")):
         with pytest.raises(NotImplementedError):

@@ -1,7 +1,9 @@
-"""CUDA kernels of the PyTorch port on a card: each kernel against its plain
-PyTorch version at the main path's shapes, the double instantiation and the
-global-scratch layout, the launch-error path, and the train-Gram slice on
-the card against the same slice on the CPU.
+"""CUDA kernels of the PyTorch port on a card: each of the four kernels
+against its plain PyTorch version at the main paths' shapes (the basis-only
+kernel also at the blocked route's panel shapes), the double instantiations
+and the global-scratch layouts, the launch-error path, and the Gram slice on
+the card against the same slice on the CPU on the fused, fused-gate, unfused
+and blocked routes.
 
 Every test here is marked ``cuda`` and skips where there is no card. This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -21,7 +23,7 @@ from qml_cutensornet_tpu_torch.config import SimConfig
 from qml_cutensornet_tpu_torch.models.ansatz import KernelStateAnsatz
 from qml_cutensornet_tpu_torch.models.entanglement import entanglement_graph
 from qml_cutensornet_tpu_torch.models.gram import build_kernel_matrix
-from qml_cutensornet_tpu_torch.ops import _build, orth, split
+from qml_cutensornet_tpu_torch.ops import _build, blocked_qr, orth, split
 from qml_cutensornet_tpu_torch.ops.svd import start_block
 
 pytestmark = pytest.mark.cuda
@@ -82,6 +84,90 @@ def test_split_kernel_matches_plain(dev, chi, iters, kind):
     _close(qk, rk, qp, rp, TOL)
 
 
+@pytest.mark.parametrize("m,k", [(16, 8), (64, 32), (128, 64), (160, 80), (256, 128),
+                                 (128, 32), (512, 32), (2048, 32)])
+@pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
+def test_orth_kernel_matches_plain(dev, m, k, kind):
+    """K3 at the center-move and split shapes and at the panel shapes of the
+    blocked route (k 32; m 512 keeps the panel in shared memory and the
+    finished vectors in global scratch in f64, m 2048 puts both in global
+    scratch)."""
+    rng = np.random.default_rng(m + k)
+    v = torch.from_numpy(_input(rng, kind, 8, m, k)).to(dev)
+    before = _build.LAUNCHES["orth"]
+    qk = orth.orth(v)
+    assert _build.LAUNCHES["orth"] == before + 1
+    qp = orth.orth_plain(v)
+    torch.cuda.synchronize()
+    assert (qk @ qk.mH - qp @ qp.mH).abs().max().item() <= TOL
+    assert torch.equal(qk.abs().sum(1) == 0, qp.abs().pow(2).sum(1) < 0.25)
+    live = (qk.abs().sum(1) > 0).to(qk.real.dtype)
+    gram = qk.mH @ qk - torch.diag_embed(live).to(qk.dtype)
+    assert gram.abs().max().item() <= 5e-6
+
+
+def _gate_inputs(rng, kind, b, chi, dtype=np.complex64):
+    """Site-tensor stacks A [b, 2chi, chi], Bm [b, chi, 2chi] and unitary
+    gates g [b, 4, 4]."""
+    A = _input(rng, kind, b, 2 * chi, chi, dtype)
+    Bm = _input(rng, kind, b, chi, 2 * chi, dtype)
+    g, _ = np.linalg.qr(rng.standard_normal((b, 4, 4)) + 1j * rng.standard_normal((b, 4, 4)))
+    return A, Bm, g.astype(dtype)
+
+
+def _close_gate(dev, A, Bm, g, nc, iters, tol):
+    A, Bm, g = (torch.from_numpy(x).to(dev) for x in (A, Bm, g))
+    v0 = start_block(A.shape[1], nc, A.dtype, dev)
+    before = _build.LAUNCHES["gate_split"]
+    qk, rk, totk = split.gate_subspace_factor(A, Bm, g, v0, iters)
+    assert _build.LAUNCHES["gate_split"] == before + 1
+    qp, rp, totp = split.gate_subspace_factor_plain(A, Bm, g, v0, iters)
+    torch.cuda.synchronize()
+    _close(qk, rk, qp, rp, tol)
+    assert ((totk - totp).abs() / totp).max().item() <= (1e-5 if tol > 1e-9 else 1e-12)
+    theta = split.gate_theta(A, Bm, g)
+    assert ((totk - theta.abs().pow(2).sum((1, 2))).abs() / totp).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("chi", [8, 16, 32, 64])
+@pytest.mark.parametrize("iters", [1, 2])
+@pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
+def test_gate_split_kernel_matches_plain(dev, chi, iters, kind):
+    """K4: theta in shared memory up to chi 32, in global scratch at chi 64."""
+    rng = np.random.default_rng(100 + chi + iters)
+    _close_gate(dev, *_gate_inputs(rng, kind, 32, chi), chi, iters, TOL)
+
+
+def test_gate_split_oversampled_double_and_scratch(dev):
+    """nc = chi + 16; complex128; chi 128 (rows and theta in global scratch)."""
+    rng = np.random.default_rng(7)
+    _close_gate(dev, *_gate_inputs(rng, "full", 4, 32), 48, 2, TOL)
+    _close_gate(dev, *_gate_inputs(rng, "rank_deficient", 4, 16, np.complex128), 16, 2, 1e-12)
+    _close_gate(dev, *_gate_inputs(rng, "full", 4, 64, np.complex128), 64, 1, 1e-12)
+    _close_gate(dev, *_gate_inputs(rng, "rank_deficient", 2, 128), 128, 1, TOL)
+    with pytest.raises(ValueError):
+        _close_gate(dev, *_gate_inputs(rng, "full", 2, 128), 144, 1, TOL)
+
+
+def test_orth_double_and_blocked_route(dev):
+    """K3 in complex128 (panel shape: finished vectors in global scratch) and
+    the blocked route above 128 columns on the card against the CPU."""
+    rng = np.random.default_rng(11)
+    v = torch.from_numpy(_input(rng, "full", 4, 512, 32, np.complex128)).to(dev)
+    qk, qp = orth.orth_cuda(v), orth.orth_plain(v)
+    assert (qk @ qk.mH - qp @ qp.mH).abs().max().item() <= 1e-12
+    wide = torch.from_numpy(_input(rng, "zero_padded", 4, 288, 144))
+    before = _build.LAUNCHES["orth"]
+    q_gpu = blocked_qr.qr_orth_blocked(wide.to(dev))
+    assert _build.LAUNCHES["orth"] == before + 5  # 144 columns: 5 panels of 32
+    q_cpu = blocked_qr.qr_orth_blocked(wide)
+    assert (q_gpu.cpu() @ q_gpu.cpu().mH - q_cpu @ q_cpu.mH).abs().max().item() <= TOL
+    q, r = orth.qr(wide.to(dev), fused=True)  # above 128 columns: blocked, then q^H v
+    assert (q @ r - wide.to(dev)).abs().max().item() <= TOL
+    with pytest.raises(ValueError):
+        orth.orth_cuda(wide.to(dev))
+
+
 def test_double_and_global_scratch_layouts(dev):
     """complex128 runs the double instantiation; chi 128 in f32 (m = k = 256,
     nc = 128) does not fit shared memory and runs the global-scratch layout."""
@@ -112,14 +198,25 @@ def test_refused_launch_raises_and_is_not_counted(dev):
         orth.orth_r_cuda(torch.zeros((2, 256, 144), dtype=torch.complex64, device=dev))
 
 
-def test_slice_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("route,cfg_kw,used,unused", [
+    ("fused", dict(fused_split=True), ("split", "orth_r"), ("orth", "gate_split")),
+    # without staging every update runs at chi 16, which K4 takes
+    ("fused_gate", dict(fused_split=True, fused_gate=True), ("orth_r", "gate_split"),
+     ("split", "orth")),
+    ("unfused", dict(fused_split=False), ("orth",), ("split", "orth_r", "gate_split")),
+])
+def test_slice_on_card_matches_cpu(dev, monkeypatch, route, cfg_kw, used, unused):
+    monkeypatch.setenv("QMLTPU_STAGED", "0" if route == "fused_gate" else "1")
     nq = 8
     X = np.random.default_rng(2).uniform(0.0, 2.0, size=(6, nq))
     ans = KernelStateAnsatz(nq, 1, 1.0, entanglement_graph(nq, 2))
-    cfg = SimConfig(chi=16, tile_block=2)
+    cfg = SimConfig(chi=16, tile_block=2, **cfg_kw)
     _build.reset_counters()
     K_gpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cuda")
-    assert _build.LAUNCHES["split"] > 0 and _build.LAUNCHES["orth_r"] > 0
+    for name in used:
+        assert _build.LAUNCHES[name] > 0, (route, name)
+    for name in unused:
+        assert _build.LAUNCHES[name] == 0, (route, name)
     assert sum(_build.PLAIN_ON_CUDA.values()) == 0
     K_cpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cpu")
     np.testing.assert_allclose(K_gpu, K_cpu, atol=3e-5)

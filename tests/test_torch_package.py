@@ -1,9 +1,11 @@
-"""Package-level rules of the PyTorch port: it imports neither JAX nor the
-reference package (checked in a fresh interpreter, so this test process's
-own JAX import cannot mask a leak), and importing it fixes full-f32
-matmuls (TF32 off), the Hopper form of the reference's HIGHEST-precision
-rule."""
+"""Package-level rules of the PyTorch port: it imports neither JAX, the
+reference package, scikit-learn nor pandas (checked in a fresh interpreter
+over every module of the package, so this test process's own imports cannot
+mask a leak; and on the syntax tree of ``chip_smoke.py``, whose imports sit
+inside its functions), and importing it fixes full-f32 matmuls (TF32 off),
+the Hopper form of the reference's HIGHEST-precision rule."""
 
+import ast
 import os
 import pathlib
 import subprocess
@@ -30,8 +32,11 @@ def test_port_imports_neither_jax_nor_reference():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib',"
-        " 'qml_cutensornet_tpu'))\n"
+        " 'qml_cutensornet_tpu', 'sklearn', 'pandas'))\n"
         "assert not bad, bad\n"
+        "names = {n for n in sys.modules if n.startswith(p.__name__)}\n"
+        "for mod in ('cli.main', 'cli.classical_main', 'models.svm', 'ops.blocked_qr'):\n"
+        "    assert p.__name__ + '.' + mod in names, mod\n"
         "from qml_cutensornet_tpu_torch.utils.device import full_f32_is_set\n"
         "assert full_f32_is_set()\n"
         "print('ok', len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
@@ -41,3 +46,27 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_only_the_port():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert "qml_cutensornet_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "qml_cutensornet_tpu", "sklearn", "pandas"}, roots
+
+
+def test_environ_sets_and_restores_knobs(monkeypatch):
+    monkeypatch.setenv("QMLTPU_CHI", "64")
+    monkeypatch.delenv("QMLTPU_FUSED_GATE", raising=False)
+    try:
+        with port_device.environ(QMLTPU_CHI="256", QMLTPU_FUSED_GATE="1"):
+            assert os.environ["QMLTPU_CHI"] == "256" and os.environ["QMLTPU_FUSED_GATE"] == "1"
+            raise KeyError("leaves the block by an exception")
+    except KeyError:
+        pass
+    assert os.environ["QMLTPU_CHI"] == "64" and "QMLTPU_FUSED_GATE" not in os.environ

@@ -84,14 +84,28 @@ def test_cli_main_no_test_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("QMLTPU_ROUTING", "brick"), ("QMLTPU_MESH", "2"), ("QMLTPU_FUSED_GATE", "1"),
+    ("QMLTPU_ROUTING", "brick"), ("QMLTPU_MESH", "2"),
     ("QMLTPU_MGS_PAIR", "1"), ("QMLTPU_SHARD_MPS", "all"), ("QMLTPU_CHI", "auto"),
-    ("QMLTPU_CHECKPOINT", "1"), ("QMLTPU_FUSED_SPLIT", "0"),
+    ("QMLTPU_CHECKPOINT", "1"),
 ])
 def test_unported_knobs_raise(monkeypatch, knob, value):
     monkeypatch.setenv(knob, value)
     with pytest.raises(NotImplementedError):
         _pipeline.parse_argv(["m", "GPU", "6", "1", "1.0", "1", "5", "5", "1", "v1.csv"])
+
+
+@pytest.mark.parametrize("knob,value,field,expected", [
+    ("QMLTPU_FUSED_GATE", "1", "fused_gate", True),
+    ("QMLTPU_FUSED_SPLIT", "0", "fused_split", False),
+])
+def test_route_knobs_reach_the_config(monkeypatch, knob, value, field, expected):
+    """The knobs of the fused-gate and unfused routes set the config fields
+    the engine routes on; unset, the CLI runs fused_split on, fused_gate off."""
+    argv = ["m", "GPU", "6", "1", "1.0", "1", "5", "5", "1", "v1.csv"]
+    default = _pipeline.sim_config(_pipeline.parse_argv(argv))
+    assert (default.fused_split, default.fused_gate) == (True, False)
+    monkeypatch.setenv(knob, value)
+    assert getattr(_pipeline.sim_config(_pipeline.parse_argv(argv)), field) is expected
 
 
 def test_cuda_device_without_card_raises(monkeypatch):
