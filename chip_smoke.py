@@ -9,17 +9,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    per source, all at once; timed), print the ptxas resource lines, and check
    that a launch asking for more dynamic shared memory than the card allows
    raises (negative control).
-3. kernels: each of the four kernels against its plain PyTorch version on
+3. kernels: each of the five kernels against its plain PyTorch version on
    the card at the main paths' shapes (chi 8..64, batch 32 and 100, 1 and 2
    power iterations; full-rank, rank-deficient, zero-padded and graded
    inputs; the basis-only kernel also at the blocked route's panel shapes,
    the gate kernel on both feeds and at chi 128; and the shapes that only
    the chi-128 and chi-256 runs give: K1 with 16 oversampled columns, K2 at
    [32, 256, 128] on its global-scratch layout, K3 on the 16-column last
-   panel of a 144- or 272-column split), on basis-invariant quantities, each
-   against its stated tolerance; then kernel, plain-version and library-call
-   times at the main-path shape with CUDA events, beside the least time the
-   card could take for the same work (``bound_ms``).
+   panel of a 144- or 272-column split; the brick kernel K5 at chi 16..128,
+   batch 6 and 408 pairs, 1 and 2 iterations, swap-network and plain gates,
+   full inputs and zero-padded ones whose Schmidt weights are exact zeros
+   past a rank of 5, and with 16 oversampled columns at chi 16), on
+   basis-invariant quantities, each against its stated tolerance; then
+   kernel, plain-version and library-call times at the main-path shape with
+   CUDA events (K5 at the brick slice's chi 128, 408 pairs), beside the least
+   time the card could take for the same work (``bound_ms``).
 4. default route: the port's ``cli.main_no_test`` at the repo's headline
    shape (32 qubits, r=2, d=6, chi 64, f32, 102 train points of the pinned v1
    data): kernels K1 and K2 carry it; K symmetric with unit diagonal, its
@@ -44,10 +48,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    default oversampling makes the split 144 columns wide, so that it leaves
    K1 for the blocked route while the center moves stay on K2, held to its
    f64 run likewise.
+7. brick route (``QMLTPU_ROUTING=brick``, chi 128, oversampling 0, so that
+   every stage from chi 16 is one K5 takes): (a) 14 qubits, r=2, d=6, one sim
+   batch of 32, with ``QMLTPU_FUSED_GATE=1`` (K5, and K1 on the chi-8 stage),
+   held within 3e-5 to the tracked default route at the same settings (K1
+   and K2; no bond of 14 qubits exceeds 2^7 = 128, so neither truncates); (b)
+   the full-width configuration, nf=100, r=2, d=6, 5 + 5 points (8 train
+   points, one sim batch of 8) with ``QMLTPU_FUSED_GATE=1`` (128 K5 and 16 K1
+   launches); (c) the same with ``QMLTPU_FUSED_GATE=0``, K1 on every pair
+   update, held to (b) within 1e-4; (e) (b) in f64; fidelity, chi, sim and
+   tile seconds of each run beside the card's name and power limit.
 
 On every route the launch counters must equal the counts worked out from
-the op stream and the routing rules, and no plain version may have run on a
-CUDA tensor. The last three lines of stdout are the card's name and power
+the op stream (the brick layers' chunk plan on the brick route) and the
+routing rules, and no plain version may have run on a CUDA tensor. The last three lines of stdout are the card's name and power
 limit, the kernels summary JSON and the result JSON ``{"ok": true,
 "device": {...}}``.
 """
@@ -72,6 +86,12 @@ ARGV = ["main", "GPU", "32", "2", "1.0", "6", "64", "64", "5", CSV_V1]
 # 20 + 20 points: 32 train points, one sim batch.
 ARGV_ONE_BATCH = ["main", "GPU", "32", "2", "1.0", "6", "20", "20", "5", CSV_V1]
 ARGV_CHI256 = ["main", "GPU", "16", "2", "1.0", "6", "20", "20", "5", CSV_V1]
+# The brick route: 14 qubits on one sim batch of 32, and the full width, nf
+# 100 on 5 + 5 points (8 train points, one sim batch of 8).
+ARGV_BRICK14 = ["main", "GPU", "14", "2", "1.0", "6", "20", "20", "5", CSV_V1]
+ARGV_BRICK100 = ["main", "GPU", "100", "2", "1.0", "6", "5", "5", "5", CSV_V1]
+BRICK_KNOBS = {"QMLTPU_CHI": "128", "QMLTPU_OVERSAMPLE": "0"}
+BRICK_BN = 8 * 51  # pairs of one full-width layer: 8 circuits x 51 pairs (nf 100)
 GOLDEN = ROOT / "runs/golden/bench_nq32_r2_d6_g1.0_N8.npz"
 RAW_V1 = ROOT / "datasets/elliptic_bitcoin_dataset_v1"
 RAW_V2 = ROOT / "datasets/elliptic_bitcoin_dataset"  # generator version 2: tied levels
@@ -90,6 +110,10 @@ TOL_GOLDEN = 1e-6  # leading 8x8 Gram block vs the f64 golden (ROADMAP bar)
 TOL_ROUTES = 3e-5  # Gram of one route vs another; the reference's fused-vs-unfused bar
 TOL_F64 = 1e-5  # chi-256 and chi-128 f32 Gram vs the port's f64 Gram on the card
 TOL_KKT = 1e-3  # the SVC's stopping tolerance
+# nf 100 brick Gram through K5 vs through K1 at chi 128: both runs truncate,
+# and their kept subspaces differ by rounding, which truncating every bond of
+# 100 qubits can carry past the 3e-5 of runs that truncate nothing.
+TOL_BRICK_ROUTES = 1e-4
 
 # Published peaks of one H100 SXM at its full 700 W power limit: f32 outside
 # the tensor cores, and HBM3 bandwidth. ``bound_ms`` is the larger of the
@@ -106,6 +130,8 @@ KERNEL_TABLE = (
      "qml_cutensornet_tpu/ops/pallas_qr.py:232"),
     ("gate_split", "qml_cutensornet_tpu_torch/csrc/gate_split.cu",
      "qml_cutensornet_tpu/ops/pallas_split.py:158"),
+    ("brick_split", "qml_cutensornet_tpu_torch/csrc/brick_split.cu",
+     "qml_cutensornet_tpu/ops/pallas_split.py:603"),
 )
 KERNEL_NAMES = tuple(row[0] for row in KERNEL_TABLE)
 
@@ -159,6 +185,33 @@ def make_pair(rng, kind, B, chi, dev):
     b = make_input(rng, kind, B, chi, 2 * chi, chi).reshape(B, chi, 2, chi)
     g, _ = np.linalg.qr(_crandn(rng, B, 4, 4))
     return tuple(torch.from_numpy(x).to(dev) for x in (a, b, g.astype(np.complex64)))
+
+
+def make_brick(rng, kind, Bn, chi, swap_w, dev):
+    """K5's inputs for ``Bn`` pairs: ``A [Bn, 2chi, chi]``, ``Bm [Bn, chi,
+    2chi]``, the brick's blended gates ``g [Bn, 4, 4]`` (XXPhase, or
+    XXPhase@SWAP for ``swap_w`` 1, at random angles) and left-bond weights
+    ``lam [Bn, chi]``. "full": every entry live. "padded": engine-like
+    padding, the left bond live up to 5 (its weights exact zeros past 5),
+    the middle and right bonds up to chi // 2."""
+    from qml_cutensornet_tpu_torch.ops import gates
+
+    a = _crandn(rng, Bn, chi, 2, chi)
+    b = _crandn(rng, Bn, chi, 2, chi)
+    lam = rng.uniform(0.3, 1.0, size=(Bn, chi))
+    if kind == "padded":
+        a[:, 5:] = 0
+        a[..., chi // 2:] = 0
+        b[:, chi // 2:] = 0
+        b[..., chi // 2:] = 0
+        lam[:, 5:] = 0
+    a = (a / np.abs(a).max()).astype(np.complex64)
+    b = (b / np.abs(b).max()).astype(np.complex64)
+    A = np.ascontiguousarray(a.transpose(0, 2, 1, 3)).reshape(Bn, 2 * chi, chi)
+    xx = gates.xxphase(torch.from_numpy(rng.uniform(-1.5, 1.5, size=Bn).astype(np.float32)))
+    g = swap_w * xx[..., [0, 2, 1, 3]] + (1.0 - swap_w) * xx
+    return (torch.from_numpy(A).to(dev), torch.from_numpy(b.reshape(Bn, chi, 2 * chi)).to(dev),
+            g.contiguous().to(dev), torch.from_numpy(lam.astype(np.float32)).to(dev))
 
 
 # -------------------------------------------------------------- comparisons
@@ -225,6 +278,43 @@ def compare_gate(split_mod, A, Bm, g, v0, iters, what):
     return max(compare(qk, rk, qp, rp, theta, what, True), tot_err)
 
 
+def compare_brick(split_mod, A, Bm, g, lam, v0, iters, what):
+    """Kernel K5 against its plain version, on quantities that do not depend
+    on the basis: the projected pair ``theta_t V^H V`` (from na0 and q2,
+    relative to max |theta_t|), the sorted s2 (relative to the largest),
+    ``||theta_w||^2``, the orthonormality of the kept rows, and exact zeros
+    (dropped rows; the columns of zero rows and columns of theta). A kept
+    row set is not compared: where the weighted theta's rank is below nc a
+    surplus row can survive the dependent-column cutoff by rounding in
+    either version, as in K1's comparison (it adds nothing to the projected
+    pair: theta_t has no rows where the weights are zero)."""
+    q2, na0, s2, tot = split_mod.brick_gate_split_cuda(A, Bm, g, lam, v0, iters)
+    pq2, pna0, ps2, ptot = split_mod.brick_gate_split_plain(A, Bm, g, lam, v0, iters)
+    torch.cuda.synchronize()
+    theta_t = split_mod.gate_theta(A, Bm, g)
+    proj = lambda na, q: na.mT @ q.conj()
+    prod = ((proj(na0, q2) - proj(pna0, pq2)).abs().max() / theta_t.abs().max()).item()
+    srt = lambda x: torch.sort(x, dim=1, descending=True).values
+    s2e = ((srt(s2) - srt(ps2)).abs().max() / ps2.max()).item()
+    tot_err = ((tot - ptot).abs() / ptot).max().item()
+    live = q2.abs().pow(2).sum(2) > 0.25
+    eye = torch.diag_embed(live.to(q2.real.dtype)).to(q2.dtype)
+    orth_err = (q2.conj() @ q2.mT - eye).abs().max().item()
+    assert torch.count_nonzero(q2[~live]) == 0 and torch.count_nonzero(na0[~live]) == 0, (
+        f"{what}: dropped rows not exact zeros")
+    zero_rows = theta_t.abs().sum(2) == 0  # (s al) of theta_t: columns of na0
+    zero_cols = theta_t.abs().sum(1) == 0  # (t be): columns of q2
+    assert torch.count_nonzero(na0.transpose(1, 2)[zero_rows]) == 0, f"{what}: na0 leaked"
+    assert torch.count_nonzero(q2.transpose(1, 2)[zero_cols]) == 0, f"{what}: q2 leaked"
+    log(f"  {what}: prod {prod:.2e} s2 {s2e:.2e} tot {tot_err:.2e} orth {orth_err:.2e} "
+        f"kept {int(live.sum(1).min())}..{int(live.sum(1).max())}")
+    assert prod <= TOL_PROD, f"{what}: projected-pair error {prod} > {TOL_PROD}"
+    assert s2e <= TOL_S2, f"{what}: sorted s2 error {s2e} > {TOL_S2}"
+    assert tot_err <= TOL_TOT, f"{what}: total error {tot_err} > {TOL_TOT}"
+    assert orth_err <= TOL_ORTH, f"{what}: orthonormality error {orth_err} > {TOL_ORTH}"
+    return max(prod, s2e, tot_err)
+
+
 def time_ms(fn, reps):
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
     fn()
@@ -258,6 +348,18 @@ def _chain_ops(m, k, nc, iters):
 def bound(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def brick_bound(Bn, chi, nc, iters):
+    """K5 on ``Bn`` pairs: the theta build (A·B, the gate combine, the lambda
+    weight), the chain on theta_w^H (its last product gives s2) and the na0
+    product; inputs A, B, g, lam and v0 read once, q2, na0, s2 and total
+    written once."""
+    m = 2 * chi
+    ops = Bn * (_chain_ops(m, m, nc, iters) + 8.0 * m * nc * m + 8.0 * m * chi * m
+                + 8.0 * 4 * m * m + 2.0 * m * m)
+    nbytes = 8.0 * (Bn * (2 * m * chi + 16 + 2 * nc * m) + m * nc) + 4.0 * Bn * (chi + nc + 1)
+    return bound(ops, nbytes)
 
 
 def kernel_bounds(B, chi, iters):
@@ -378,8 +480,27 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         worst("orth_r", compare(qk, rk, qp, rp, v, f"orth_r B=32 chi=128 {kind}", False))
 
+    # K5 at the brick route's stages: chi 16 to 128 (thH in shared memory up
+    # to chi 32; the rows in global scratch at chi 128), 6 pairs and the full
+    # width's 408 (8 circuits x 51 pairs), both gate kinds of the swap
+    # network, nc = chi, and nc = chi + 16 at chi 16.
+    for chi in (16, 32, 64, 128):
+        v0 = start_block(2 * chi, chi, torch.complex64, dev)
+        for Bn in (6, 408):
+            for kind in ("full", "padded"):
+                for iters in (1, 2):
+                    sw = float((iters + (kind == "padded")) % 2)
+                    worst("brick_split", compare_brick(
+                        split, *make_brick(rng, kind, Bn, chi, sw, dev), v0, iters,
+                        f"brick_split Bn={Bn} chi={chi} iters={iters} {kind} swap_w={sw:.0f}"))
+    v0 = start_block(32, 32, torch.complex64, dev)
+    for kind in ("full", "padded"):
+        worst("brick_split", compare_brick(split, *make_brick(rng, kind, 408, 16, 1.0, dev), v0,
+                                           2, f"brick_split Bn=408 chi=16 nc=32 iters=2 {kind}"))
+
     # Times at the main paths' largest shape: chi 64, one sim batch of 32,
-    # iters 2. The library calls are yardsticks only; no path calls them.
+    # iters 2; K5 at the brick route's: chi 128, 408 pairs, iters 2. The
+    # library calls are yardsticks only; no path calls them.
     B, chi = 32, 64
     v = torch.from_numpy(make_input(rng, "full", B, 2 * chi, chi, chi)).to(dev)
     th = torch.from_numpy(make_input(rng, "full", B, 2 * chi, 2 * chi, chi)).to(dev)
@@ -406,6 +527,21 @@ def phase_kernels(dev):
         log(f"  time {name} B={B} chi={chi}: kernel {k1:.4f} / {k2:.4f} ms, "
             f"plain {p1:.4f} / {p2:.4f} ms, library call "
             f"{'none' if lib is None else f'{lib:.4f} ms (torch.linalg.qr)'}")
+    brick = make_brick(rng, "full", BRICK_BN, 128, 1.0, dev)
+    v0b = start_block(256, 128, torch.complex64, dev)
+    p1 = time_ms(lambda: split.brick_gate_split_plain(*brick, v0b, 2), 2)
+    k1 = time_ms(lambda: split.brick_gate_split_cuda(*brick, v0b, 2), 5)
+    k2 = time_ms(lambda: split.brick_gate_split_cuda(*brick, v0b, 2), 5)
+    p2 = time_ms(lambda: split.brick_gate_split_plain(*brick, v0b, 2), 2)
+    times["brick_split"] = ((k1 + k2) / 2, (p1 + p2) / 2, None)
+    log(f"  time brick_split Bn={BRICK_BN} chi=128 nc=128: kernel {k1:.4f} / {k2:.4f} ms, "
+        f"plain {p1:.4f} / {p2:.4f} ms, library call none")
+    # Context: the unfused brick update's split of the same pairs, K1 on
+    # theta_w^H (its theta and new_a products are torch matmuls).
+    A, Bm, g, lam = brick
+    th_h = (split.gate_theta(A, Bm, g) * torch.cat([lam, lam], 1)[:, :, None]).mH.contiguous()
+    log(f"  context: K1 on the same theta_w^H [{BRICK_BN},256,256], nc 128, iters 2: "
+        f"{time_ms(lambda: split.subspace_factor_cuda(th_h, v0b, 2), 5):.4f} ms")
     log(f"  time orth panel v [32,512,32]: kernel {time_ms(lambda: orth.orth_cuda(panel), 20):.4f}"
         f" ms, torch.linalg.qr {time_ms(lambda: torch.linalg.qr(panel), 5):.4f} ms")
     log(f"  context only (another function: the full decomposition): torch.linalg.svd of theta "
@@ -421,30 +557,62 @@ def expected_launches(argv, n_batches):
     shape, else 2 * iters orthonormalizations by K3; per center move one K2
     launch with the fused split up to ``orth.MAX_K`` columns, else one
     orthonormalization by K3. An orthonormalization of more columns than that
-    is one K3 launch per panel of ``blocked_qr.PANEL``."""
+    is one K3 launch per panel of ``blocked_qr.PANEL``. On the brick route,
+    per chunk of the layer plan and per layer, one update per pair chunk:
+    one K5 launch where the stage is brick-split eligible, else the split's
+    K1 or K3 launches as above."""
     from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
     from qml_cutensornet_tpu_torch.models import simulate
-    from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX
-    from qml_cutensornet_tpu_torch.ops import blocked_qr, orth, svd
+    from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX, BrickSchedule
+    from qml_cutensornet_tpu_torch.ops import blocked_qr, orth, svd, vidal
 
     params = pipe.parse_argv(list(argv))
     cfg = pipe.sim_config(params)
     chunk_len = int(os.environ.get("QMLTPU_CHUNK_LEN", "128"))
     staged = os.environ.get("QMLTPU_STAGED", "1") != "0"
-    segs, chunk_chis, final_chi = simulate.stream_chunk_plan(
-        pipe.make_ansatz(params).schedule, cfg, chunk_len, staged)
+    schedule = pipe.make_ansatz(params).schedule
     iters = max(1, cfg.subspace_iters)
 
     def panels(k):
         return 1 if k <= orth.MAX_K else -(-k // blocked_qr.PANEL)
 
+    def split_launches(chi, count):
+        """One truncating split of a stage-chi pair update off the gate
+        kernels: K1 where the fused split takes it, else K3."""
+        nc = chi + max(0, cfg.oversample)
+        if cfg.fused_split and svd.fused_split_supported(2 * chi, 2 * chi, nc):
+            count["split"] += 1
+        else:
+            count["orth"] += 2 * iters * panels(nc)
+
     count = dict.fromkeys(KERNEL_NAMES, 0)
+    if isinstance(schedule, BrickSchedule):
+        # Per chunk of the plan (padded to its full length with inactive
+        # layers, computed all the same), per layer, one update per pair chunk.
+        K = schedule.pairs_per_layer
+        batch = pipe.engine_kwargs()["sim_batch"]
+        layers = simulate.BRICK_LAYER_CHUNK
+        rep_stages, _ = simulate.brick_stage_plan(schedule, cfg, staged)
+        chunks2, _ = simulate.brick_chunk_plan(schedule, rep_stages, layers, K)
+        by_stage: dict = {}
+        cur = chunks2[0][3]
+        for (_, _, _, stage) in chunks2:
+            cur = max(cur, stage)  # the simulator's bond cap only grows
+            by_stage[cur] = by_stage.get(cur, 0) + 1
+            for _ in range(layers * -(-K // vidal._pair_chunk(K, cur, batch))):
+                if svd.brick_split_eligible(dataclasses.replace(cfg, chi=cur), cur, cur, cur):
+                    count["brick_split"] += 1
+                else:
+                    split_launches(cur, count)
+        log(f"  brick plan per sim batch of {batch}: {len(chunks2)} chunks of {layers} layers, "
+            f"{K} pairs a layer; stage chi -> chunks {by_stage}")
+        return {k: n * n_batches for k, n in count.items()}
+    segs, chunk_chis, final_chi = simulate.stream_chunk_plan(schedule, cfg, chunk_len, staged)
     by_stage: dict = {}
     cur = next((st[0] for st in chunk_chis if st), final_chi)
     for (_, _, gk, _, _, _, n_chunks), stages in zip(segs, chunk_chis):
         for c in range(n_chunks):
             cur = max(cur, stages[c])
-            nc = cur + max(0, cfg.oversample)
             for kind in gk[c * chunk_len:(c + 1) * chunk_len]:
                 if kind >= GATE_RX:
                     continue
@@ -459,10 +627,8 @@ def expected_launches(argv, n_batches):
                 gates_moves[0] += 1
                 if svd.gate_split_eligible(dataclasses.replace(cfg, chi=cur), cur):
                     count["gate_split"] += 1
-                elif cfg.fused_split and svd.fused_split_supported(2 * cur, 2 * cur, nc):
-                    count["split"] += 1
                 else:
-                    count["orth"] += 2 * iters * panels(nc)
+                    split_launches(cur, count)
     log(f"  op stream per sim batch, stage chi -> [two-site gates, center moves]: {by_stage}")
     return {k: n * n_batches for k, n in count.items()}
 
@@ -629,6 +795,75 @@ def phase_unfused_route(smi):
     return total
 
 
+def phase_brick_route(smi):
+    """The brick route at chi 128 with oversampling 0: 14 qubits against the
+    tracked route, then the full width (nf 100) through K5 and through K1.
+    Returns the brick runs' launches and the tracked comparison run's."""
+    from qml_cutensornet_tpu_torch.cli import main_no_test
+    from qml_cutensornet_tpu_torch.utils.device import environ
+    from qml_cutensornet_tpu_torch.utils.naming import run_info
+
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    # (a) 14 qubits, one sim batch of 32: no bond exceeds 2^7 = 128, so the
+    # brick (K5, and K1 on the chi-8 stage) and tracked (K1 + K2) Grams agree
+    # to rounding.
+    info = run_info("train", 14, 2, 1.0, 6, 20, 5, CSV_V1)
+    with environ(**BRICK_KNOBS):
+        with environ(QMLTPU_ROUTING="brick", QMLTPU_FUSED_GATE="1"):
+            K_brick, launches = run_counted(main_no_test, ARGV_BRICK14, 1,
+                                            "brick route, 14 qubits, K5")
+        log(profile_line(info, smi, "brick route, 14 qubits, chi 128, K5"))
+        assert launches["brick_split"] > 0 and launches["split"] > 0, launches
+        assert launches["orth_r"] == launches["orth"] == launches["gate_split"] == 0, launches
+        add(launches)
+        K_tracked, tracked = run_counted(main_no_test, ARGV_BRICK14, 1,
+                                         "tracked default route, 14 qubits")
+        log(profile_line(info, smi, "tracked default route, 14 qubits, chi 128"))
+    check_train_gram(K_brick, 32, "brick route, 14 qubits")
+    check_train_gram(K_tracked, 32, "tracked route, 14 qubits")
+    err = float(np.abs(K_brick - K_tracked).max())
+    log(f"brick route (K5) vs tracked route on 14 qubits, chi 128: max_abs_err {err:.3e} "
+        f"(tol {TOL_ROUTES})")
+    assert err <= TOL_ROUTES, f"14-qubit brick K off the tracked route's by {err}"
+
+    # (b), (c) the full width, nf 100, one sim batch of 8 train points:
+    # every pair update from chi 16 on through K5, then through K1.
+    info = run_info("train", 100, 2, 1.0, 6, 5, 5, CSV_V1)
+    grams = {}
+    for gate, kern in (("1", "K5"), ("0", "K1")):
+        what = f"brick route, nf 100, chi 128, {kern}"
+        with environ(**BRICK_KNOBS, QMLTPU_ROUTING="brick", QMLTPU_FUSED_GATE=gate,
+                     QMLTPU_SIM_BATCH="8"):
+            K, launches = run_counted(main_no_test, ARGV_BRICK100, 1, what)
+        log(profile_line(info, smi, what))
+        check_train_gram(K, 8, what)
+        assert launches["split"] > 0 and launches["orth_r"] == launches["orth"] == 0, launches
+        assert (launches["brick_split"] > 0) == (gate == "1"), launches
+        add(launches)
+        grams[kern] = K
+    err = float(np.abs(grams["K5"] - grams["K1"]).max())
+    off = np.abs(grams["K5"][~np.eye(8, dtype=bool)])
+    log(f"brick route at nf 100, chi 128, K5 vs K1: max_abs_err {err:.3e} "
+        f"(tol {TOL_BRICK_ROUTES}); off-diagonal entries of the K5 Gram: max {off.max():.3e}")
+    assert err <= TOL_BRICK_ROUTES, f"nf-100 brick K through K5 off K1's by {err}"
+    # (e) the same through K5 in f64: a yardstick for the f32 runs' fidelity
+    # (their kept fractions are f32 ratios, each clamped at 1).
+    what = "brick route, nf 100, chi 128, K5, f64"
+    with environ(**BRICK_KNOBS, QMLTPU_ROUTING="brick", QMLTPU_FUSED_GATE="1",
+                 QMLTPU_SIM_BATCH="8", QMLTPU_PRECISION="f64"):
+        K, launches = run_counted(main_no_test, ARGV_BRICK100, 1, what)
+    log(profile_line(info, smi, what))
+    check_train_gram(K, 8, what)
+    assert launches["brick_split"] > 0, launches
+    add(launches)
+    return total, tracked
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -663,8 +898,11 @@ def main() -> int:
     log(f"fused-gate route done at {time.perf_counter() - t_start:.1f} s")
     by_path["unfused"] = phase_unfused_route(smi)
     log(f"unfused routes done at {time.perf_counter() - t_start:.1f} s")
+    by_path["brick"], by_path["tracked_14q_chi128"] = phase_brick_route(smi)
+    log(f"brick route done at {time.perf_counter() - t_start:.1f} s")
 
     bounds = kernel_bounds(32, 64, 2)
+    bounds["brick_split"] = brick_bound(BRICK_BN, 128, 128, 2)
     kernels = []
     for name, source, replaces in KERNEL_TABLE:
         launches = sum(p[name] for p in by_path.values())

@@ -23,11 +23,14 @@ names where the port supports them:
     QMLTPU_FUSED_SPLIT     1 (default): split by kernel K1, center move by K2;
                            0: the unfused chain (kernel K3 + matrix products)
     QMLTPU_FUSED_GATE      1: two-site updates by kernel K4 (default 0)
+    QMLTPU_ROUTING         tracked (default) | brick (the Vidal/Hastings
+                           brick engine; with QMLTPU_FUSED_GATE=1 its pair
+                           updates run in kernel K5)
     QMLTPU_SIM_BATCH       circuits per batch (default 32)
     QMLTPU_TILE            Gram tile side (default 32)
     QMLTPU_STAGED, QMLTPU_CHUNK_LEN, QMLTPU_NORMALIZE  as in the reference
 
-Knobs of features not ported yet raise: QMLTPU_ROUTING other than tracked,
+Knobs of features not ported yet raise: QMLTPU_ROUTING=reference,
 QMLTPU_MESH > 1, QMLTPU_MGS_PAIR=1, QMLTPU_SHARD_MPS, QMLTPU_BRICK_CAPS=1,
 QMLTPU_CHECKPOINT=1 and QMLTPU_CHI=auto.
 """
@@ -82,8 +85,8 @@ def _env_flag(name: str, default: str = "0") -> bool:
 def check_unported_knobs() -> None:
     """Raise on environment knobs whose features the port does not have."""
     routing = os.environ.get("QMLTPU_ROUTING", "tracked")
-    if routing != "tracked":
-        raise NotImplementedError(f"QMLTPU_ROUTING={routing} is not ported (tracked only)")
+    if routing not in ("tracked", "brick"):
+        raise NotImplementedError(f"QMLTPU_ROUTING={routing} is not ported (tracked or brick)")
     mesh = os.environ.get("QMLTPU_MESH")
     if mesh is not None and int(mesh) > 1:
         raise NotImplementedError("QMLTPU_MESH > 1 (multi-device Gram) is not ported")

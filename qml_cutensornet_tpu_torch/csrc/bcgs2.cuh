@@ -11,7 +11,10 @@
 //     prefix);
 //   - a column whose residual norm^2 is not above DEP_TOL2 = 1e-10 times
 //     its norm^2 before projection is numerically dependent and is written
-//     as exact zeros; otherwise it is scaled by rsqrt(n2 + TINY), TINY=1e-30;
+//     as exact zeros; otherwise it is scaled by rsqrt(n2 + TINY), TINY=1e-30.
+//     The double instantiation cuts at DEP_TOL2_F64 = 1e-24 instead: the
+//     reference's f64 path is Householder QR with no cutoff, and 1e-10 would
+//     drop directions above f64's singular-value-ratio floor of 1e-10;
 //   - so exact-zero input vectors, and exact-zero entries shared by every
 //     input vector, stay exactly zero (the MPS padding invariant).
 //
@@ -35,6 +38,7 @@ constexpr int PANEL = 16;
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr double DEP_TOL2 = 1e-10;
+constexpr double DEP_TOL2_F64 = 1e-24;
 constexpr double TINY = 1e-30;
 
 // Layout-compatible with torch complex64 / complex128 (re, im interleaved).
@@ -84,6 +88,7 @@ template <typename T>
 __device__ void bcgs2(Src<T> src, Cx<T>* Q, int ldq, int nvec, int len,
                       Cx<T>* panel, int ldp, Cx<T>* coef, T* red) {
   T* n2o = red + NWARPS;  // per-column norm^2 before projection
+  const T dep_tol2 = sizeof(T) == sizeof(double) ? T(DEP_TOL2_F64) : T(DEP_TOL2);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int p0 = 0; p0 < nvec; p0 += PANEL) {
@@ -173,7 +178,7 @@ __device__ void bcgs2(Src<T> src, Cx<T>* Q, int ldq, int nvec, int len,
       T s = 0;
       for (int e = tid; e < len; e += NTHREADS) s += x[e].re * x[e].re + x[e].im * x[e].im;
       const T n2 = block_sum(s, red);
-      const T keep = (n2 > T(DEP_TOL2) * n2o[t]) ? T(1) : T(0);
+      const T keep = (n2 > dep_tol2 * n2o[t]) ? T(1) : T(0);
       const T inv = rsqrt_(n2 + T(TINY)) * keep;
       for (int e = tid; e < len; e += NTHREADS)
         qp[(size_t)t * ldq + e] = Cx<T>{x[e].re * inv, x[e].im * inv};

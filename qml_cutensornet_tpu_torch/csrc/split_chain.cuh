@@ -1,6 +1,8 @@
 // The subspace-split chain on one theta, shared by the fused subspace-split
-// kernel (subspace_split.cu, theta given) and the fused gate + theta-build
-// split kernel (gate_split.cu, theta built in the kernel).
+// kernel (subspace_split.cu, theta given), the fused gate + theta-build
+// split kernel (gate_split.cu, theta built in the kernel) and the fused brick
+// pair update (brick_split.cu, which runs the iteration alone on the
+// conjugate transpose of its weighted theta and has its own epilogue).
 //
 // Replaces: qml_cutensornet_tpu/ops/pallas_split.py:_split_chain. For one
 // theta [m, k] (row-major, leading dimension k, in global or shared memory)
@@ -107,12 +109,12 @@ __device__ void theta_times_w(const Cx<T>* th, int m, int k, const Cx<T>* W, int
   }
 }
 
-// The chain. ``th`` must be visible to the whole block on entry (the caller
-// puts a barrier after writing it). ``qb`` [m, nc] and ``rb`` [nc, k] are
-// this element's outputs in global memory.
+// The power iterations. ``th`` must be visible to the whole block on entry
+// (the caller puts a barrier after writing it). Leaves the final basis as
+// the rows of w.V (V[j * ldv + mm], mm < m), visible to the whole block.
 template <typename T>
-__device__ void split_chain(const Cx<T>* th, const Cx<T>* v0, Cx<T>* qb, Cx<T>* rb,
-                            const ChainWork<T>& w, int m, int k, int nc, int iters) {
+__device__ void chain_iterate(const Cx<T>* th, const Cx<T>* v0, const ChainWork<T>& w, int m,
+                              int k, int nc, int iters) {
   Cx<T>* W = w.W;
   Cx<T>* V = w.V;
   const int ldw = w.ldw, ldv = w.ldv;
@@ -130,7 +132,16 @@ __device__ void split_chain(const Cx<T>* th, const Cx<T>* v0, Cx<T>* qb, Cx<T>* 
     __syncthreads();
     bcgs2<T>(Src<T>{V, ldv, 1}, V, ldv, nc, m, w.panel, w.ldp, w.coef, w.red);
   }
+}
 
+// The chain: the iterations, then this element's outputs in global memory,
+// ``qb`` [m, nc] and ``rb`` [nc, k].
+template <typename T>
+__device__ void split_chain(const Cx<T>* th, const Cx<T>* v0, Cx<T>* qb, Cx<T>* rb,
+                            const ChainWork<T>& w, int m, int k, int nc, int iters) {
+  chain_iterate<T>(th, v0, w, m, k, nc, iters);
+  const Cx<T>* V = w.V;
+  const int ldv = w.ldv;
   for (int idx = threadIdx.x; idx < m * nc; idx += NTHREADS) {
     const int j = idx % nc, mm = idx / nc;
     qb[idx] = V[(size_t)j * ldv + mm];

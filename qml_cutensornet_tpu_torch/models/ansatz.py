@@ -1,5 +1,5 @@
-"""The kernel-state ansatz and its compilation to a static canonical op stream
-(port of ``qml_cutensornet_tpu/models/ansatz.py``, numpy only).
+"""The kernel-state ansatz and its compilation to a static program (port of
+``qml_cutensornet_tpu/models/ansatz.py``, numpy only).
 
 The feature-map circuit ``U(x)|0..0>`` is: H on every qubit, then ``reps``
 times an Rz(gamma * x_i) layer and XXPhase((pi/2) gamma^2 (1-x_i)(1-x_j))
@@ -9,11 +9,14 @@ every datapoint, so it is compiled once into a :class:`GateSchedule` of
 integer arrays (site, gate kind, canonical-center direction, feature
 indices); the angles are computed from the features at run time.
 
-Only ``routing="tracked"`` (permutation-tracked routing, the reference's
-default) is ported: swap-back chains are dropped, the engine keeps a map
-from features to sites, and gates within a rep (all XXPhase terms commute)
-run in a position-sorted sweep. Gram entries are invariant under the common
-final permutation. ``"reference"`` and ``"brick"`` raise.
+Two routings are ported. ``routing="tracked"`` (permutation-tracked, the
+reference's default) compiles a :class:`GateSchedule`: swap-back chains are
+dropped, the engine keeps a map from features to sites, and gates within a
+rep (all XXPhase terms commute) run in a position-sorted sweep.
+``routing="brick"`` compiles a :class:`BrickSchedule` of brick layers of
+disjoint two-site ops (a banded swap network, :func:`_raw_brick`) for the
+Vidal/Hastings engine (``ops/vidal.py``). Gram entries are invariant under
+the common final permutation. ``"reference"`` raises.
 
 Canonical-form lowering: the compiler tracks the orthogonality center,
 inserts identity center moves (``GATE_I``) when the next gate is not
@@ -156,6 +159,150 @@ def _canonical_lower(streams, pos_maps, num_qubits):
     return segments
 
 
+@dataclasses.dataclass
+class BrickRep:
+    """One repetition lowered to brick LAYERS of disjoint two-site ops. Pair
+    coordinates are in the PADDED site space: real site ``s`` sits at padded
+    site ``s+1``; one dummy site on the left and one or two on the right give
+    both parities exactly ``K`` pairs with disjoint gathers."""
+
+    pos_to_feature: np.ndarray  # [n] int32 — feature at REAL site p at rep start
+    parities: np.ndarray  # [L] int32 — padded-space parity of each layer
+    swaps: np.ndarray  # [L] bool — layer is a swap-network step (XXSW ops)
+    active: np.ndarray  # [L, K] bool — pair participates in the layer
+    fire: np.ndarray  # [L, K] bool — pair applies its XXPhase angle
+    fa: np.ndarray  # [L, K] int32 — feature indices for the angle
+    fb: np.ndarray  # [L, K] int32
+
+
+@dataclasses.dataclass
+class BrickSchedule:
+    """Brick-parallel program: per rep, an Rz feature layer, then swap-network
+    brick layers that make every entanglement-map pair adjacent and fire it
+    exactly once (fused XXPhase@SWAP on a meet, plain SWAP otherwise)."""
+
+    num_qubits: int
+    reps: int
+    gamma: float
+    hadamard_init: bool
+    bricks: list[BrickRep]
+    final_pos: np.ndarray  # [n] int32 — final site of original qubit q
+    num_sites_padded: int
+    pairs_per_layer: int
+    routing: str = "brick"
+
+    @property
+    def num_two_site_ops(self) -> int:
+        return int(sum(np.sum(r.active) for r in self.bricks))
+
+    @property
+    def num_layers(self) -> int:
+        return int(sum(len(r.parities) for r in self.bricks))
+
+
+def _raw_brick(num_qubits, reps, entanglement_map):
+    """Banded windowed swap network (the reference's brick routing).
+
+    With d the largest interaction distance, a full swap network on a window
+    of w sites (w layers of alternating parity) makes every pair of window
+    qubits adjacent once and reverses the window. Passes over the width-2d
+    windows at offsets 0, 2d, ... (Wa) and at offset d (Wc, plus the leading
+    partial window) from the same layout meet every map pair. Even reps run
+    A, A' (restore), C; odd reps C' (restore), A, A'. A pair's XXPhase is
+    fused into its SWAP the first time it meets in a rep; the compiler replays
+    the permutation and asserts that every map pair fires exactly once per
+    rep. d == 1 needs no routing (two plain XX layers per rep); 2d >= n is the
+    full reversal network on [0, n)."""
+    n = num_qubits
+    if not entanglement_map:
+        raise ValueError("Brick routing needs a non-empty entanglement map.")
+    d = max(abs(a - b) for (a, b) in entanglement_map)
+    map_set = {(min(a, b), max(a, b)) for (a, b) in entanglement_map}
+    n_p = n + (3 if n % 2 == 0 else 2)
+    K = (n_p - 1) // 2
+    at = np.arange(n, dtype=np.int64)  # at[p] = qubit at real site p
+
+    if 2 * d >= n:
+        wa = [(0, n)]
+        wc = [(0, n)]
+    else:
+        wa = [(s, min(s + 2 * d, n)) for s in range(0, n, 2 * d)]
+        wc = [(0, d)] + [(s, min(s + 2 * d, n)) for s in range(d, n, 2 * d)]
+        wc = [(s, e) for (s, e) in wc if e - s >= 2]
+
+    bricks = []
+    for rep in range(reps):
+        pos_to_feature = at.astype(np.int32).copy()
+        fired: set = set()
+        layers: list = []
+
+        def make_layers(pair_sites, swap):
+            """Layer(s) for a disjoint list of REAL left sites, one per parity
+            present (odd d mixes parities; disjoint pairs commute)."""
+            for par_real in (0, 1):
+                sites = [s for s in pair_sites if s % 2 == par_real]
+                if not sites:
+                    continue
+                par_pad = (par_real + 1) % 2
+                act = np.zeros(K, bool)
+                fr = np.zeros(K, bool)
+                fa = np.zeros(K, np.int32)
+                fb = np.zeros(K, np.int32)
+                for s in sites:
+                    k = (s + 1 - par_pad) // 2
+                    act[k] = True
+                    qa, qb = int(at[s]), int(at[s + 1])
+                    key = (min(qa, qb), max(qa, qb))
+                    if key in map_set and key not in fired:
+                        fired.add(key)
+                        fr[k] = True
+                        fa[k], fb[k] = qa, qb
+                    if swap:
+                        at[s], at[s + 1] = at[s + 1], at[s]
+                layers.append((par_pad, swap, act, fr, fa, fb))
+
+        def emit_pass(windows):
+            width = max(e - s for (s, e) in windows)
+            for step in range(width):
+                pair_sites = []
+                for (ws, we) in windows:
+                    if step >= we - ws:
+                        continue  # short window: its network is done
+                    pair_sites.extend(range(ws + (step % 2), we - 1, 2))
+                if pair_sites:
+                    make_layers(pair_sites, swap=True)
+
+        if d == 1:
+            make_layers(list(range(0, n - 1, 2)), swap=False)
+            make_layers(list(range(1, n - 1, 2)), swap=False)
+        elif 2 * d >= n:
+            emit_pass(wa)
+        elif rep % 2 == 0:
+            emit_pass(wa)
+            emit_pass(wa)
+            emit_pass(wc)
+        else:
+            emit_pass(wc)
+            emit_pass(wa)
+            emit_pass(wa)
+        missing = map_set - fired
+        assert not missing, f"brick schedule missed pairs {sorted(missing)[:5]}"
+
+        bricks.append(BrickRep(
+            pos_to_feature=pos_to_feature,
+            parities=np.asarray([l[0] for l in layers], np.int32),
+            swaps=np.asarray([l[1] for l in layers], bool),
+            active=np.stack([l[2] for l in layers]),
+            fire=np.stack([l[3] for l in layers]),
+            fa=np.stack([l[4] for l in layers]),
+            fb=np.stack([l[5] for l in layers]),
+        ))
+
+    pos = np.empty(n, dtype=np.int32)  # pos[q] = final site of qubit q
+    pos[at] = np.arange(n, dtype=np.int32)
+    return bricks, pos
+
+
 def build_schedule(
     num_qubits: int,
     reps: int,
@@ -163,9 +310,22 @@ def build_schedule(
     entanglement_map: list[tuple[int, int]],
     hadamard_init: bool = True,
     routing: str = "tracked",
-) -> GateSchedule:
-    if routing in ("reference", "brick"):
-        raise NotImplementedError(f"routing={routing!r} is not ported; use 'tracked'")
+) -> GateSchedule | BrickSchedule:
+    if routing == "reference":
+        raise NotImplementedError("routing='reference' is not ported; use 'tracked' or 'brick'")
+    if routing == "brick":
+        bricks, final_pos = _raw_brick(num_qubits, reps, entanglement_map)
+        n_p = num_qubits + (3 if num_qubits % 2 == 0 else 2)
+        return BrickSchedule(
+            num_qubits=num_qubits,
+            reps=reps,
+            gamma=float(gamma),
+            hadamard_init=hadamard_init,
+            bricks=bricks,
+            final_pos=final_pos,
+            num_sites_padded=n_p,
+            pairs_per_layer=(n_p - 1) // 2,
+        )
     if routing != "tracked":
         raise ValueError(f"Unknown routing mode: {routing}")
     streams, pos_maps, final_pos = _raw_tracked(num_qubits, reps, entanglement_map)
@@ -183,7 +343,8 @@ def build_schedule(
 
 
 class KernelStateAnsatz:
-    """API-parity ansatz class: stores the compiled :class:`GateSchedule`."""
+    """API-parity ansatz class: stores the compiled :class:`GateSchedule` or
+    :class:`BrickSchedule`."""
 
     def __init__(
         self,

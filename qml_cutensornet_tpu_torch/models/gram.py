@@ -55,7 +55,9 @@ def _sync(device: torch.device) -> None:
 
 def simulate_dataset(schedule, features: np.ndarray, cfg: SimConfig, sim_batch: int,
                      device: torch.device):
-    """Simulate all datapoint circuits ``sim_batch`` at a time on ``device``.
+    """Simulate all datapoint circuits ``sim_batch`` at a time on ``device``
+    (``schedule`` a tracked ``GateSchedule`` or a ``BrickSchedule``; both
+    simulators return an ``MPS`` over the ``num_qubits`` real sites).
     Returns (tensors [N, n, chi, 2, chi] on device, fidelities [N] numpy,
     max_chis [N] numpy, per-batch seconds)."""
     n_pts = features.shape[0]

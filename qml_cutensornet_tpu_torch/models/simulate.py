@@ -1,6 +1,8 @@
-"""Batched circuit simulation over the tracked op stream, and the Gram-tile
-overlaps (port of ``qml_cutensornet_tpu/models/simulate.py``:
-``apply_schedule_op``, ``stream_chunk_plan``, the chunked stream simulator,
+"""Batched circuit simulation over the tracked op stream and over the brick
+layers, and the Gram-tile overlaps (port of
+``qml_cutensornet_tpu/models/simulate.py``: ``apply_schedule_op``,
+``stream_chunk_plan``, the chunked stream simulator, ``brick_stage_plan``,
+``brick_chunk_plan``, ``drive_brick_schedule``, ``make_brick_simulator``,
 ``state_norms_sq``, ``_combine_sites``, ``tile_overlaps_sq``).
 
 The op stream is shared by every datapoint of a batch, so the batch is a
@@ -10,6 +12,11 @@ cut into chunks exactly as the reference cuts it, padded with the same
 neutral ops (identity center moves, exact no-ops for the state), and each
 chunk runs at the same staged bond cap, so the port performs the same
 operations at the same shapes as the reference.
+
+A :class:`BrickSchedule` runs on the brick engine (``ops/vidal.py``)
+instead: its layers are cut into same-stage chunks of 16, padded with
+inactive layers as the reference pads them, so that the same pair updates
+run at the same staged bond caps.
 """
 
 from __future__ import annotations
@@ -28,9 +35,10 @@ from qml_cutensornet_tpu_torch.models.ansatz import (
     GATE_XX,
     GATE_XXSW,
     GATE_ZZ,
+    BrickSchedule,
     GateSchedule,
 )
-from qml_cutensornet_tpu_torch.ops import gates, mps as mps_ops
+from qml_cutensornet_tpu_torch.ops import gates, mps as mps_ops, vidal
 from qml_cutensornet_tpu_torch.ops.mps import MPS
 
 
@@ -130,13 +138,21 @@ def _pad_bonds(state: MPS, chi: int) -> MPS:
     return dataclasses.replace(state, tensors=t)
 
 
-def make_chunked_simulator(schedule: GateSchedule, cfg: SimConfig, device: torch.device,
-                           chunk_len: int | None = None, staged: bool | None = None):
+def make_chunked_simulator(schedule: GateSchedule | BrickSchedule, cfg: SimConfig,
+                           device: torch.device, chunk_len: int | None = None,
+                           staged: bool | None = None):
     """``simulate(features [B, n]) -> MPS`` over the tracked op stream, in
     chunks of ``chunk_len`` ops (``QMLTPU_CHUNK_LEN``, default 128) with the
     staged bond cap (``QMLTPU_STAGED``, default on): each chunk runs at the
     smallest power-of-two chi that holds its structural bond bound, which
-    is exactly equivalent to running at ``cfg.chi`` throughout."""
+    is exactly equivalent to running at ``cfg.chi`` throughout. A
+    :class:`BrickSchedule` goes to :func:`make_brick_simulator`; its
+    site-sharded engine (``QMLTPU_SHARD_MPS``) is not ported and raises."""
+    if isinstance(schedule, BrickSchedule):
+        if os.environ.get("QMLTPU_SHARD_MPS", "0") != "0":
+            raise NotImplementedError("QMLTPU_SHARD_MPS (the site-sharded brick engine) "
+                                      "is not ported")
+        return make_brick_simulator(schedule, cfg, device, staged=staged)
     if chunk_len is None:
         chunk_len = int(os.environ.get("QMLTPU_CHUNK_LEN", "128"))
     if staged is None:
@@ -179,6 +195,153 @@ def make_chunked_simulator(schedule: GateSchedule, cfg: SimConfig, device: torch
                     state = apply_schedule_op(state, int(sites[i]), int(gk[i]),
                                               int(dirs[i]), thetas[:, i], cfg_s)
         return state
+
+    return simulate
+
+
+def brick_stage_plan(schedule: BrickSchedule, cfg: SimConfig, staged: bool):
+    """Staged chi of the brick engine: a host replay of the per-layer
+    structural bond bounds (a two-site update across real bond s gives at
+    most min(2 left bond, 2 right bond, position cut, cap), from the bonds
+    before the layer). Returns ``(rep_stages, final_chi)``; identical to the
+    reference's."""
+    n = schedule.num_qubits
+    rep_stages: list[list[int]] = []
+    if staged:
+        floor_chi = min(8, cfg.chi)
+        bd = np.ones(max(n - 1, 1))
+        cut = np.array(
+            [min(2.0 ** (k + 1), 2.0 ** (n - k - 1)) for k in range(max(n - 1, 1))]
+        )
+        for rep in schedule.bricks:
+            stages = []
+            for li in range(len(rep.parities)):
+                par = int(rep.parities[li])
+                new_bd = bd.copy()
+                for k in np.nonzero(rep.active[li])[0]:
+                    s = par + 2 * int(k) - 1  # real left site
+                    if not (0 <= s <= n - 2):
+                        continue
+                    lb = bd[s - 1] if s > 0 else 1.0
+                    rb = bd[s + 1] if s + 1 <= n - 2 else 1.0
+                    new_bd[s] = min(2 * lb, 2 * rb, cut[s], float(cfg.chi))
+                bd = new_bd
+                bound = int(bd.max())
+                stage = floor_chi
+                while stage < bound:
+                    stage *= 2
+                stages.append(min(stage, cfg.chi))
+            rep_stages.append(stages)
+    else:
+        rep_stages = [[cfg.chi] * len(r.parities) for r in schedule.bricks]
+    final_chi = min(8, cfg.chi) if staged else cfg.chi
+    for st_list in rep_stages:
+        for s in st_list:
+            final_chi = s
+    return rep_stages, final_chi
+
+
+def brick_chunk_plan(schedule: BrickSchedule, rep_stages, layer_chunk: int, pairs: int):
+    """Cut the layers into runs of consecutive same-stage layers within one
+    rep, padded to ``layer_chunk`` layers with inactive (all-false) layers,
+    exact no-ops under the active select; the pair axis is padded to
+    ``pairs`` columns. Returns ``(chunks2, chunk_arrays)``: entries ``(rep,
+    layer_start, layer_end, stage)`` and ``(parities [C], swaps [C] f32,
+    actives [C, pairs] bool)``; identical to the reference's."""
+    K = schedule.pairs_per_layer
+    chunks2 = []
+    for ri, (rep, stages) in enumerate(zip(schedule.bricks, rep_stages)):
+        L = len(rep.parities)
+        i = 0
+        while i < L:
+            j = i + 1
+            while j < L and j - i < layer_chunk and stages[j] == stages[i]:
+                j += 1
+            chunks2.append((ri, i, j, stages[i]))
+            i = j
+
+    chunk_arrays = []
+    for (ri, i, j, stage) in chunks2:
+        rep = schedule.bricks[ri]
+        pad = layer_chunk - (j - i)
+        act = np.concatenate([rep.active[i:j], np.zeros((pad, K), bool)])
+        if pairs > K:
+            act = np.pad(act, ((0, 0), (0, pairs - K)))
+        chunk_arrays.append((
+            np.concatenate([rep.parities[i:j], np.zeros(pad, np.int32)]),
+            np.concatenate([rep.swaps[i:j].astype(np.float32), np.zeros(pad, np.float32)]),
+            act,
+        ))
+    return chunks2, chunk_arrays
+
+
+def _pad_vidal(state: vidal.VidalState, chi: int) -> vidal.VidalState:
+    """Grow the bond padding of tensors and lambdas to ``chi`` with exact
+    zeros."""
+    old = state.tensors.shape[-1]
+    return dataclasses.replace(
+        state,
+        tensors=torch.nn.functional.pad(state.tensors, (0, chi - old, 0, 0, 0, chi - old)),
+        lams=torch.nn.functional.pad(state.lams, (0, chi - old)))
+
+
+def drive_brick_schedule(x, schedule: BrickSchedule, chunks2, chunk_arrays, layer_chunk: int,
+                         cfg: SimConfig, device: torch.device, final_chi: int) -> MPS:
+    """The host loop of the brick engine, as the reference's: per-rep
+    angles, one Rz layer per rep, staged-chi growth before the first chunk
+    of a higher stage, the chunks (each at its stage's ``cfg``), then the
+    MPS over the real sites."""
+    n, gamma, rdt = schedule.num_qubits, schedule.gamma, cfg.real_dtype
+    np_rdt = np.dtype(str(rdt).removeprefix("torch."))
+    x = np.asarray(x, dtype=np.float64)
+    cur_chi = chunks2[0][3] if chunks2 else final_chi
+    state = vidal.zero_state(x.shape[0], schedule.num_sites_padded,
+                             dataclasses.replace(cfg, chi=cur_chi), device)
+    if schedule.hadamard_init:
+        state = vidal.apply_1q_real_sites(state, gates.hadamard(rdt, device), n)
+    rep_thetas = []
+    for rep in schedule.bricks:
+        th = 0.5 * np.pi * gamma * gamma * (1.0 - x[:, rep.fa]) * (1.0 - x[:, rep.fb])
+        rep_thetas.append(np.where(rep.fire[None], th, 0.0).astype(np_rdt))  # [B, L, K]
+    done_rz = -1
+    for (ri, i, j, stage), (pars, sws, acts) in zip(chunks2, chunk_arrays):
+        if ri > done_rz:
+            xs = torch.as_tensor(x[:, schedule.bricks[ri].pos_to_feature].astype(np_rdt),
+                                 device=device)
+            state = vidal.apply_diag_real_sites(state, gates.rz_phases(gamma * xs))
+            done_rz = ri
+        if stage > cur_chi:
+            cur_chi = stage
+            state = _pad_vidal(state, cur_chi)
+        # thetas [C, B, K], padded layers get zeros
+        th = np.pad(rep_thetas[ri][:, i:j], ((0, 0), (0, layer_chunk - (j - i)), (0, 0)))
+        state = vidal.layer_scan(
+            state, pars, sws, torch.as_tensor(acts, device=device),
+            torch.as_tensor(np.ascontiguousarray(th.transpose(1, 0, 2)), device=device),
+            dataclasses.replace(cfg, chi=cur_chi))
+    tensors, fidelity, bond_dims = vidal.to_mps_tensors(state, n)
+    return MPS(tensors=tensors, fidelity=fidelity, bond_dims=bond_dims)
+
+
+BRICK_LAYER_CHUNK = 16  # brick layers per chunk, padded with inactive layers
+
+
+def make_brick_simulator(schedule: BrickSchedule, cfg: SimConfig, device: torch.device,
+                         layer_chunk: int = BRICK_LAYER_CHUNK, staged: bool | None = None):
+    """``simulate(features [B, n]) -> MPS`` on the brick engine: every layer
+    is one ``[B * K]``-batched pair update (kernel K5 where the stage takes
+    it), chunks of ``layer_chunk`` layers padded with inactive layers, and
+    the staged bond cap of :func:`brick_stage_plan` (``QMLTPU_STAGED``,
+    default on). Single device."""
+    if staged is None:
+        staged = os.environ.get("QMLTPU_STAGED", "1") != "0"
+    rep_stages, final_chi = brick_stage_plan(schedule, cfg, staged)
+    chunks2, chunk_arrays = brick_chunk_plan(schedule, rep_stages, layer_chunk,
+                                             schedule.pairs_per_layer)
+
+    def simulate(features) -> MPS:
+        return drive_brick_schedule(features, schedule, chunks2, chunk_arrays, layer_chunk, cfg,
+                                    device, final_chi)
 
     return simulate
 

@@ -31,7 +31,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("split", "orth_r", "orth", "gate_split")
+KERNELS = ("split", "orth_r", "orth", "gate_split", "brick_split")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
 # Filled by the first load(): {"seconds": build time (0 if cached),
@@ -62,6 +62,11 @@ SOURCES = {
         "qk_gate_split_smem": ([_i, _i, _i, _i, _i], _ll),
         "qk_gate_split_scratch": ([_i, _i, _i, _i], _ll),
         "qk_gate_split_launch": ([_vp] * 8 + [_i] * 7 + [_ll, _vp], _i),
+    },
+    "brick_split.cu": {
+        "qk_brick_split_smem": ([_i, _i, _i, _i, _i], _ll),
+        "qk_brick_split_scratch": ([_i, _i, _i, _i], _ll),
+        "qk_brick_split_launch": ([_vp] * 10 + [_i] * 7 + [_ll, _vp], _i),
     },
 }
 

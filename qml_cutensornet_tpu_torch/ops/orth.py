@@ -8,8 +8,11 @@ Port of ``qml_cutensornet_tpu/ops/pallas_qr.py`` (``orth_rows_body``,
 reorthogonalization (BCGS2: panels of 16 columns, two CGS passes against
 finished columns, then MGS2 within the panel); ``r = q^H v`` (``[k, k]``,
 not triangular; ``q @ r == v`` to roundoff). Columns whose residual norm^2
-falls to ``DEP_TOL2`` times their original norm^2 or below are numerically
-dependent and come out as exact zeros; exact-zero columns and rows of ``v``
+falls to ``dep_tol2(dtype)`` times their original norm^2 or below are
+numerically dependent and come out as exact zeros (the reference's 1e-10 in
+complex64; 1e-24 in complex128, where the reference runs Householder QR with
+no cutoff, so that the cutoff stays below f64's singular-value-ratio floor
+of 1e-10 in the truncation mask); exact-zero columns and rows of ``v``
 stay exactly zero. The basis is defined only up to a unitary mixing within
 the span, so callers use basis-invariant quantities.
 
@@ -35,7 +38,8 @@ from qml_cutensornet_tpu_torch.ops import _build
 from qml_cutensornet_tpu_torch.utils import device as _device  # noqa: F401  (full-f32 matmuls)
 
 PANEL = 16
-DEP_TOL2 = 1e-10  # dependent-column cutoff on residual / original norm^2
+DEP_TOL2 = 1e-10  # dependent-column cutoff on residual / original norm^2 (complex64)
+DEP_TOL2_F64 = 1e-24  # the same in complex128
 TINY = 1e-30  # norm^2 floor: exact-zero columns normalize to exact zero
 MAX_K = 128
 MAX_M = 256
@@ -46,12 +50,18 @@ def abs2(x: torch.Tensor) -> torch.Tensor:
     return x.real * x.real + x.imag * x.imag
 
 
+def dep_tol2(dtype: torch.dtype) -> float:
+    """The dependent-column cutoff on squared norms for ``dtype``."""
+    return DEP_TOL2_F64 if dtype == torch.complex128 else DEP_TOL2
+
+
 def bcgs2_plain(v: torch.Tensor) -> torch.Tensor:
     """BCGS2 orthonormal basis of the columns of ``v [B, m, k]`` (complex),
     written with torch ops: the same algorithm and constants as the kernels.
-    Shared by the plain versions of all four kernels (each of which counts
+    Shared by the plain versions of all five kernels (each of which counts
     its own use on CUDA tensors)."""
     B, m, k = v.shape
+    tol = dep_tol2(v.dtype)
     q = torch.zeros_like(v)
     for p0 in range(0, k, PANEL):
         pw = min(PANEL, k - p0)
@@ -69,7 +79,7 @@ def bcgs2_plain(v: torch.Tensor) -> torch.Tensor:
                     c = (qp.conj() * x[:, :, None]).sum(1)  # [B, t]
                     x = x - (qp * c[:, None, :]).sum(2)
             n2 = abs2(x).sum(1)
-            keep = (n2 > DEP_TOL2 * n2_orig[:, t]).to(n2.dtype)
+            keep = (n2 > tol * n2_orig[:, t]).to(n2.dtype)
             inv = torch.rsqrt(n2 + TINY) * keep
             q[:, :, p0 + t] = x * inv[:, None]
     return q

@@ -1,5 +1,5 @@
-"""Kernels K1 (fused subspace split) and K4 (gate + theta build + split),
-and their plain PyTorch versions.
+"""Kernels K1 (fused subspace split), K4 (gate + theta build + split) and K5
+(the fused brick pair update), and their plain PyTorch versions.
 
 Port of ``qml_cutensornet_tpu/ops/pallas_split.py`` (``_make_split_kernel``
 / ``_split_chain``). For each ``theta[b] [m, k]`` and the shared start
@@ -21,11 +21,24 @@ builds ``theta[(s alpha), (t beta)] = sum_uv g[2s+t, 2u+v] (A Bm)[(u alpha),
 r [B, nc, 2chi], tot [B])`` with ``tot = ||theta||_F^2`` (theta itself is
 not returned: the truncation mask needs only its weight).
 
+
+:func:`brick_gate_split` is the port of ``_make_brick_split_kernel`` (the
+Hastings pair update of the brick engine, ``ops/vidal.py``). From the same
+``A``, ``Bm`` and ``g`` and the left-bond Schmidt weights ``lam [B, chi]``
+it builds ``theta_t`` (gate applied, unweighted) and ``theta_w =
+diag(lam, lam) theta_t`` (rows ``(s alpha)`` weighted by ``lam[alpha]``),
+runs the same chain on ``theta_w^H`` (so its basis spans the top right
+singular subspace of ``theta_w``) and returns ``(q2 [B, nc, 2chi], na0
+[B, nc, 2chi], s2 [B, nc], total [B])``: ``q2`` the basis as rows (``V =
+conj(q2)``), ``na0`` the rows of ``theta_t q`` (= ``(theta_t V^H)^T``, no
+lambda inverse), ``s2`` the squared norms ``||theta_w q_j||^2`` and ``total =
+||theta_w||_F^2``.
+
 Routing: a CPU tensor runs the plain version; a CUDA tensor runs the CUDA
-kernel (``csrc/subspace_split.cu``, ``csrc/gate_split.cu``; both run the
-chain of ``csrc/split_chain.cuh``) or raises. The kernels take nc <= 128,
-m, k <= 256 (chi <= 128), iters >= 1, in complex64 (complex128 runs the
-double instantiation).
+kernel (``csrc/subspace_split.cu``, ``csrc/gate_split.cu``,
+``csrc/brick_split.cu``; all run the chain of ``csrc/split_chain.cuh``) or
+raises. The kernels take nc <= 128, m, k <= 256 (chi <= 128), iters >= 1, in
+complex64 (complex128 runs the double instantiation).
 """
 
 from __future__ import annotations
@@ -122,26 +135,34 @@ def gate_subspace_factor(A, Bm, g, v0, iters: int):
     return gate_subspace_factor_cuda(A, Bm, g, v0, iters)
 
 
+def _check_gate_feeds(A, Bm, g, v0, iters: int, what: str):
+    """Device, dtype and shape checks of the ``A, Bm, g, v0`` feeds of K4 and
+    K5; returns ``(dbl, B, chi, nc)``."""
+    dbl = _check_input(A, f"{what} A")
+    for t, name in ((Bm, "B"), (g, "g"), (v0, "v0")):
+        _check_input(t, f"{what} {name}")
+        if t.dtype != A.dtype or t.device != A.device:
+            raise ValueError(f"{what}: A, B, g and v0 must share dtype and device")
+    if A.dim() != 3 or A.shape[1] != 2 * A.shape[2]:
+        raise ValueError(f"{what}: expected A [B, 2chi, chi], got {tuple(A.shape)}")
+    B, m, chi = A.shape
+    if tuple(Bm.shape) != (B, chi, m) or tuple(g.shape) != (B, 4, 4) or (
+            v0.dim() != 2 or v0.shape[0] != m):
+        raise ValueError(f"{what}: expected B [B, chi, 2chi], g [B, 4, 4], v0 [2chi, nc]; "
+                         f"got {tuple(Bm.shape)}, {tuple(g.shape)}, {tuple(v0.shape)}")
+    nc = v0.shape[1]
+    if not (1 <= nc <= MAX_NC and 1 <= m <= MAX_MK and iters >= 1):
+        raise ValueError(f"{what}: kernel takes nc <= {MAX_NC}, 2chi <= {MAX_MK}, "
+                         f"iters >= 1; got chi={chi}, nc={nc}, iters={iters}")
+    return dbl, B, chi, nc
+
+
 def gate_subspace_factor_cuda(A, Bm, g, v0, iters: int):
     """Launch K4. theta lives in shared memory when it fits beside the
     chain's working rows, otherwise in a global scratch buffer, as do the
     rows when they do not fit (``csrc/gate_split.cu``)."""
-    dbl = _check_input(A, "gate_split A")
-    for t, name in ((Bm, "B"), (g, "g"), (v0, "v0")):
-        _check_input(t, f"gate_split {name}")
-        if t.dtype != A.dtype or t.device != A.device:
-            raise ValueError("gate_split: A, B, g and v0 must share dtype and device")
-    if A.dim() != 3 or A.shape[1] != 2 * A.shape[2]:
-        raise ValueError(f"gate_split: expected A [B, 2chi, chi], got {tuple(A.shape)}")
-    B, m, chi = A.shape
-    if tuple(Bm.shape) != (B, chi, m) or tuple(g.shape) != (B, 4, 4) or (
-            v0.dim() != 2 or v0.shape[0] != m):
-        raise ValueError(f"gate_split: expected B [B, chi, 2chi], g [B, 4, 4], v0 [2chi, nc]; "
-                         f"got {tuple(Bm.shape)}, {tuple(g.shape)}, {tuple(v0.shape)}")
-    nc = v0.shape[1]
-    if not (1 <= nc <= MAX_NC and 1 <= m <= MAX_MK and iters >= 1):
-        raise ValueError(f"gate_split: kernel takes nc <= {MAX_NC}, 2chi <= {MAX_MK}, "
-                         f"iters >= 1; got chi={chi}, nc={nc}, iters={iters}")
+    dbl, B, chi, nc = _check_gate_feeds(A, Bm, g, v0, iters, "gate_split")
+    m = 2 * chi
     lib = _build.load()
     optin = _build.smem_optin(A.device.index)
     rows = lib.qk_gate_split_smem(chi, nc, int(dbl), 1, 0) <= optin
@@ -160,3 +181,58 @@ def gate_subspace_factor_cuda(A, Bm, g, v0, iters: int):
     _build.check(rc, "gate_split kernel launch")
     _build.LAUNCHES["gate_split"] += 1
     return q, r, tot
+
+
+def brick_gate_split_plain(A, Bm, g, lam, v0, iters: int):
+    """Plain version of K5: ``theta_t`` by :func:`gate_theta`, the lambda
+    row weight, the chain on ``theta_w^H``, then ``s2`` and ``na0``."""
+    if A.is_cuda:
+        _build.PLAIN_ON_CUDA["brick_split"] += 1
+    theta_t = gate_theta(A, Bm, g)
+    theta_w = theta_t * torch.cat([lam, lam], 1)[:, :, None]
+    total = abs2(theta_w).sum((1, 2))
+    q, r = _chain_plain(theta_w.mH, v0, iters)  # q [B, 2chi, nc]: columns of the basis
+    return q.mT, (theta_t @ q).mT, abs2(r).sum(2), total
+
+
+def brick_gate_split(A, Bm, g, lam, v0, iters: int):
+    """``A [B, 2chi, chi]``, ``Bm [B, chi, 2chi]``, ``g [B, 4, 4]``, ``lam
+    [B, chi]`` (real), ``v0 [2chi, nc]`` -> ``(q2 [B, nc, 2chi], na0 [B, nc,
+    2chi], s2 [B, nc], total [B])``: kernel K5 for CUDA tensors, its plain
+    version for CPU tensors."""
+    if A.device.type == "cpu":
+        return brick_gate_split_plain(A, Bm, g, lam, v0, iters)
+    return brick_gate_split_cuda(A, Bm, g, lam, v0, iters)
+
+
+def brick_gate_split_cuda(A, Bm, g, lam, v0, iters: int):
+    """Launch K5. The weighted theta's conjugate transpose (the chain's
+    input) lives in shared memory when it fits beside the chain's rows, in a
+    global scratch buffer otherwise, as do the rows; the unweighted theta,
+    read once by the epilogue, always lives in the scratch buffer
+    (``csrc/brick_split.cu``)."""
+    dbl, B, chi, nc = _check_gate_feeds(A, Bm, g, v0, iters, "brick_split")
+    if lam.device != A.device or lam.dtype != A.real.dtype or tuple(lam.shape) != (B, chi) or (
+            not lam.is_contiguous()):
+        raise ValueError(f"brick_split: expected a contiguous real lam [B, chi] of A's real "
+                         f"dtype on A's device; got {tuple(lam.shape)} {lam.dtype} {lam.device}")
+    m = 2 * chi
+    lib = _build.load()
+    optin = _build.smem_optin(A.device.index)
+    rows = lib.qk_brick_split_smem(chi, nc, int(dbl), 1, 0) <= optin
+    th = rows and lib.qk_brick_split_smem(chi, nc, int(dbl), 1, 1) <= optin
+    smem_bytes = lib.qk_brick_split_smem(chi, nc, int(dbl), int(rows), int(th))
+    q2 = torch.empty((B, nc, m), dtype=A.dtype, device=A.device)
+    na0 = torch.empty((B, nc, m), dtype=A.dtype, device=A.device)
+    s2 = torch.empty((B, nc), dtype=lam.dtype, device=A.device)
+    total = torch.empty(B, dtype=lam.dtype, device=A.device)
+    scratch = torch.empty((B, lib.qk_brick_split_scratch(chi, nc, int(rows), int(th))),
+                          dtype=A.dtype, device=A.device)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    rc = lib.qk_brick_split_launch(A.data_ptr(), Bm.data_ptr(), g.data_ptr(), lam.data_ptr(),
+                                   v0.data_ptr(), q2.data_ptr(), na0.data_ptr(), s2.data_ptr(),
+                                   total.data_ptr(), scratch.data_ptr(), B, chi, nc, int(iters),
+                                   int(dbl), int(rows), int(th), smem_bytes, stream)
+    _build.check(rc, "brick_split kernel launch")
+    _build.LAUNCHES["brick_split"] += 1
+    return q2, na0, s2, total

@@ -1,7 +1,8 @@
 """Truncated factorization of the two-site update, subspace method (port of
 ``qml_cutensornet_tpu/ops/svd.py``: ``_subspace_start``, ``_split_subspace``,
 ``_finish_subspace``, ``_mask_from_s2``, ``truncated_svd``,
-``gate_split_eligible``, ``truncated_svd_gate``).
+``gate_split_eligible``, ``truncated_svd_gate``, ``truncated_split_right``,
+``brick_split_eligible``, ``fused_brick_update``).
 
 ``truncated_svd(theta [B, m, k], cfg, keep)`` returns ``(left [B, m, keep],
 right [B, keep, k], kept_fraction [B], rank [B])`` with ``left`` a masked
@@ -21,6 +22,11 @@ v0. Three routes run that chain:
   :func:`gate_split_eligible`): one launch of K4 builds theta from the two
   site tensors and the gate, and runs the chain; theta is never formed by
   torch ops, and its squared norm comes from the kernel.
+
+The brick engine (``ops/vidal.py``) factors from the right:
+:func:`truncated_split_right` is :func:`truncated_svd` of ``theta^H``, and
+:func:`fused_brick_update` runs the whole Hastings pair update through kernel
+K5 where :func:`brick_split_eligible`.
 
 Per-direction squared singular values are the row norms of ``r``; the
 truncation mask is the reference's sorted-threshold eps rule plus the
@@ -187,3 +193,55 @@ def truncated_svd_gate(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, cfg: S
     q, r, total = split.gate_subspace_factor(*gate_feeds(a, b, g, is_left), v0,
                                              max(1, cfg.subspace_iters))
     return _finish_subspace(q, r, total, cfg, keep, nc)
+
+
+def truncated_split_right(theta: torch.Tensor, cfg: SimConfig, keep: int):
+    """Right-sided truncated factorization of ``theta [B, m, k] ~= (theta
+    V^H) V`` with ``V [B, keep, k]`` row-orthonormal (masked rows exact
+    zeros): :func:`truncated_svd` of ``theta^H``, so any basis of its kept
+    left subspace gives ``V``. Returns ``(V, s [B, keep], kept_fraction,
+    rank)`` with ``s`` the kept singular values (row norms of the right
+    factor; zeros on masked rows). Assumes ``cfg.renormalize`` is off, the
+    brick engine's setting, so the row norms are the singular values."""
+    left, right, kept_fraction, rank = truncated_svd(theta.mH.contiguous(), cfg, keep)
+    return left.mH, torch.sqrt(orth.abs2(right).sum(-1)), kept_fraction, rank
+
+
+def brick_split_eligible(cfg: SimConfig, cl: int, cm: int, cr: int) -> bool:
+    """Whether a brick pair update with bonds ``(cl, cm, cr)`` takes kernel
+    K5: square pair tensors, renormalize off, and the fused-gate shape rule
+    of :func:`gate_split_eligible` at ``cm``, so that both packages send each
+    stage to the same route."""
+    if cl != cm or cm != cr or cfg.renormalize:
+        return False
+    return gate_split_eligible(cfg, cm)
+
+
+def fused_brick_update(a: torch.Tensor, b: torch.Tensor, g4: torch.Tensor, lam: torch.Tensor,
+                       cfg: SimConfig, keep: int):
+    """The Hastings pair update of ``ops/vidal.update_pairs`` over a flat
+    batch through kernel K5: ``a, b [Bn, chi, 2, chi]`` site tensors, ``g4
+    [Bn, 4, 4]`` blended gates, ``lam [Bn, chi]`` left-bond Schmidt weights.
+    Returns ``(new_a [Bn, chi, 2, keep], new_b [Bn, keep, 2, chi], s [Bn,
+    keep], kept_fraction [Bn], rank [Bn])``, the unfused route's contract."""
+    Bn, chi = a.shape[0], a.shape[1]
+    A = a.transpose(1, 2).reshape(Bn, 2 * chi, chi).contiguous()  # rows (s, al)
+    Bm = b.reshape(Bn, chi, 2 * chi).contiguous()  # columns (t, be)
+    nc = keep + max(0, cfg.oversample)
+    v0 = start_block(2 * chi, nc, a.dtype, a.device)
+    q2, na0, s2, total = split.brick_gate_split(A, Bm, g4.contiguous(), lam.contiguous(), v0,
+                                                max(1, cfg.subspace_iters))
+    if nc > keep:
+        sel = torch.argsort(-s2, dim=1, stable=True)[:, :keep]
+        rows = sel[:, :, None].expand(-1, -1, 2 * chi)
+        q2, na0, s2 = torch.gather(q2, 1, rows), torch.gather(na0, 1, rows), torch.gather(s2, 1, sel)
+    mask, kept_fraction = _mask_from_s2(s2, total, cfg, keep)
+    mf = mask.to(s2.dtype)
+    v = q2.conj() * mf[:, :, None]  # V = conj(Q rows); masked rows of V = masked columns of new_a
+    na = na0 * mf[:, :, None]
+    s = torch.sqrt(s2) * mf
+    rank = mask.sum(1, dtype=torch.int32)
+    # na rows [keep, (s al)] are new_a's columns; V rows [keep, (t be)] are new_b.
+    new_a = na.reshape(Bn, keep, 2, chi).permute(0, 3, 2, 1)
+    new_b = v.reshape(Bn, keep, 2, chi)
+    return new_a, new_b, s, kept_fraction, rank

@@ -53,9 +53,15 @@ def test_headline_schedule_counts():
 
 
 def test_untracked_routing_raises():
-    for routing in ("reference", "brick"):
-        with pytest.raises(NotImplementedError):
-            ansatz.build_schedule(4, 1, 1.0, [(0, 1)], routing=routing)
+    """Reference routing is not ported; brick routing is (its schedule is
+    held to the reference in test_torch_brick_schedule.py); an unknown name
+    is refused as in the reference."""
+    with pytest.raises(NotImplementedError):
+        ansatz.build_schedule(4, 1, 1.0, [(0, 1)], routing="reference")
+    with pytest.raises(ValueError):
+        ansatz.build_schedule(4, 1, 1.0, [(0, 1)], routing="bricks")
+    assert isinstance(ansatz.build_schedule(4, 1, 1.0, [(0, 1)], routing="brick"),
+                      ansatz.BrickSchedule)
 
 
 def test_naming_copy():

@@ -1,9 +1,9 @@
-"""CUDA kernels of the PyTorch port on a card: each of the four kernels
+"""CUDA kernels of the PyTorch port on a card: each of the five kernels
 against its plain PyTorch version at the main paths' shapes (the basis-only
 kernel also at the blocked route's panel shapes), the double instantiations
 and the global-scratch layouts, the launch-error path, and the Gram slice on
-the card against the same slice on the CPU on the fused, fused-gate, unfused
-and blocked routes.
+the card against the same slice on the CPU on the fused, fused-gate, unfused,
+blocked and brick routes.
 
 Every test here is marked ``cuda`` and skips where there is no card. This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -25,6 +25,7 @@ from qml_cutensornet_tpu_torch.models.entanglement import entanglement_graph
 from qml_cutensornet_tpu_torch.models.gram import build_kernel_matrix
 from qml_cutensornet_tpu_torch.ops import _build, blocked_qr, orth, split
 from qml_cutensornet_tpu_torch.ops.svd import start_block
+from qml_cutensornet_tpu_torch.ops.vidal import update_pairs
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-5
@@ -217,6 +218,111 @@ def test_slice_on_card_matches_cpu(dev, monkeypatch, route, cfg_kw, used, unused
         assert _build.LAUNCHES[name] > 0, (route, name)
     for name in unused:
         assert _build.LAUNCHES[name] == 0, (route, name)
+    assert sum(_build.PLAIN_ON_CUDA.values()) == 0
+    K_cpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cpu")
+    np.testing.assert_allclose(K_gpu, K_cpu, atol=3e-5)
+
+
+def _close_brick(dev, A, Bm, g, lam, nc, iters, tol):
+    """K5 against its plain version: ``theta_t V^H V`` (from na0 and q2,
+    relative to max |theta_t|), sorted s2, total, orthonormality and the
+    exact zeros of dropped directions."""
+    A, Bm, g, lam = (torch.from_numpy(x).to(dev) for x in (A, Bm, g, lam))
+    v0 = start_block(A.shape[1], nc, A.dtype, dev)
+    before = _build.LAUNCHES["brick_split"]
+    q2, na0, s2, tot = split.brick_gate_split(A, Bm, g, lam, v0, iters)
+    assert _build.LAUNCHES["brick_split"] == before + 1
+    pq2, pna0, ps2, ptot = split.brick_gate_split_plain(A, Bm, g, lam, v0, iters)
+    torch.cuda.synchronize()
+    scale = split.gate_theta(A, Bm, g).abs().max().item()
+    proj = lambda na, q: na.mT @ q.conj()
+    assert ((proj(na0, q2) - proj(pna0, pq2)).abs().max().item()) / scale <= tol
+    srt = lambda x: torch.sort(x, dim=1, descending=True).values
+    assert (srt(s2) - srt(ps2)).abs().max().item() <= tol * ps2.max().item()
+    assert ((tot - ptot).abs() / ptot).max().item() <= (1e-5 if tol > 1e-9 else 1e-12)
+    live = q2.abs().pow(2).sum(2) > 0.25
+    gram = q2.conj() @ q2.mT - torch.diag_embed(live.to(q2.real.dtype)).to(q2.dtype)
+    assert gram.abs().max().item() <= (5e-6 if tol > 1e-9 else 1e-12)
+    assert torch.count_nonzero(q2[~live]) == 0 and torch.count_nonzero(na0[~live]) == 0
+
+
+def _lam(rng, b, chi, rank, dtype=np.float32):
+    lam = np.zeros((b, chi), dtype)
+    lam[:, :rank] = rng.uniform(0.3, 1.0, size=(b, rank))
+    return lam
+
+
+@pytest.mark.parametrize("chi", [16, 32, 64, 128])
+@pytest.mark.parametrize("iters", [1, 2])
+@pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
+def test_brick_split_kernel_matches_plain(dev, chi, iters, kind):
+    """K5: thH in shared memory up to chi 32, in global scratch from chi 64;
+    the rows in global scratch at chi 128; lambda with exact zeros past a
+    rank of 5 on the rank-deficient and zero-padded inputs."""
+    rng = np.random.default_rng(200 + chi + iters)
+    A, Bm, g = _gate_inputs(rng, kind, 6, chi)
+    lam = _lam(rng, 6, chi, chi if kind == "full" else 5)
+    _close_brick(dev, A, Bm, g, lam, chi, iters, TOL)
+
+
+def test_brick_split_oversampled_and_double(dev):
+    """nc = chi + 16; complex128 (the double instantiation) in shared and in
+    global scratch; a CPU lambda or a wrong shape raises."""
+    rng = np.random.default_rng(17)
+    _close_brick(dev, *_gate_inputs(rng, "full", 4, 16), _lam(rng, 4, 16, 16), 32, 2, TOL)
+    _close_brick(dev, *_gate_inputs(rng, "zero_padded", 4, 16, np.complex128),
+                 _lam(rng, 4, 16, 5, np.float64), 16, 2, 1e-12)
+    _close_brick(dev, *_gate_inputs(rng, "full", 2, 64, np.complex128),
+                 _lam(rng, 2, 64, 64, np.float64), 64, 1, 1e-12)
+    A, Bm, g = (torch.from_numpy(x).to(dev) for x in _gate_inputs(rng, "full", 2, 16))
+    v0 = start_block(32, 16, A.dtype, dev)
+    with pytest.raises(ValueError):
+        split.brick_gate_split_cuda(A, Bm, g, torch.ones(2, 16), v0, 1)
+    with pytest.raises(ValueError):
+        split.brick_gate_split_cuda(A, Bm, g, torch.ones(2, 8, device=dev), v0, 1)
+
+
+def test_update_pairs_on_card_matches_cpu(dev):
+    """The fused brick update (K5) and the unfused one (K1) on the card
+    against the fused update on the CPU, on the pair product."""
+    from qml_cutensornet_tpu_torch.config import SimConfig as Cfg
+
+    rng = np.random.default_rng(19)
+    B, K, chi = 2, 3, 16
+    a = _input(rng, "zero_padded", B * K, 2 * chi, chi).reshape(B, K, chi, 2, chi)
+    b = _input(rng, "zero_padded", B * K, chi, 2 * chi).reshape(B, K, chi, 2, chi)
+    lam = _lam(rng, B * K, chi, 5).reshape(B, K, chi)
+    th = rng.uniform(-1.0, 1.0, size=(B, K)).astype(np.float32)
+    prods = {}
+    for where, fused_gate in (("cpu", True), ("cuda", True), ("cuda", False)):
+        d = torch.device("cpu") if where == "cpu" else dev
+        args = [torch.from_numpy(x).to(d) for x in (a, b, lam, th)]
+        _build.reset_counters()
+        na, nb, s, kf, rank = update_pairs(*args, 1.0, Cfg(chi=chi, fused_split=True,
+                                                           fused_gate=fused_gate))
+        if where == "cuda":
+            name = "brick_split" if fused_gate else "split"
+            assert _build.LAUNCHES[name] == 1 and sum(_build.LAUNCHES.values()) == 1
+            assert sum(_build.PLAIN_ON_CUDA.values()) == 0
+        prods[(where, fused_gate)] = torch.einsum("bkasc,bkctd->bkastd", na, nb).cpu()
+    for key in (("cuda", True), ("cuda", False)):
+        assert (prods[key] - prods[("cpu", True)]).abs().max().item() <= 3e-5, key
+
+
+@pytest.mark.parametrize("fused_gate", [True, False])
+def test_brick_slice_on_card_matches_cpu(dev, monkeypatch, fused_gate):
+    """The brick route on a tiny circuit: without staging every pair update
+    is K5 (fused gate) or K1; the Gram equals the CPU run's."""
+    monkeypatch.setenv("QMLTPU_STAGED", "0")
+    nq = 8
+    X = np.random.default_rng(2).uniform(0.0, 2.0, size=(6, nq))
+    ans = KernelStateAnsatz(nq, 1, 1.0, entanglement_graph(nq, 2), routing="brick")
+    cfg = SimConfig(chi=16, tile_block=2, fused_split=True, fused_gate=fused_gate)
+    _build.reset_counters()
+    K_gpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cuda")
+    used = "brick_split" if fused_gate else "split"
+    assert _build.LAUNCHES[used] > 0
+    assert sum(_build.LAUNCHES.values()) == _build.LAUNCHES[used]
     assert sum(_build.PLAIN_ON_CUDA.values()) == 0
     K_cpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cpu")
     np.testing.assert_allclose(K_gpu, K_cpu, atol=3e-5)

@@ -35,7 +35,8 @@ def test_port_imports_neither_jax_nor_reference():
         " 'qml_cutensornet_tpu', 'sklearn', 'pandas'))\n"
         "assert not bad, bad\n"
         "names = {n for n in sys.modules if n.startswith(p.__name__)}\n"
-        "for mod in ('cli.main', 'cli.classical_main', 'models.svm', 'ops.blocked_qr'):\n"
+        "for mod in ('cli.main', 'cli.classical_main', 'models.svm', 'ops.blocked_qr',"
+        " 'ops.vidal'):\n"
         "    assert p.__name__ + '.' + mod in names, mod\n"
         "from qml_cutensornet_tpu_torch.utils.device import full_f32_is_set\n"
         "assert full_f32_is_set()\n"

@@ -84,7 +84,7 @@ def test_cli_main_no_test_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("QMLTPU_ROUTING", "brick"), ("QMLTPU_MESH", "2"),
+    ("QMLTPU_ROUTING", "reference"), ("QMLTPU_MESH", "2"),
     ("QMLTPU_MGS_PAIR", "1"), ("QMLTPU_SHARD_MPS", "all"), ("QMLTPU_CHI", "auto"),
     ("QMLTPU_CHECKPOINT", "1"),
 ])
