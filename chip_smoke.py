@@ -20,10 +20,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    batch 6 and 408 pairs, 1 and 2 iterations, swap-network and plain gates,
    full inputs and zero-padded ones whose Schmidt weights are exact zeros
    past a rank of 5, and with 16 oversampled columns at chi 16), on
-   basis-invariant quantities, each against its stated tolerance; then
-   kernel, plain-version and library-call times at the main-path shape with
-   CUDA events (K5 at the brick slice's chi 128, 408 pairs), beside the least
-   time the card could take for the same work (``bound_ms``).
+   basis-invariant quantities, each against its stated tolerance; K1 and
+   K2 on every launch plan their wrappers choose (B 1, 32 and 100 at chi 8
+   to 64; K1 at nc 80, at [408, 256, 256] with nc 128 and in complex128 at
+   chi 64 and 128; K2 in complex128 at chi 64 and 128), and two launches of
+   each on one input bit-equal; then kernel, plain-version and library-call
+   times at the main-path shape with CUDA events (K5 at the brick slice's
+   chi 128, 408 pairs), beside the least time the card could take for the
+   same work (``bound_ms``); K1 and K2 also at both stage shapes of the main
+   path (chi 32 and 64, B 32, iters 2) with their launch plans, and beside
+   the parent commit's K1 and K2 where its sources were unpacked into
+   ``build/parent`` (``git archive``; absent in a plain checkout).
 4. default route: the port's ``cli.main_no_test`` at the repo's headline
    shape (32 qubits, r=2, d=6, chi 64, f32, 102 train points of the pinned v1
    data): kernels K1 and K2 carry it; K symmetric with unit diagonal, its
@@ -42,9 +49,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    chi-256 run (16 qubits, r=2, d=6, one sim batch; stages chi 32, 64 and
    256) whose chi-256 stage orthonormalizes every split iterate (272 columns)
    and every center move (256 columns) through the blocked route, K3 on
-   panels of 32, held to the port's own f64 run on the card at 1e-5 on v1
-   data; the same on the tied-spectrum v2 data, whose f32-vs-f64 error is
-   printed, not gated; and a chi-128 run (stages 32, 64, 128), where the
+   panels of 32 (in f32; the f64 runs take the scanned panel step, no K3),
+   held to the port's own f64 run on the card at 1e-5 on v1 data; the same
+   on the tied-spectrum v2 data, whose f32-vs-f64 error is printed, not
+   gated; and a chi-128 run (stages 32, 64, 128), where the
    default oversampling makes the split 144 columns wide, so that it leaves
    K1 for the blocked route while the center moves stay on K2, held to its
    f64 run likewise.
@@ -328,6 +336,81 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def plan_text(plan):
+    """One launch plan of K1 or K2 (``ops/split.split_plan``,
+    ``ops/orth.orth_r_plan``) as a log fragment: blocks, threads, shared
+    memory and where each buffer lives."""
+    where = {k: v for k, v in dataclasses.asdict(plan).items()
+             if k not in ("threads", "grid", "smem_bytes", "scratch_cx")}
+    return (f"{plan.grid} blocks x {plan.threads} threads, {plan.smem_bytes} B shared, "
+            + ", ".join(f"{k}={int(v)}" for k, v in where.items()))
+
+
+PARENT = ROOT / "build" / "parent" / "qml_cutensornet_tpu_torch" / "csrc"
+
+
+def parent_kernels(dev):
+    """The parent commit's K1 and K2 (one 256-thread block per element,
+    ``bcgs2.cuh``), built from ``build/parent`` (the parent unpacked there by
+    ``git archive``) and called through their own C interface, or None where
+    that directory is absent. Timing only: each is checked once against the
+    current kernel on a basis-invariant quantity."""
+    import ctypes
+    import subprocess
+    import types
+
+    from qml_cutensornet_tpu_torch.ops import _build
+
+    if not PARENT.is_dir():
+        return None
+    out = ROOT / "build" / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {src: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{src}.so"),
+         str(PARENT / f"{src}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in ("subspace_split", "orth_r")}
+    for src, proc in procs.items():
+        log_text = proc.communicate()[0]
+        assert proc.returncode == 0, f"parent {src}.cu did not build:\n{log_text}"
+    ks = ctypes.CDLL(str(out / "libsubspace_split.so"))
+    kr = ctypes.CDLL(str(out / "liborth_r.so"))
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ks.qk_split_smem.argtypes, ks.qk_split_smem.restype = [i] * 5, ll
+    ks.qk_split_launch.argtypes, ks.qk_split_launch.restype = [vp] * 5 + [i] * 7 + [ll, vp], i
+    kr.qk_orth_r_smem.argtypes, kr.qk_orth_r_smem.restype = [i] * 4, ll
+    kr.qk_orth_r_launch.argtypes, kr.qk_orth_r_launch.restype = [vp] * 4 + [i] * 5 + [ll, vp], i
+    optin = _build.smem_optin(dev.index)
+
+    def split(th, v0, iters):
+        B, m, k = th.shape
+        nc = v0.shape[1]
+        rows = int(ks.qk_split_smem(m, k, nc, 0, 1) <= optin)
+        q = torch.empty((B, m, nc), dtype=th.dtype, device=dev)
+        r = torch.empty((B, nc, k), dtype=th.dtype, device=dev)
+        scratch = torch.empty((B, 0 if rows else nc * (m + k + 2)), dtype=th.dtype, device=dev)
+        rc = ks.qk_split_launch(th.data_ptr(), v0.data_ptr(), q.data_ptr(), r.data_ptr(),
+                                scratch.data_ptr(), B, m, k, nc, iters, 0, rows,
+                                ks.qk_split_smem(m, k, nc, 0, rows),
+                                torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0, f"parent split launch: CUDA error {rc}"
+        return q, r
+
+    def orth_r(v):
+        B, m, k = v.shape
+        rows = int(kr.qk_orth_r_smem(m, k, 0, 1) <= optin)
+        q = torch.empty_like(v)
+        r = torch.empty((B, k, k), dtype=v.dtype, device=dev)
+        scratch = torch.empty((B, 0 if rows else k * (m + 1)), dtype=v.dtype, device=dev)
+        rc = kr.qk_orth_r_launch(v.data_ptr(), q.data_ptr(), r.data_ptr(), scratch.data_ptr(),
+                                 B, m, k, 0, rows, kr.qk_orth_r_smem(m, k, 0, rows),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0, f"parent orth_r launch: CUDA error {rc}"
+        return q, r
+
+    log(f"parent kernels built from {PARENT}")
+    return types.SimpleNamespace(split=split, orth_r=orth_r)
+
+
 # ------------------------------------------------------------------ bounds
 # Operations and bytes from the shapes. One complex multiply-add is 8 real
 # operations; complex64 is 8 bytes. Each input is read once and each output
@@ -406,17 +489,22 @@ def phase_build(dev):
 
 
 def phase_kernels(dev):
-    from qml_cutensornet_tpu_torch.ops import orth, split
+    from qml_cutensornet_tpu_torch.ops import _build, orth, split
     from qml_cutensornet_tpu_torch.ops.svd import gate_feeds, start_block
 
     rng = np.random.default_rng(20261016)
     kinds = ("full", "rankdef", "padded", "graded")
     err = dict.fromkeys(KERNEL_NAMES, 0.0)
+    optin = _build.smem_optin(dev.index)
 
     def worst(name, value):
         err[name] = max(err[name], value)
 
-    for B in (32, 100):
+    # B 1, 32 and 100 at chi 8 to 64: K1 and K2 on the launch plans the
+    # wrappers choose for complex64 (theta and both row buffers in shared
+    # memory up to chi 32, one row buffer at chi 64; K2 with Q and v in
+    # shared memory), on 1 to 100 blocks.
+    for B in (1, 32, 100):
         for chi in (8, 16, 32, 64):
             m = 2 * chi
             v0 = start_block(m, chi, torch.complex64, dev)
@@ -480,6 +568,52 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         worst("orth_r", compare(qk, rk, qp, rp, v, f"orth_r B=32 chi=128 {kind}", False))
 
+    # K1 and K2 on the launch plans the shapes above do not reach, each
+    # named by its wrapper's plan: K1 with theta in global memory and two row
+    # buffers in shared memory (chi 64, nc 80: one buffer needs one-pass
+    # products), with one row buffer (complex128 at chi 64), and with
+    # everything in global memory (chi 128: the brick route's [408, 256, 256]
+    # with nc 128, and complex128); K2 with Q alone in shared memory
+    # (complex128 at chi 64) and in global scratch (complex128 at chi 128).
+    c64, c128 = torch.complex64, torch.complex128
+    for B, chi, nc, dtype in ((32, 64, 80, c64), (408, 128, 128, c64), (32, 64, 64, c128),
+                              (4, 128, 128, c128)):
+        m = 2 * chi
+        v0 = start_block(m, nc, dtype, dev)
+        for kind in (kinds if B < 408 else ("full", "padded")):
+            th = torch.from_numpy(make_input(rng, kind, B, m, m, chi)).to(dev, dtype)
+            qk, rk = split.subspace_factor_cuda(th, v0, 2)
+            qp, rp = split.subspace_factor_plain(th, v0, 2)
+            torch.cuda.synchronize()
+            what = (f"split B={B} chi={chi} nc={nc} iters=2 {str(dtype)[6:]} {kind} "
+                    f"[{plan_text(split.split_plan(B, m, m, nc, dtype, optin))}]")
+            worst("split", compare(qk, rk, qp, rp, th, what, True,
+                                   surplus=nc > chi and kind in ("rankdef", "padded")))
+    for B, chi in ((32, 64), (32, 128)):
+        for kind in kinds:
+            v = torch.from_numpy(make_input(rng, kind, B, 2 * chi, chi, chi)).to(dev, c128)
+            qk, rk = orth.orth_r_cuda(v)
+            qp, rp = orth.orth_r_plain(v)
+            torch.cuda.synchronize()
+            what = (f"orth_r B={B} chi={chi} complex128 {kind} "
+                    f"[{plan_text(orth.orth_r_plan(B, 2 * chi, chi, c128, optin))}]")
+            worst("orth_r", compare(qk, rk, qp, rp, v, what, False))
+
+    # Two launches on one input give bit-equal outputs (every sum in a fixed
+    # order, no atomics), on every plan of the main paths.
+    for B, chi in ((1, 64), (32, 32), (32, 64), (100, 64)):
+        m = 2 * chi
+        th = torch.from_numpy(make_input(rng, "graded", B, m, m, chi)).to(dev)
+        v0 = start_block(m, chi, torch.complex64, dev)
+        v = torch.from_numpy(make_input(rng, "rankdef", B, m, chi, chi)).to(dev)
+        for name, fn in (("split", lambda: split.subspace_factor_cuda(th, v0, 2)),
+                         ("orth_r", lambda: orth.orth_r_cuda(v))):
+            first, second = fn(), fn()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(first, second)), (
+                f"{name} B={B} chi={chi}: two launches differ")
+        log(f"  bit-equal: split and orth_r, two launches each, B={B} chi={chi}")
+
     # K5 at the brick route's stages: chi 16 to 128 (thH in shared memory up
     # to chi 32; the rows in global scratch at chi 128), 6 pairs and the full
     # width's 408 (8 circuits x 51 pairs), both gate kinds of the swap
@@ -499,13 +633,20 @@ def phase_kernels(dev):
                                            2, f"brick_split Bn=408 chi=16 nc=32 iters=2 {kind}"))
 
     # Times at the main paths' largest shape: chi 64, one sim batch of 32,
-    # iters 2; K5 at the brick route's: chi 128, 408 pairs, iters 2. The
-    # library calls are yardsticks only; no path calls them.
-    B, chi = 32, 64
-    v = torch.from_numpy(make_input(rng, "full", B, 2 * chi, chi, chi)).to(dev)
-    th = torch.from_numpy(make_input(rng, "full", B, 2 * chi, 2 * chi, chi)).to(dev)
+    # iters 2; K1 and K2 also at the chi-32 stage, and beside the parent
+    # commit's K1 and K2 where its sources were unpacked into build/parent;
+    # K5 at the brick route's: chi 128, 408 pairs, iters 2. The library calls
+    # are yardsticks only; no path calls them.
+    B = 32
+    stage = {}
+    for chi in (32, 64):
+        m = 2 * chi
+        stage[chi] = (torch.from_numpy(make_input(rng, "full", B, m, chi, chi)).to(dev),
+                      torch.from_numpy(make_input(rng, "full", B, m, m, chi)).to(dev),
+                      start_block(m, chi, torch.complex64, dev))
+    v, th, v0 = stage[64]
+    chi = 64
     A, Bm, g = gate_feeds(*make_pair(rng, "full", B, chi, dev), False)
-    v0 = start_block(2 * chi, chi, th.dtype, dev)
     panel = torch.from_numpy(make_input(rng, "full", B, 512, 32, 256)).to(dev)
     times = {}
     for name, kern, plain, library in (
@@ -527,6 +668,31 @@ def phase_kernels(dev):
         log(f"  time {name} B={B} chi={chi}: kernel {k1:.4f} / {k2:.4f} ms, "
             f"plain {p1:.4f} / {p2:.4f} ms, library call "
             f"{'none' if lib is None else f'{lib:.4f} ms (torch.linalg.qr)'}")
+    parent = parent_kernels(dev)
+    stage_ms = {"split": {}, "orth_r": {}}
+    for chi, (vs, ths, v0s) in stage.items():
+        m = 2 * chi
+        for name, kern, plan, old in (
+            ("split", lambda: split.subspace_factor_cuda(ths, v0s, 2),
+             split.split_plan(B, m, m, chi, ths.dtype, optin),
+             parent and (lambda: parent.split(ths, v0s, 2))),
+            ("orth_r", lambda: orth.orth_r_cuda(vs), orth.orth_r_plan(B, m, chi, vs.dtype, optin),
+             parent and (lambda: parent.orth_r(vs))),
+        ):
+            if old:
+                (qn, _), (qo, _) = kern(), old()
+                diff = (qn @ qn.mH - qo @ qo.mH).abs().max().item()
+                assert diff <= TOL_PROJ, f"{name} chi={chi}: parent's projector off by {diff}"
+                o1, k1, k2, o2 = (time_ms(f, 20) for f in (old, kern, kern, old))
+                stage_ms[name][f"chi{chi}"] = {"ms": (k1 + k2) / 2, "parent_ms": (o1 + o2) / 2}
+                log(f"  time {name} B={B} chi={chi} [{plan_text(plan)}]: kernel {k1:.4f} / "
+                    f"{k2:.4f} ms, parent's kernel {o1:.4f} / {o2:.4f} ms (same call, "
+                    f"turns parent, kernel, kernel, parent)")
+            else:
+                k1 = time_ms(kern, 20)
+                stage_ms[name][f"chi{chi}"] = {"ms": k1, "parent_ms": None}
+                log(f"  time {name} B={B} chi={chi} [{plan_text(plan)}]: kernel {k1:.4f} ms "
+                    f"(no parent sources in build/parent)")
     brick = make_brick(rng, "full", BRICK_BN, 128, 1.0, dev)
     v0b = start_block(256, 128, torch.complex64, dev)
     p1 = time_ms(lambda: split.brick_gate_split_plain(*brick, v0b, 2), 2)
@@ -546,7 +712,7 @@ def phase_kernels(dev):
         f" ms, torch.linalg.qr {time_ms(lambda: torch.linalg.qr(panel), 5):.4f} ms")
     log(f"  context only (another function: the full decomposition): torch.linalg.svd of theta "
         f"[32,128,128] {time_ms(lambda: torch.linalg.svd(th), 3):.4f} ms")
-    return err, times
+    return err, times, stage_ms
 
 
 def expected_launches(argv, n_batches):
@@ -557,7 +723,8 @@ def expected_launches(argv, n_batches):
     shape, else 2 * iters orthonormalizations by K3; per center move one K2
     launch with the fused split up to ``orth.MAX_K`` columns, else one
     orthonormalization by K3. An orthonormalization of more columns than that
-    is one K3 launch per panel of ``blocked_qr.PANEL``. On the brick route,
+    is one K3 launch per panel of ``blocked_qr.PANEL`` on the fused split in
+    complex64 and none otherwise (the scanned panel step). On the brick route,
     per chunk of the layer plan and per layer, one update per pair chunk:
     one K5 launch where the stage is brick-split eligible, else the split's
     K1 or K3 launches as above."""
@@ -574,7 +741,14 @@ def expected_launches(argv, n_batches):
     iters = max(1, cfg.subspace_iters)
 
     def panels(k):
-        return 1 if k <= orth.MAX_K else -(-k // blocked_qr.PANEL)
+        """K3 launches of one orthonormalization of k columns: one up to
+        ``orth.MAX_K``; above, one per panel where the blocked route runs K3
+        on its panels (fused split, complex64), else none (scanned panels)."""
+        if k <= orth.MAX_K:
+            return 1
+        if blocked_qr.kernel_panels_used(cfg.fused_split, cfg.complex_dtype):
+            return -(-k // blocked_qr.PANEL)
+        return 0
 
     def split_launches(chi, count):
         """One truncating split of a stage-chi pair update off the gate
@@ -763,7 +937,8 @@ def phase_unfused_route(smi):
     # columns) and center move (256 columns) of the chi-256 stage is blocked.
     # Cap 128 (stages 32, 64, 128): the split iterates (144 columns) are
     # blocked, the center moves stay on K2. Each f32 run is held to the
-    # port's own f64 run on the card at the same cap.
+    # port's own f64 run on the card at the same cap, whose blocked
+    # orthonormalizations take the scanned panel step (no K3 on panels).
     preprocess_elliptic(dataset_dir=str(RAW_V2), out_csv=str(WORK / "datasets" / CSV_V2))
     for chi, data, csv in (("256", "v1", CSV_V1), ("256", "tied-spectrum v2", CSV_V2),
                            ("128", "v1", CSV_V1)):
@@ -878,7 +1053,7 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | python {sys.version.split()[0]}")
     phase_build(dev)
-    err, times = phase_kernels(dev)
+    err, times, stage_ms = phase_kernels(dev)
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f} s")
 
     (WORK / "datasets").mkdir(parents=True, exist_ok=True)
@@ -913,7 +1088,8 @@ def main() -> int:
             "launches_by_path": {path: p[name] for path, p in by_path.items()},
             "max_abs_err": err[name], "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": times[name][2]})
+            "library_ms": times[name][2],
+            **({"ms_by_stage": stage_ms[name]} if name in stage_ms else {})})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,580 @@
+// The 512-thread, one-block-per-element building blocks of kernels K1
+// (subspace_split.cu) and K2 (orth_r.cu): a register-tiled complex GEMM over
+// shared (or global) memory, the BCGS2 orthonormalization of the rows of a
+// matrix in place, and the laid-out buffers of both kernels.
+//
+// Replaces, for K1 and K2: the routines of bcgs2.cuh and split_chain.cuh
+// (which K3, K4 and K5 keep), that is qml_cutensornet_tpu/ops/pallas_qr.py:
+// orth_rows_body and pallas_split.py:_split_chain. Same algorithm, same
+// constants (bcgs2.cuh): panels of PANEL = 16; two CGS passes of each panel
+// against the finished vectors; then MGS2 column by column inside the panel;
+// a column whose residual norm^2 is not above dep_tol2 (1e-10 complex64,
+// 1e-24 complex128) times its norm^2 before projection is written as exact
+// zeros, otherwise scaled by rsqrt(n2 + TINY). Exact-zero input vectors and
+// exact-zero entries shared by every input vector stay exactly zero.
+//
+// Why one block per element and not a thread-block cluster: one cluster-wide
+// reduction round (barrier.cluster arrive/wait plus the partials read over
+// distributed shared memory) measured 0.96 / 1.02 / 1.17 us at cluster sizes
+// 2 / 4 / 8 on the H100, against 0.13 us for a block-wide reduction of 256
+// threads and 0.03 / 0.05 us for one __syncthreads at 256 / 1024 threads
+// (utils/cluster_probe.py). K1 makes about 770 dependent reduction rounds a
+// call at chi 64; at 1 us each the rounds alone would take as long as the
+// whole orthonormalization did before.
+//
+// What the design does about the old limits:
+// - Products (the chain's five theta products, the CGS passes, K2's r = Q^H v)
+//   are one GEMM routine: each thread holds a 4 x 4 tile of complex outputs in
+//   registers (16 independent accumulator pairs), a warp covers 4 to 32 rows
+//   by 128 to 16 columns, lanes on neighbouring columns (conflict-free rows of
+//   odd stride, broadcast reads of the row operand). 512 threads leave each
+//   thread up to 128 registers, which the 4 x 4 tile needs; 1024 would leave
+//   64.
+// - theta lives in shared memory for the whole launch when it fits beside the
+//   working rows: at chi 64 in complex64 (theta 128 x 129, 132 KB) that needs
+//   the rows W and V to share one buffer, which works because each product
+//   keeps its whole output in registers (at most 16 warps x 4 rows x 128
+//   columns = 8192 outputs, one pass) and overwrites its input only after a
+//   barrier. theta is copied in once with coalesced loads; its rows have an odd
+//   stride (k + 1) so that the V product, whose lanes walk down a column of
+//   theta, reads without bank conflicts (which also rules out a bulk tensor
+//   copy, whose rows must be 16-byte aligned).
+// - The CGS coefficients: each warp takes 4 x 4 tiles, its lanes split the
+//   vector, and one reduce-scatter butterfly of 31 shuffles sums the tile.
+// - Inside a panel the column steps run on the registers of 4 warps (one
+//   or two vector elements a thread): two reduction rounds a column (the first pass
+//   shares its round with the previous column's norm), each a warp
+//   butterfly, one 128-thread named barrier and the 4 warps' partials added
+//   in a fixed order; no block-wide barrier.
+//
+// Arithmetic: full-precision complex FMAs on CUDA cores, no TF32, no tensor
+// cores. Every sum is taken in a fixed order, with no atomics: two launches on
+// the same input give bit-equal outputs.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+#include "bcgs2.cuh"
+
+// Phase stamps for utils/chain_stamps.py: built with -DQK_STAMPS, thread 0
+// of block 0 records clock64() and a phase id where a phase ends (after the
+// barrier that closes it, or after each in-panel reduction round); the
+// stamp that opens a kernel (id 1) restarts the count. Without -DQK_STAMPS
+// the stamps compile to nothing.
+#ifdef QK_STAMPS
+__device__ long long qk_stamp_t[8192];
+__device__ int qk_stamp_id[8192];
+__device__ int qk_stamp_n;
+__shared__ int qk_stamp_ns;  // the count, kept where thread 0 reads it cheaply
+#define QK_STAMP(id)                                                        \
+  do {                                                                      \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                              \
+      const int qk_n = (id) == 1 ? 0 : qk_stamp_ns;                         \
+      if (qk_n < 8192) {                                                    \
+        qk_stamp_t[qk_n] = clock64();                                       \
+        qk_stamp_id[qk_n] = (id);                                           \
+        qk_stamp_ns = qk_n + 1;                                             \
+        qk_stamp_n = qk_n + 1;                                              \
+      }                                                                     \
+    }                                                                       \
+  } while (0)
+// Copies up to ``cap`` stamps (clock64 values and phase ids) of the last
+// stamped launch to the host and returns how many there were, or
+// -(cudaError_t). Each library that includes this header has its own.
+extern "C" int qk_read_stamps(long long* t, int* id, int cap) {
+  int n = 0;
+  cudaError_t e = cudaMemcpyFromSymbol(&n, qk_stamp_n, sizeof(int));
+  if (e == cudaSuccess && n > cap) n = cap;
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(t, qk_stamp_t, n * sizeof(long long));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(id, qk_stamp_id, n * sizeof(int));
+  return e == cudaSuccess ? n : -(int)e;
+}
+#else
+#define QK_STAMP(id) \
+  do {               \
+  } while (0)
+#endif
+
+namespace qk {
+namespace blk {
+
+// Phase ids of the stamps.
+enum Stamp { ST_START = 1, ST_LOAD, ST_PANEL, ST_CGS, ST_COLUMN, ST_PRODUCT, ST_ORTH, ST_END, ST_COEF, ST_ROUND };
+
+constexpr int NT = 512;
+constexpr int NW = NT / 32;
+constexpr int TC = 4;  // output columns per thread (rows: TJ, 4 unless stated)
+
+// Lanes a warp spreads over the columns of an ncol-wide output: the fewest
+// (4 to 32) whose tiles cover ncol. Each thread holds TJ rows by TC columns.
+__host__ __device__ inline int gemm_lanes(int ncol) {
+  int lc = 4;
+  while (lc < 32 && lc * TC < ncol) lc *= 2;
+  return lc;
+}
+
+// Warp tiles of an [nj, ncol] output at 4 rows a thread.
+__host__ __device__ inline int gemm_tiles(int nj, int ncol) {
+  const int lc = gemm_lanes(ncol);
+  const int jw = (32 / lc) * 4, cw = lc * TC;
+  return ((nj + jw - 1) / jw) * ((ncol + cw - 1) / cw);
+}
+
+// out(j, c) = sum_r opX(X[j * xj + r * xr]) * opY(Y[r * yr + c * yc]) for
+// j < nj, c < ncol, r < nr, stored at O[j * oj + c * oc] (SUB: subtracted
+// from what is there), TJ rows by TC columns a thread. opX / opY conjugate
+// when CONJX / CONJY. INPLACE (with TJ 4): O may
+// alias X or Y; the caller guarantees gemm_tiles(nj, ncol) <= NW (one pass),
+// and every thread reaches the barrier between the last read and the first
+// store. Without INPLACE there is no barrier.
+template <typename T, bool CONJX, bool CONJY, bool SUB, bool INPLACE, int TJ = 4>
+__device__ __forceinline__ void gemm(const Cx<T>* X, int xj, int xr, const Cx<T>* Y, int yr, int yc, Cx<T>* O,
+                     int oj, int oc, int nj, int ncol, int nr) {
+  const int lc = gemm_lanes(ncol);
+  const int rg = 32 / lc;
+  const int jw = rg * TJ, cw = lc * TC;
+  const int njt = (nj + jw - 1) / jw, nct = (ncol + cw - 1) / cw;
+  const int ntiles = njt * nct;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T sx = CONJX ? T(-1) : T(1);
+  const T sy = CONJY ? T(-1) : T(1);
+  for (int t0 = 0; t0 < ntiles; t0 += NW) {
+    const int tile = t0 + warp;
+    const bool live = tile < ntiles;
+    const int j0 = (live ? tile / nct : 0) * jw + (lane / lc) * TJ;
+    const int c0 = (live ? tile % nct : 0) * cw + (lane % lc);
+    T ar[TJ][TC], ai[TJ][TC];
+#pragma unroll
+    for (int u = 0; u < TJ; ++u)
+#pragma unroll
+      for (int v = 0; v < TC; ++v) ar[u][v] = ai[u][v] = T(0);
+    // Rows and columns past the edge read row / column 0 (always there) and
+    // are never stored.
+    int jr[TJ], cr[TC];
+#pragma unroll
+    for (int u = 0; u < TJ; ++u) jr[u] = (j0 + u < nj) ? j0 + u : 0;
+#pragma unroll
+    for (int v = 0; v < TC; ++v) cr[v] = (c0 + v * lc < ncol) ? c0 + v * lc : 0;
+    if (live) {
+#pragma unroll 2
+      for (int r = 0; r < nr; ++r) {
+        Cx<T> x[TJ], y[TC];
+#pragma unroll
+        for (int u = 0; u < TJ; ++u) x[u] = X[(size_t)jr[u] * xj + (size_t)r * xr];
+#pragma unroll
+        for (int v = 0; v < TC; ++v) y[v] = Y[(size_t)r * yr + (size_t)cr[v] * yc];
+#pragma unroll
+        for (int u = 0; u < TJ; ++u) {
+          const T xre = x[u].re, xim = sx * x[u].im;
+#pragma unroll
+          for (int v = 0; v < TC; ++v) {
+            const T yre = y[v].re, yim = sy * y[v].im;
+            ar[u][v] += xre * yre - xim * yim;
+            ai[u][v] += xre * yim + xim * yre;
+          }
+        }
+      }
+    }
+    if (INPLACE) __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int u = 0; u < TJ; ++u) {
+        if (j0 + u >= nj) continue;
+#pragma unroll
+        for (int v = 0; v < TC; ++v) {
+          const int c = c0 + v * lc;
+          if (c >= ncol) continue;
+          Cx<T>* o = O + (size_t)(j0 + u) * oj + (size_t)c * oc;
+          if (SUB) {
+            o->re -= ar[u][v];
+            o->im -= ai[u][v];
+          } else {
+            *o = Cx<T>{ar[u][v], ai[u][v]};
+          }
+        }
+      }
+    }
+  }
+}
+
+// The in-panel steps run on a group of the block's first GW warps (one or
+// two vector elements per thread, len <= 2 * GW * 32), synchronized by a
+// named barrier.
+constexpr int GW = 4;
+constexpr int GT = GW * 32;
+
+__device__ __forceinline__ void group_bar() {
+  asm volatile("bar.sync 1, %0;" ::"n"(GT) : "memory");
+}
+
+// One stage of the reduce-scatter butterfly and the stages after it: lanes
+// that differ in bit K swap halves of v[0..2K-1], each keeping the half its
+// bit selects, so that afterwards slot j holds index j + K * bit. Written as
+// a recursion so that every index is a compile-time constant (v stays in
+// registers).
+template <int K, int N, typename T>
+__device__ __forceinline__ void butterfly(T (&v)[N], int lane) {
+  if constexpr (K >= 1) {
+    const bool upper = (lane & K) != 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const T send = upper ? v[j] : v[j + K];
+      const T keep = upper ? v[j + K] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, K);
+    }
+    butterfly<K / 2, N, T>(v, lane);
+  }
+}
+
+// The xor stages K, 2K, ..., 16 of a plain warp sum.
+template <int K, typename T>
+__device__ __forceinline__ T xor_sum(T s) {
+  if constexpr (K < 32) {
+    return xor_sum<2 * K, T>(s + __shfl_xor_sync(0xffffffffu, s, K));
+  } else {
+    return s;
+  }
+}
+
+// v[0..N-1] in every lane (N a power of 2, at most 32). Returns, in lane l,
+// the sum over the warp's lanes of v[l % N]: a reduce-scatter butterfly
+// (N / 2 + ... + 1 shuffles), then xor stages over the lanes that hold the
+// same index. Every lane of one index gets the bit-identical sum.
+template <int N, typename T>
+__device__ __forceinline__ T warp_reduce_scatter(T (&v)[N]) {
+  butterfly<N / 2, N, T>(v, threadIdx.x & 31);
+  return xor_sum<N, T>(v[0]);
+}
+
+// Scratch of bcgs2_rows in dynamic shared memory: CGS coefficients (nvec x
+// PANEL complex) and the panel's norms^2 before projection (PANEL). The
+// in-panel group's reduction slots are mgs_panel's static shared memory
+// (static_smem_bytes: both element counts of one dtype).
+template <typename T>
+struct OrthWork {
+  Cx<T>* coef;
+  T* n2o;
+};
+
+template <typename T>
+__host__ __device__ inline size_t orth_work_bytes(int nvec) {
+  return (size_t)nvec * PANEL * sizeof(Cx<T>) + (size_t)PANEL * sizeof(T);
+}
+
+template <typename T>
+__host__ __device__ inline size_t static_smem_bytes() {
+  return 2 * (size_t)(2 * GW * 32) * sizeof(T);
+}
+
+template <typename T>
+__device__ __forceinline__ OrthWork<T> orth_work_carve(unsigned char* p, int nvec) {
+  OrthWork<T> w;
+  w.coef = reinterpret_cast<Cx<T>*>(p);
+  w.n2o = reinterpret_cast<T*>(w.coef + (size_t)nvec * PANEL);
+  return w;
+}
+
+// One reduction round of the group: every thread gives v[0..N-1]; every
+// thread gets, in lane l, the group-wide sum of v[l % N] (warp butterflies,
+// one named barrier, then the GW warp partials added in warp order, so every
+// thread holds bit-identical sums).
+template <int N, typename T>
+__device__ __forceinline__ T group_sum(T (&v)[N], T* part, int& buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T s = warp_reduce_scatter<N>(v);
+  T* pb = part + buf * (GW * 32);
+  if (lane < N) pb[warp * 32 + lane] = s;
+  group_bar();
+  T tot = 0;
+#pragma unroll
+  for (int w = 0; w < GW; ++w) tot += pb[w * 32 + (lane % N)];
+  buf ^= 1;
+  QK_STAMP(ST_ROUND);
+  return tot;
+}
+
+// Scale a column of the group's registers to unit norm given its norm^2
+// n2, or to exact zeros when it is dependent (n2 not above dep_tol2 times its
+// norm^2 before projection); returns the factor.
+template <typename T, int EPL>
+__device__ __forceinline__ T finish_column(Cx<T> (&x)[EPL], T n2, T n2o, T dep_tol2) {
+  const T keep = (n2 > dep_tol2 * n2o) ? T(1) : T(0);
+  const T inv = rsqrt_(n2 + T(TINY)) * keep;
+#pragma unroll
+  for (int u = 0; u < EPL; ++u) {
+    x[u].re *= inv;
+    x[u].im *= inv;
+  }
+  QK_STAMP(ST_COLUMN);
+  return inv;
+}
+
+template <typename T, int EPL>
+__device__ __forceinline__ T norm2(const Cx<T> (&x)[EPL]) {
+  T s = 0;
+#pragma unroll
+  for (int u = 0; u < EPL; ++u) s += x[u].re * x[u].re + x[u].im * x[u].im;
+  return s;
+}
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
+// v[2s], v[2s + 1] = this thread's part of conj(x_s) . x_TT for s < TT,
+// zeros above.
+template <typename T, int EPL, int TT, int N>
+__device__ __forceinline__ void dots(const Cx<T> (&x)[PANEL][EPL], T (&v)[N]) {
+#pragma unroll
+  for (int s = 0; s < N / 2; ++s) {
+    T re = 0, im = 0;
+    if (s < TT) {
+#pragma unroll
+      for (int u = 0; u < EPL; ++u) {
+        re += x[s][u].re * x[TT][u].re + x[s][u].im * x[TT][u].im;
+        im += x[s][u].re * x[TT][u].im - x[s][u].im * x[TT][u].re;
+      }
+    }
+    v[2 * s] = re;
+    v[2 * s + 1] = im;
+  }
+}
+
+// x[TT] -= sum_{s < TT} x[s] c[s], the coefficients c[s] taken from lanes
+// 2s, 2s + 1 of ``tot`` (column TT - 1's coefficient times ``last``), in two
+// interleaved chains.
+template <typename T, int EPL, int TT>
+__device__ __forceinline__ void project_out(Cx<T> (&x)[PANEL][EPL], T tot, T last) {
+  T sr[2][EPL], si[2][EPL];
+#pragma unroll
+  for (int u = 0; u < EPL; ++u) sr[0][u] = sr[1][u] = si[0][u] = si[1][u] = T(0);
+#pragma unroll
+  for (int s = 0; s < TT; ++s) {
+    T cr = __shfl_sync(0xffffffffu, tot, 2 * s);
+    T ci = __shfl_sync(0xffffffffu, tot, 2 * s + 1);
+    if (s == TT - 1) {
+      cr *= last;
+      ci *= last;
+    }
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) {
+      sr[s & 1][u] += x[s][u].re * cr - x[s][u].im * ci;
+      si[s & 1][u] += x[s][u].re * ci + x[s][u].im * cr;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < EPL; ++u) {
+    x[TT][u].re -= sr[0][u] + sr[1][u];
+    x[TT][u].im -= si[0][u] + si[1][u];
+  }
+}
+
+// The in-panel MGS2 from column TT on, on the group's registers: x[t][u] is
+// element threadIdx.x + u * GT of panel column t (zero past the vector's
+// length and past the panel's width pw); columns before TT - 1 are finished
+// and column TT - 1 waits for its norm. Column TT takes two group rounds:
+// the first sums the coefficients conj(x_s) . x_TT (s < TT) together with
+// column TT - 1's norm^2, which finishes column TT - 1 (its coefficient is
+// scaled by the same factor as the column, so the pass projects on the
+// finished q); the second is the second pass. The last column's norm is a
+// round of its own. Unrolled over the columns, so every register index and
+// every butterfly width is a compile-time constant.
+template <typename T, int EPL, int TT>
+__device__ __forceinline__ void mgs_columns(Cx<T> (&x)[PANEL][EPL], int pw, T* part, int& buf,
+                                            const T* n2o, T dep_tol2) {
+  if constexpr (TT == PANEL) {
+    T v[1] = {norm2<T, EPL>(x[PANEL - 1])};
+    finish_column<T, EPL>(x[PANEL - 1], group_sum<1>(v, part, buf), n2o[PANEL - 1], dep_tol2);
+  } else if constexpr (TT == 0) {
+    mgs_columns<T, EPL, 1>(x, pw, part, buf, n2o, dep_tol2);
+  } else {
+    if (TT >= pw) {
+      T v[1] = {norm2<T, EPL>(x[TT - 1])};
+      finish_column<T, EPL>(x[TT - 1], group_sum<1>(v, part, buf), n2o[TT - 1], dep_tol2);
+      return;
+    }
+    constexpr int N = pow2_at_least(2 * TT + 1);
+    T v[N];
+    dots<T, EPL, TT, N>(x, v);
+    v[2 * TT] = norm2<T, EPL>(x[TT - 1]);
+    T tot = group_sum<N>(v, part, buf);
+    const T inv = finish_column<T, EPL>(x[TT - 1], __shfl_sync(0xffffffffu, tot, 2 * TT),
+                                        n2o[TT - 1], dep_tol2);
+    project_out<T, EPL, TT>(x, tot, inv);
+    T w[N];
+    dots<T, EPL, TT, N>(x, w);
+    tot = group_sum<N>(w, part, buf);
+    project_out<T, EPL, TT>(x, tot, T(1));
+    mgs_columns<T, EPL, TT + 1>(x, pw, part, buf, n2o, dep_tol2);
+  }
+}
+
+// The panel's MGS2 on the group: load the panel into registers, run the
+// columns, store them back. Not inlined: one copy per (T, EPL) for every
+// kernel of a source, which keeps the unrolled column code from being
+// compiled once per call site and launch plan. Its reduction slots are
+// static shared memory of its own (2 x GW x 32 values), so their accesses
+// are known to be shared-memory ones.
+template <typename T, int EPL>
+__device__ __noinline__ void mgs_panel(Cx<T>* P, int ld, int pw, int len, const T* n2o,
+                                       T dep_tol2) {
+  __shared__ T part[2 * GW * 32];
+  int buf = 0;
+  Cx<T> x[PANEL][EPL];
+#pragma unroll
+  for (int t = 0; t < PANEL; ++t)
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) {
+      const int e = threadIdx.x + u * GT;
+      x[t][u] = (t < pw && e < len) ? P[(size_t)t * ld + e] : Cx<T>{T(0), T(0)};
+    }
+  mgs_columns<T, EPL, 0>(x, pw, part, buf, n2o, dep_tol2);
+#pragma unroll
+  for (int t = 0; t < PANEL; ++t)
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) {
+      const int e = threadIdx.x + u * GT;
+      if (t < pw && e < len) P[(size_t)t * ld + e] = x[t][u];
+    }
+}
+
+// coef[i][t] = sum_e conj(X[i][e]) P[t][e] for i < p0, t < pw: each warp
+// takes 4 x 4 tiles of coefficients, its lanes split the vector's elements,
+// and one butterfly (warp_reduce_scatter) leaves one of the tile's 32 real
+// parts in each lane.
+template <typename T>
+__device__ __forceinline__ void cgs_coefficients(const Cx<T>* X, const Cx<T>* P, int ld, int p0, int pw,
+                                 int len, Cx<T>* coef) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nit = (p0 + 3) / 4, ntt = (pw + 3) / 4;
+  for (int tile = warp; tile < nit * ntt; tile += NW) {
+    const int i0 = (tile / ntt) * 4, t0 = (tile % ntt) * 4;
+    int ir[4], tr[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      ir[u] = i0 + u < p0 ? i0 + u : 0;
+      tr[u] = t0 + u < pw ? t0 + u : 0;
+    }
+    T v[32];
+#pragma unroll
+    for (int a = 0; a < 32; ++a) v[a] = T(0);
+    for (int e = lane; e < len; e += 32) {
+      Cx<T> q[4], a[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        q[u] = X[(size_t)ir[u] * ld + e];
+        a[u] = P[(size_t)tr[u] * ld + e];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          v[8 * u + 2 * c] += q[u].re * a[c].re + q[u].im * a[c].im;
+          v[8 * u + 2 * c + 1] += q[u].re * a[c].im - q[u].im * a[c].re;
+        }
+    }
+    const T s = warp_reduce_scatter<32>(v);
+    const int i = i0 + (lane >> 3), t = t0 + ((lane >> 1) & 3);
+    if (i < p0 && t < pw) reinterpret_cast<T*>(coef + (size_t)i * PANEL + t)[lane & 1] = s;
+  }
+}
+
+// Orthonormalize, in place, the ``nvec`` vectors of length ``len`` (at most
+// 2 * GT) held as the rows of X (row j at X + j * ld). Must be entered by the
+// whole block after a barrier that makes X visible; ends with a barrier.
+template <typename T>
+__device__ __forceinline__ void bcgs2_rows(Cx<T>* X, int ld, int nvec, int len, const OrthWork<T>& w) {
+  const T dep_tol2 = sizeof(T) == sizeof(double) ? T(DEP_TOL2_F64) : T(DEP_TOL2);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int p0 = 0; p0 < nvec; p0 += PANEL) {
+    const int pw = min(PANEL, nvec - p0);
+    Cx<T>* P = X + (size_t)p0 * ld;
+    for (int t = warp; t < pw; t += NW) {
+      T s = 0;
+      for (int e = lane; e < len; e += 32) {
+        const Cx<T> a = P[(size_t)t * ld + e];
+        s += a.re * a.re + a.im * a.im;
+      }
+      s = warp_sum(s);
+      if (lane == 0) w.n2o[t] = s;
+    }
+    __syncthreads();
+    QK_STAMP(ST_PANEL);
+
+    // Two CGS passes against the finished rows [0, p0):
+    //   coef[i][t] = sum_e conj(X[i][e]) P[t][e];  P[t][e] -= sum_i coef[i][t] X[i][e].
+    if (p0 > 0) {
+      for (int pass = 0; pass < 2; ++pass) {
+        cgs_coefficients<T>(X, P, ld, p0, pw, len, w.coef);
+        __syncthreads();
+        QK_STAMP(ST_COEF);
+        gemm<T, false, false, true, false, 1>(w.coef, 1, PANEL, X, ld, 1, P, ld, 1, pw, len, p0);
+        __syncthreads();
+        QK_STAMP(ST_CGS);
+      }
+    }
+
+    // MGS2 inside the panel, column by column, on the group's registers.
+    if (tid < GT) {
+      if (len <= GT) {
+        mgs_panel<T, 1>(P, ld, pw, len, w.n2o, dep_tol2);
+      } else {
+        mgs_panel<T, 2>(P, ld, pw, len, w.n2o, dep_tol2);
+      }
+    }
+    __syncthreads();
+  }
+  QK_STAMP(ST_ORTH);
+}
+
+// ---------------------------------------------------------------- K1 layout
+
+// Where K1's buffers live (each kernel instantiation has its placement as
+// template arguments, so that the compiler knows which loads are from
+// shared memory). theta_smem: theta [m][k + 1] in shared memory,
+// else read from global memory. rows_smem: the working rows in shared
+// memory, else in a per-element global scratch buffer of split_scratch_cx
+// complex elements. inplace (needs rows_smem and one-pass products): W and V
+// share one buffer of nc rows.
+struct SplitPlan {
+  int theta_smem, rows_smem, inplace;
+};
+
+__host__ __device__ inline bool split_inplace_ok(int m, int k, int nc) {
+  return gemm_tiles(nc, k) <= NW && gemm_tiles(nc, m) <= NW;
+}
+
+__host__ __device__ inline size_t split_scratch_cx(int m, int k, int nc) {
+  return (size_t)nc * ((size_t)k + 1) + (size_t)nc * ((size_t)m + 1);
+}
+
+template <typename T>
+__host__ __device__ size_t split_smem_bytes(int m, int k, int nc, SplitPlan p) {
+  size_t cx = 0;
+  if (p.theta_smem) cx += (size_t)m * ((size_t)k + 1);
+  if (p.rows_smem)
+    cx += p.inplace ? (size_t)nc * ((size_t)(m > k ? m : k) + 1) : split_scratch_cx(m, k, nc);
+  return cx * sizeof(Cx<T>) + orth_work_bytes<T>(nc);
+}
+
+// ---------------------------------------------------------------- K2 layout
+
+// rows_smem: Q [k][m + 1] in shared memory, else in per-element global
+// scratch of k * (m + 1) complex elements. v_smem: a copy of v [m][k] in
+// shared memory for r = Q^H v, else v is read from global memory.
+struct OrthRPlan {
+  int rows_smem, v_smem;
+};
+
+template <typename T>
+__host__ __device__ size_t orth_r_smem_bytes(int m, int k, OrthRPlan p) {
+  size_t cx = 0;
+  if (p.rows_smem) cx += (size_t)k * ((size_t)m + 1);
+  if (p.v_smem) cx += (size_t)m * k;
+  return cx * sizeof(Cx<T>) + orth_work_bytes<T>(k);
+}
+
+}  // namespace blk
+}  // namespace qk

@@ -14,78 +14,176 @@
 //   V = W theta^T            -> orth(V)
 // then writes q[b] [m, nc] = V^T (the port's column layout) and
 // r[b] [nc, k] = conj(V) theta (= q^H theta). Both orthonormalizations are
-// the BCGS2 routine of bcgs2.cuh (same constants and zero invariants as
-// pallas_qr.orth_rows_body). The chain itself is split_chain.cuh, shared
-// with the gate + theta-build kernel (gate_split.cu).
+// BCGS2 (block_chain.cuh: same constants and zero invariants as
+// pallas_qr.orth_rows_body).
 //
-// What bounds it on Hopper: latency of the serial BCGS2 column chains
-// (2 * iters orthonormalizations of nc dependent column steps each); the
-// 2 * iters + 1 theta products are about 8 MFLOP each per batch element at
-// chi 64 and run as register-blocked CUDA-core FMAs. The simple design runs
-// one 256-thread block per batch element. theta stays in global memory
-// (128 KB per element at chi 64; the batch's thetas sit in the 50 MB L2),
-// and the working rows W and V live in dynamic shared memory when they fit
-// (at chi 64, f32:
-// 2 x 64 x 129 complex64 = 132 KB plus 25 KB of panel scratch) or in a
-// global scratch buffer otherwise (chi 128, or f64). Complex FMAs on CUDA
-// cores only (no TF32, no tensor cores): full f32 accumulation.
+// What bounds it on Hopper: at the main path's shapes (B 32, chi 32 and 64)
+// neither bytes nor operations (bound 0.036 ms at chi 64) but the serial
+// chain of 2 * iters orthonormalizations, each nc dependent column steps with
+// block-wide reductions, beside 2 * iters + 1 theta products of about 8 MFLOP
+// per element. The design (block_chain.cuh): one 512-thread block per
+// element; theta in shared memory for the whole launch where it fits beside
+// the rows (chi 64 in complex64: W and V share one buffer), else read from
+// global memory (the batch's thetas sit in the 50 MB L2); the products as
+// register-tiled CUDA-core GEMMs; the rows in shared memory where they fit,
+// else in a per-element global scratch buffer (chi 128, or f64 above chi 32).
+// The launch plan (SplitPlan) is chosen by the wrapper, ops/split.py
+// split_plan; the launch refuses a shared-memory size below what the plan
+// needs.
 //
 // C interface (ctypes): every entry point returns a cudaError_t as int.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "split_chain.cuh"
+#include "block_chain.cuh"
 
 namespace qk {
 
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
+template <typename T, bool THETA_SMEM, bool ROWS_SMEM, bool INPLACE>
+__global__ void __launch_bounds__(blk::NT, 1)
 split_kernel(const Cx<T>* __restrict__ theta, const Cx<T>* __restrict__ v0,
-             Cx<T>* __restrict__ q, Cx<T>* __restrict__ r, Cx<T>* scratch,
-             int m, int k, int nc, int iters, int rows_in_smem) {
+             Cx<T>* __restrict__ q, Cx<T>* __restrict__ r, Cx<T>* scratch, int m, int k,
+             int nc, int iters) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x;
-  const ChainWork<T> w = chain_carve<T>(reinterpret_cast<Cx<T>*>(smem_raw),
-                                        scratch + (size_t)b * chain_rows_cx(m, k, nc), m, k, nc,
-                                        rows_in_smem != 0);
-  split_chain<T>(theta + (size_t)b * m * k, v0, q + (size_t)b * m * nc,
-                 r + (size_t)b * nc * k, w, m, k, nc, iters);
+  const Cx<T>* thb = theta + (size_t)b * m * k;
+  Cx<T>* p = reinterpret_cast<Cx<T>*>(smem_raw);
+
+  // theta: [m][k + 1] in shared memory, or theta[b] itself ([m][k]).
+  const Cx<T>* th = thb;
+  int ldt = k;
+  if constexpr (THETA_SMEM) {
+    Cx<T>* ts = p;
+    p += (size_t)m * (k + 1);
+    for (int idx = threadIdx.x; idx < m * k; idx += blk::NT) {
+      const int row = idx / k, col = idx - row * k;
+      ts[(size_t)row * (k + 1) + col] = thb[idx];
+    }
+    th = ts;
+    ldt = k + 1;
+  }
+  // The rows: W [nc][k + 1] and V [nc][m + 1], or one buffer X [nc][max + 1].
+  Cx<T>* W;
+  Cx<T>* V;
+  int ldw, ldv;
+  if constexpr (INPLACE) {
+    W = V = p;
+    ldw = ldv = (m > k ? m : k) + 1;
+    p += (size_t)nc * ldw;
+  } else {
+    Cx<T>* rows;
+    if constexpr (ROWS_SMEM) {
+      rows = p;
+      p += blk::split_scratch_cx(m, k, nc);
+    } else {
+      rows = scratch + (size_t)b * blk::split_scratch_cx(m, k, nc);
+    }
+    W = rows;
+    V = rows + (size_t)nc * (k + 1);
+    ldw = k + 1;
+    ldv = m + 1;
+  }
+  const blk::OrthWork<T> ow = blk::orth_work_carve<T>(reinterpret_cast<unsigned char*>(p), nc);
+  QK_STAMP(blk::ST_START);
+  __syncthreads();
+  QK_STAMP(blk::ST_LOAD);
+
+  for (int it = 0; it < iters; ++it) {
+    // W[j][kk] = sum_mm v[mm, j] conj(theta[mm, kk]), v = v0 or V^T.
+    if (it == 0) {
+      blk::gemm<T, false, true, false, false>(v0, 1, nc, th, ldt, 1, W, ldw, 1, nc, k, m);
+    } else if constexpr (INPLACE) {
+      blk::gemm<T, false, true, false, true>(V, ldv, 1, th, ldt, 1, W, ldw, 1, nc, k, m);
+    } else {
+      blk::gemm<T, false, true, false, false>(V, ldv, 1, th, ldt, 1, W, ldw, 1, nc, k, m);
+    }
+    __syncthreads();
+    QK_STAMP(blk::ST_PRODUCT);
+    blk::bcgs2_rows<T>(W, ldw, nc, k, ow);
+    // V[j][mm] = sum_kk W[j][kk] theta[mm, kk]
+    if constexpr (INPLACE) {
+      blk::gemm<T, false, false, false, true>(W, ldw, 1, th, 1, ldt, V, ldv, 1, nc, m, k);
+    } else {
+      blk::gemm<T, false, false, false, false>(W, ldw, 1, th, 1, ldt, V, ldv, 1, nc, m, k);
+    }
+    __syncthreads();
+    QK_STAMP(blk::ST_PRODUCT);
+    blk::bcgs2_rows<T>(V, ldv, nc, m, ow);
+  }
+
+  Cx<T>* qb = q + (size_t)b * m * nc;
+  for (int idx = threadIdx.x; idx < m * nc; idx += blk::NT) {
+    const int j = idx % nc, mm = idx / nc;
+    qb[idx] = V[(size_t)j * ldv + mm];
+  }
+  // r[j][kk] = sum_mm conj(V[j][mm]) theta[mm, kk]
+  blk::gemm<T, true, false, false, false>(V, ldv, 1, th, ldt, 1, r + (size_t)b * nc * k, k, 1,
+                                          nc, k, m);
+  QK_STAMP(blk::ST_END);
 }
 
-template <typename T>
-int split_launch(const void* theta, const void* v0, void* q, void* r, void* scratch, int B,
-                 int m, int k, int nc, int iters, int rows_in_smem, long long smem_bytes,
-                 cudaStream_t stream) {
-  auto kern = split_kernel<T>;
+template <typename T, bool THETA_SMEM, bool ROWS_SMEM, bool INPLACE>
+int split_launch_as(const void* theta, const void* v0, void* q, void* r, void* scratch, int B,
+                    int m, int k, int nc, int iters, long long smem_bytes, cudaStream_t stream) {
+  auto kern = split_kernel<T, THETA_SMEM, ROWS_SMEM, INPLACE>;
   // A request over the card's limit fails here AND at the launch; both
   // errors surface through the single cudaGetLastError() below, which also
   // clears them so no stale error reaches the next launch.
   if (smem_bytes > 48 * 1024)
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
-  kern<<<B, NTHREADS, (size_t)smem_bytes, stream>>>(
+  kern<<<B, blk::NT, (size_t)smem_bytes, stream>>>(
       static_cast<const Cx<T>*>(theta), static_cast<const Cx<T>*>(v0), static_cast<Cx<T>*>(q),
-      static_cast<Cx<T>*>(r), static_cast<Cx<T>*>(scratch), m, k, nc, iters, rows_in_smem);
+      static_cast<Cx<T>*>(r), static_cast<Cx<T>*>(scratch), m, k, nc, iters);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int split_launch(const void* theta, const void* v0, void* q, void* r, void* scratch, int B,
+                 int m, int k, int nc, int iters, blk::SplitPlan plan, long long smem_bytes,
+                 cudaStream_t stream) {
+  if (plan.inplace && !(plan.rows_smem && blk::split_inplace_ok(m, k, nc)))
+    return (int)cudaErrorInvalidValue;
+  if (plan.theta_smem && !plan.rows_smem) return (int)cudaErrorInvalidValue;
+  if (smem_bytes < (long long)blk::split_smem_bytes<T>(m, k, nc, plan))
+    return (int)cudaErrorInvalidValue;
+  if (plan.theta_smem)
+    return plan.inplace ? split_launch_as<T, true, true, true>(theta, v0, q, r, scratch, B, m, k,
+                                                                nc, iters, smem_bytes, stream)
+                        : split_launch_as<T, true, true, false>(theta, v0, q, r, scratch, B, m,
+                                                                 k, nc, iters, smem_bytes,
+                                                                 stream);
+  if (plan.rows_smem)
+    return plan.inplace ? split_launch_as<T, false, true, true>(theta, v0, q, r, scratch, B, m,
+                                                                 k, nc, iters, smem_bytes, stream)
+                        : split_launch_as<T, false, true, false>(theta, v0, q, r, scratch, B, m,
+                                                                  k, nc, iters, smem_bytes,
+                                                                  stream);
+  return split_launch_as<T, false, false, false>(theta, v0, q, r, scratch, B, m, k, nc, iters,
+                                                 smem_bytes, stream);
 }
 
 }  // namespace qk
 
 extern "C" {
 
-long long qk_split_smem(int m, int k, int nc, int dbl, int rows_in_smem) {
-  return dbl ? (long long)qk::chain_smem_bytes<double>(m, k, nc, rows_in_smem != 0)
-             : (long long)qk::chain_smem_bytes<float>(m, k, nc, rows_in_smem != 0);
+// Dynamic shared memory of a launch plan, in bytes (dbl: complex128).
+long long qk_split_smem(int m, int k, int nc, int dbl, int rows_in_smem, int theta_in_smem,
+                        int inplace) {
+  const qk::blk::SplitPlan p{theta_in_smem, rows_in_smem, inplace};
+  return dbl ? (long long)qk::blk::split_smem_bytes<double>(m, k, nc, p)
+             : (long long)qk::blk::split_smem_bytes<float>(m, k, nc, p);
 }
 
 int qk_split_launch(const void* theta, const void* v0, void* q, void* r, void* scratch, int B,
                     int m, int k, int nc, int iters, int dbl, int rows_in_smem,
-                    long long smem_bytes, void* stream) {
+                    long long smem_bytes, void* stream, int theta_in_smem, int inplace) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dbl ? qk::split_launch<double>(theta, v0, q, r, scratch, B, m, k, nc, iters,
-                                        rows_in_smem, smem_bytes, s)
-             : qk::split_launch<float>(theta, v0, q, r, scratch, B, m, k, nc, iters,
-                                       rows_in_smem, smem_bytes, s);
+  const qk::blk::SplitPlan p{theta_in_smem, rows_in_smem, inplace};
+  return dbl ? qk::split_launch<double>(theta, v0, q, r, scratch, B, m, k, nc, iters, p,
+                                        smem_bytes, s)
+             : qk::split_launch<float>(theta, v0, q, r, scratch, B, m, k, nc, iters, p,
+                                       smem_bytes, s);
 }
 
 }  // extern "C"

@@ -1,0 +1,53 @@
+"""The host-side shape rules of ``csrc/block_chain.cuh`` (kernels K1 and K2),
+mirrored in Python so that the wrappers' launch plans are pure functions the
+CPU tests can check: the block size, the GEMM's warp tiling and the bytes of
+the orthonormalizer's scratch. A launch whose shared-memory request is below
+what the C side computes for the same plan is refused with an error, so a
+drift between the two raises instead of corrupting memory.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NT = 512  # threads per block (``blk::NT``)
+NW = NT // 32  # warps per block
+TJ = TC = 4  # output rows and columns per thread of the GEMM
+PANEL = 16  # columns per BCGS2 panel
+
+
+def cx_bytes(dtype: torch.dtype) -> int:
+    """Bytes of one complex element."""
+    return 16 if dtype == torch.complex128 else 8
+
+
+def gemm_tiles(nj: int, ncol: int) -> int:
+    """Warp tiles of an ``[nj, ncol]`` GEMM output (``blk::gemm_tiles``)."""
+    lc = 4
+    while lc < 32 and lc * TC < ncol:
+        lc *= 2
+    jw, cw = (32 // lc) * TJ, lc * TC
+    return -(-nj // jw) * -(-ncol // cw)
+
+
+def inplace_ok(m: int, k: int, nc: int) -> bool:
+    """K1's W and V may share one buffer: both products of the chain are one
+    pass of the block's warps (``blk::split_inplace_ok``)."""
+    return gemm_tiles(nc, k) <= NW and gemm_tiles(nc, m) <= NW
+
+
+GW = 4  # warps of the in-panel group (``blk::GW``)
+
+
+def orth_work_bytes(nvec: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the orthonormalizer's coefficients and the
+    panel's norms (``blk::orth_work_bytes``)."""
+    cx = cx_bytes(dtype)
+    return nvec * PANEL * cx + PANEL * (cx // 2)
+
+
+def static_smem_bytes(dtype: torch.dtype) -> int:
+    """Static shared memory of K1 and K2: the in-panel group's reduction
+    slots, one set per element count (``blk::static_smem_bytes``). A plan's
+    dynamic request plus this must fit the block's opt-in."""
+    return 2 * (2 * GW * 32) * (cx_bytes(dtype) // 2)

@@ -26,7 +26,7 @@ import time
 import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-HEADERS = ("bcgs2.cuh", "split_chain.cuh")
+HEADERS = ("bcgs2.cuh", "split_chain.cuh", "block_chain.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,14 +44,14 @@ _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source -> {C entry point: (argtypes, restype)}
 SOURCES = {
     "orth_r.cu": {
-        "qk_orth_r_smem": ([_i, _i, _i, _i], _ll),
-        "qk_orth_r_launch": ([_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _ll, _vp], _i),
+        "qk_orth_r_smem": ([_i] * 5, _ll),
+        "qk_orth_r_launch": ([_vp] * 4 + [_i] * 5 + [_ll, _vp, _i], _i),
         "qk_smem_optin": ([_i], _ll),
         "qk_error_string": ([_i], ctypes.c_char_p),
     },
     "subspace_split.cu": {
-        "qk_split_smem": ([_i, _i, _i, _i, _i], _ll),
-        "qk_split_launch": ([_vp] * 5 + [_i] * 7 + [_ll, _vp], _i),
+        "qk_split_smem": ([_i] * 7, _ll),
+        "qk_split_launch": ([_vp] * 5 + [_i] * 7 + [_ll, _vp, _i, _i], _i),
     },
     "orth.cu": {
         "qk_orth_smem": ([_i, _i, _i, _i], _ll),

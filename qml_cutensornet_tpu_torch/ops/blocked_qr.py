@@ -9,20 +9,24 @@ above chi 128) are orthonormalized panel by panel:
 - each panel of ``PANEL`` = 32 columns is projected twice (classical
   Gram-Schmidt, CGS2) against all finished columns, as batched matrix
   products (``torch.matmul``, full f32; the reference leaves these to XLA);
-- a column that collapsed against the EARLIER panels (squared norm after
-  projection not above ``orth.dep_tol2`` times its squared norm before: the
-  reference's ``_DEP_TOL**2`` = 1e-10 in complex64) is zeroed before the
-  panel step: it is a noise residual, and if the panel step normalized it the
-  panel's later columns would be orthogonalized against junk;
-- the panel itself is orthonormalized by K3 on CUDA tensors and by K3's
-  plain version on CPU tensors (:func:`ops.orth.orth`, whose within-panel
-  dependent-column rule is the same cutoff).
+- the panel itself is orthonormalized by one of the reference's two panel
+  steps, chosen as the reference chooses (``kernel_panels``, the caller's
+  ``SimConfig.fused_split``; the reference's kernel is f32 only):
+
+  - with ``kernel_panels`` in complex64, kernel K3 on CUDA tensors and K3's
+    plain version on CPU tensors (:func:`ops.orth.orth`). A column that
+    collapsed against the EARLIER panels (squared norm after projection not
+    above ``orth.dep_tol2`` times its squared norm before: the reference's
+    ``_DEP_TOL**2`` = 1e-10) is zeroed before the kernel: it is a noise
+    residual, and if the kernel normalized it the panel's later columns would
+    be orthogonalized against junk. Inside the panel the kernel judges
+    collapse against the column's norm after that projection;
+  - otherwise (``kernel_panels`` off, or complex128) the scanned MGS2 panel
+    step :func:`mgs2_panel`, in torch ops, which judges every column's
+    collapse against its norm BEFORE the projection against earlier panels.
 
 Zero input columns stay exactly zero; dependent columns come out as exact
-zeros. The basis is defined up to a unitary mixing within the span. The
-reference's other panel step, a scan over the panel's columns for devices
-without its kernel, has no use here: every device runs K3 or its plain
-version.
+zeros. The basis is defined up to a unitary mixing within the span.
 """
 
 from __future__ import annotations
@@ -34,11 +38,38 @@ from qml_cutensornet_tpu_torch.ops import orth
 PANEL = 32  # complex columns per panel
 
 
-def qr_orth_blocked(v: torch.Tensor) -> torch.Tensor:
+def kernel_panels_used(kernel_panels: bool, dtype: torch.dtype) -> bool:
+    """Whether :func:`qr_orth_blocked` runs K3 on its panels."""
+    return kernel_panels and dtype == torch.complex64
+
+
+def mgs2_panel(a: torch.Tensor, n2_orig: torch.Tensor) -> torch.Tensor:
+    """The reference's scanned panel step: orthonormalize the columns of one
+    panel ``a [B, m, P]`` one at a time by MGS2 (two passes against the
+    panel's finished prefix), zeroing a column whose residual squared norm is
+    not above ``orth.dep_tol2`` times ``n2_orig [B, P]``, its squared norm
+    before any projection."""
+    tol = orth.dep_tol2(a.dtype)
+    q = torch.zeros_like(a)
+    for t in range(a.shape[2]):
+        x = a[:, :, t]
+        if t:
+            qp = q[:, :, :t]
+            for _ in range(2):
+                c = (qp.conj() * x[:, :, None]).sum(1)  # [B, t]
+                x = x - (qp * c[:, None, :]).sum(2)
+        n2 = orth.abs2(x).sum(1)
+        keep = (n2 > tol * n2_orig[:, t]).to(n2.dtype)
+        q[:, :, t] = x * (torch.rsqrt(n2 + orth.TINY) * keep)[:, None]
+    return q
+
+
+def qr_orth_blocked(v: torch.Tensor, kernel_panels: bool) -> torch.Tensor:
     """Orthonormal basis of the columns of ``v [B, m, k]`` (complex), any
-    k."""
+    k; ``kernel_panels`` as in the module docstring."""
     k = v.shape[2]
     tol = orth.dep_tol2(v.dtype)
+    use_kernel = kernel_panels_used(kernel_panels, v.dtype)
     q = torch.zeros_like(v)
     for p0 in range(0, k, PANEL):
         a = v[:, :, p0:p0 + PANEL]
@@ -47,7 +78,10 @@ def qr_orth_blocked(v: torch.Tensor) -> torch.Tensor:
             done = q[:, :, :p0]
             for _ in range(2):
                 a = a - done @ (done.mH @ a)
-        cross_keep = orth.abs2(a).sum(1) > tol * n2_orig
-        a = a * cross_keep[:, None, :].to(a.real.dtype)
-        q[:, :, p0:p0 + PANEL] = orth.orth(a.contiguous())
+        if use_kernel:
+            cross_keep = orth.abs2(a).sum(1) > tol * n2_orig
+            a = a * cross_keep[:, None, :].to(a.real.dtype)
+            q[:, :, p0:p0 + PANEL] = orth.orth(a.contiguous())
+        else:
+            q[:, :, p0:p0 + PANEL] = mgs2_panel(a, n2_orig)
     return q

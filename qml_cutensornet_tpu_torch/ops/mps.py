@@ -119,7 +119,8 @@ def _write_pair(mps: MPS, site: int, new_a, new_b, kept_fraction, rank) -> MPS:
 def move_center(mps: MPS, site: int, direction: int, cfg: SimConfig) -> MPS:
     """Move the orthogonality center across bond ``(site, site+1)`` by
     ``orth.qr``: the fused Q+R (kernel K2) with ``cfg.fused_split`` up to chi
-    128, else kernel K3 (blocked above chi 128) and a matrix product for r.
+    128, else kernel K3 (the blocked route above chi 128, ``ops/blocked_qr``)
+    and a matrix product for r.
     Exact: no truncation. DIR_R (0)
     leaves the center at ``site+1``, DIR_L (1) at ``site``; a move toward
     where the center already sits is an exact no-op (chunk padding)."""

@@ -20,11 +20,13 @@ Routing: a CPU tensor runs the plain version; a CUDA tensor runs the CUDA
 kernel or raises.
 
 - :func:`qr` ``(v, fused)``: up to 128 columns, ``fused`` runs K2
-  (``csrc/orth_r.cu``: q and r in one launch; m <= 256), otherwise K3 and
+  (``csrc/orth_r.cu``: q and r in one launch; m <= 256; launched as
+  :func:`orth_r_plan` says), otherwise K3 and
   ``r = q^H v`` as a batched matrix product; above 128 columns the blocked
-  route (``ops/blocked_qr.py``, K3 on each panel) and the same product.
-- :func:`qr_orth`: K3 (``csrc/orth.cu``: k <= 128, any m) up to 128 columns,
-  the blocked route above.
+  route (``ops/blocked_qr.py``: K3 on each panel with ``fused`` in
+  complex64, the scanned MGS2 panel step otherwise) and the same product.
+- :func:`qr_orth` ``(v, fused)``: K3 (``csrc/orth.cu``: k <= 128, any m) up
+  to 128 columns, the blocked route above.
 
 Both kernels run complex64 and, through the double instantiation of the
 same code, complex128. A partial last panel is fine.
@@ -32,9 +34,11 @@ same code, complex128. A partial last panel is fine.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from qml_cutensornet_tpu_torch.ops import _build
+from qml_cutensornet_tpu_torch.ops import _block, _build
 from qml_cutensornet_tpu_torch.utils import device as _device  # noqa: F401  (full-f32 matmuls)
 
 PANEL = 16
@@ -108,26 +112,28 @@ def orth(v: torch.Tensor) -> torch.Tensor:
     return orth_cuda(v)
 
 
-def qr_orth(v: torch.Tensor) -> torch.Tensor:
+def qr_orth(v: torch.Tensor, fused: bool) -> torch.Tensor:
     """Orthonormal basis of the columns of ``v [B, m, k]`` at any k: K3 up
-    to 128 columns, the blocked route (K3 on panels of 32) above."""
+    to 128 columns, the blocked route above, whose panels go through K3 with
+    ``fused`` in complex64 and through the scanned MGS2 step otherwise
+    (``ops/blocked_qr.py``; the reference's ``cpx.qr_orth(v, fused)``)."""
     if v.shape[-1] <= MAX_K:
         return orth(v.contiguous())
     from qml_cutensornet_tpu_torch.ops import blocked_qr
 
-    return blocked_qr.qr_orth_blocked(v)
+    return blocked_qr.qr_orth_blocked(v, kernel_panels=fused)
 
 
-def qr(v: torch.Tensor, fused: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+def qr(v: torch.Tensor, fused: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """``v [B, m, k] -> (q [B, m, k], r [B, k, k])`` with ``q r == v``. Up to
     128 columns with ``fused``: K2, one launch for both (its plain version
-    for CPU tensors). Otherwise the basis from :func:`qr_orth` and
-    ``r = q^H v`` as a batched matrix product."""
+    for CPU tensors). Otherwise the basis from :func:`qr_orth` (``fused``
+    passed on) and ``r = q^H v`` as a batched matrix product."""
     if fused and v.shape[-1] <= MAX_K:
         if v.device.type == "cpu":
             return orth_r_plain(v)
         return orth_r_cuda(v)
-    q = qr_orth(v)
+    q = qr_orth(v, fused)
     return q, q.mH @ v
 
 
@@ -141,9 +147,44 @@ def _check_input(v: torch.Tensor, name: str) -> bool:
     return v.dtype == torch.complex128
 
 
+@dataclasses.dataclass(frozen=True)
+class OrthRPlan:
+    """How K2 is launched (``csrc/orth_r.cu``, ``OrthRPlan`` of
+    ``csrc/block_chain.cuh``): ``grid`` blocks of ``threads``, one block per
+    batch element; the vectors Q in shared memory (``rows_smem``) or in a
+    per-element global scratch buffer of ``scratch_cx`` complex elements; a
+    copy of v in shared memory for ``r = Q^H v`` (``v_smem``) or v read from
+    global memory; ``smem_bytes`` of dynamic shared memory per block."""
+
+    threads: int
+    grid: int
+    rows_smem: bool
+    v_smem: bool
+    smem_bytes: int
+    scratch_cx: int
+
+
+def orth_r_plan(B: int, m: int, k: int, dtype: torch.dtype, smem_optin: int) -> OrthRPlan:
+    """K2's launch plan, a pure function of the shapes, the dtype and the
+    shared memory a block may opt in to: the first of (Q and v in shared
+    memory; Q only; neither) that fits."""
+    cx = _block.cx_bytes(dtype)
+    work = _block.orth_work_bytes(k, dtype)
+    static = _block.static_smem_bytes(dtype)
+    rows, vcopy = k * (m + 1) * cx, m * k * cx
+    for in_smem, v_smem, nbytes in ((True, True, rows + vcopy), (True, False, rows),
+                                    (False, False, 0)):
+        if nbytes + work + static <= smem_optin:
+            return OrthRPlan(_block.NT, B, in_smem, v_smem, nbytes + work,
+                             0 if in_smem else k * (m + 1))
+    raise ValueError(f"orth_r: no launch plan fits {smem_optin} bytes of shared memory "
+                     f"(m={m}, k={k}, {dtype})")
+
+
 def orth_r_cuda(v: torch.Tensor, smem_bytes: int | None = None):
-    """Launch K2 on ``v [B, m, k]``. ``smem_bytes`` overrides the dynamic
-    shared memory request (used only to test the launch-error path)."""
+    """Launch K2 on ``v [B, m, k]``. ``smem_bytes`` overrides the plan's
+    dynamic shared memory request (used only to test the launch-error
+    path)."""
     dbl = _check_input(v, "orth_r")
     if v.dim() != 3:
         raise ValueError(f"orth_r: expected [B, m, k], got {tuple(v.shape)}")
@@ -151,16 +192,15 @@ def orth_r_cuda(v: torch.Tensor, smem_bytes: int | None = None):
     if not (1 <= k <= MAX_K and 1 <= m <= MAX_M and B >= 1):
         raise ValueError(f"orth_r: kernel takes k <= {MAX_K}, m <= {MAX_M}; got m={m}, k={k}")
     lib = _build.load()
-    in_smem = lib.qk_orth_r_smem(m, k, int(dbl), 1) <= _build.smem_optin(v.device.index)
-    if smem_bytes is None:
-        smem_bytes = lib.qk_orth_r_smem(m, k, int(dbl), int(in_smem))
+    plan = orth_r_plan(B, m, k, v.dtype, _build.smem_optin(v.device.index))
     q = torch.empty_like(v)
     r = torch.empty((B, k, k), dtype=v.dtype, device=v.device)
-    scratch = (torch.empty(0, dtype=v.dtype, device=v.device) if in_smem
-               else torch.empty((B, k, m + 1), dtype=v.dtype, device=v.device))
+    scratch = torch.empty((B, plan.scratch_cx), dtype=v.dtype, device=v.device)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     rc = lib.qk_orth_r_launch(v.data_ptr(), q.data_ptr(), r.data_ptr(), scratch.data_ptr(),
-                              B, m, k, int(dbl), int(in_smem), smem_bytes, stream)
+                              B, m, k, int(dbl), int(plan.rows_smem),
+                              plan.smem_bytes if smem_bytes is None else smem_bytes, stream,
+                              int(plan.v_smem))
     _build.check(rc, "orth_r kernel launch")
     _build.LAUNCHES["orth_r"] += 1
     return q, r

@@ -35,17 +35,20 @@ lambda inverse), ``s2`` the squared norms ``||theta_w q_j||^2`` and ``total =
 ||theta_w||_F^2``.
 
 Routing: a CPU tensor runs the plain version; a CUDA tensor runs the CUDA
-kernel (``csrc/subspace_split.cu``, ``csrc/gate_split.cu``,
-``csrc/brick_split.cu``; all run the chain of ``csrc/split_chain.cuh``) or
-raises. The kernels take nc <= 128, m, k <= 256 (chi <= 128), iters >= 1, in
-complex64 (complex128 runs the double instantiation).
+kernel (``csrc/subspace_split.cu`` on ``csrc/block_chain.cuh``, launched as
+:func:`split_plan` says; ``csrc/gate_split.cu`` and ``csrc/brick_split.cu``
+on the chain of ``csrc/split_chain.cuh``) or raises. The kernels take nc <=
+128, m, k <= 256 (chi <= 128), iters >= 1, in complex64 (complex128 runs the
+double instantiation).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from qml_cutensornet_tpu_torch.ops import _build
+from qml_cutensornet_tpu_torch.ops import _block, _build
 from qml_cutensornet_tpu_torch.ops.orth import _check_input, abs2, bcgs2_plain
 
 MAX_NC = 128
@@ -76,8 +79,55 @@ def subspace_factor(theta: torch.Tensor, v0: torch.Tensor, iters: int):
     return subspace_factor_cuda(theta, v0, iters)
 
 
-def subspace_factor_cuda(theta: torch.Tensor, v0: torch.Tensor, iters: int):
-    """Launch K1."""
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How K1 is launched (``csrc/subspace_split.cu``, ``SplitPlan`` of
+    ``csrc/block_chain.cuh``): ``grid`` blocks of ``threads``, one block per
+    batch element; theta in shared memory (``theta_smem``) or read from global
+    memory; the working rows W and V in shared memory (``rows_smem``), one
+    buffer for both (``inplace``), or a per-element global scratch buffer of
+    ``scratch_cx`` complex elements; ``smem_bytes`` of dynamic shared memory
+    per block."""
+
+    threads: int
+    grid: int
+    theta_smem: bool
+    rows_smem: bool
+    inplace: bool
+    smem_bytes: int
+    scratch_cx: int
+
+
+def split_plan(B: int, m: int, k: int, nc: int, dtype: torch.dtype,
+               smem_optin: int) -> SplitPlan:
+    """K1's launch plan, a pure function of the shapes, the dtype and the
+    shared memory a block may opt in to: the first of (theta and rows in
+    shared memory; the same with one buffer for W and V; theta in global
+    memory and the rows in shared memory, two buffers or one; everything in
+    global memory) that fits. One buffer needs one-pass products
+    (:func:`_block.inplace_ok`)."""
+    cx = _block.cx_bytes(dtype)
+    work = _block.orth_work_bytes(nc, dtype)
+    static = _block.static_smem_bytes(dtype)
+    theta = m * (k + 1) * cx
+    rows_two = nc * (k + 1 + m + 1) * cx
+    rows_one = nc * (max(m, k) + 1) * cx
+    one_ok = _block.inplace_ok(m, k, nc)
+    options = ((True, True, False, theta + rows_two), (True, True, True, theta + rows_one),
+               (False, True, False, rows_two), (False, True, True, rows_one),
+               (False, False, False, 0))
+    for th, rows, inplace, nbytes in options:
+        if (one_ok or not inplace) and nbytes + work + static <= smem_optin:
+            return SplitPlan(_block.NT, B, th, rows, inplace, nbytes + work,
+                             0 if rows else nc * (k + 1 + m + 1))
+    raise ValueError(f"split: no launch plan fits {smem_optin} bytes of shared memory "
+                     f"(m={m}, k={k}, nc={nc}, {dtype})")
+
+
+def subspace_factor_cuda(theta: torch.Tensor, v0: torch.Tensor, iters: int,
+                         smem_bytes: int | None = None):
+    """Launch K1. ``smem_bytes`` overrides the plan's dynamic shared memory
+    request (used only to test the launch-error path)."""
     dbl = _check_input(theta, "split")
     _check_input(v0, "split v0")
     if theta.dim() != 3 or v0.dim() != 2 or v0.shape[0] != theta.shape[1]:
@@ -91,16 +141,16 @@ def subspace_factor_cuda(theta: torch.Tensor, v0: torch.Tensor, iters: int):
         raise ValueError(f"split: kernel takes nc <= {MAX_NC}, m, k <= {MAX_MK}, iters >= 1;"
                          f" got m={m}, k={k}, nc={nc}, iters={iters}")
     lib = _build.load()
-    in_smem = lib.qk_split_smem(m, k, nc, int(dbl), 1) <= _build.smem_optin(theta.device.index)
-    smem_bytes = lib.qk_split_smem(m, k, nc, int(dbl), int(in_smem))
+    plan = split_plan(B, m, k, nc, theta.dtype, _build.smem_optin(theta.device.index))
     q = torch.empty((B, m, nc), dtype=theta.dtype, device=theta.device)
     r = torch.empty((B, nc, k), dtype=theta.dtype, device=theta.device)
-    scratch = (torch.empty(0, dtype=theta.dtype, device=theta.device) if in_smem
-               else torch.empty((B, nc, m + k + 2), dtype=theta.dtype, device=theta.device))
+    scratch = torch.empty((B, plan.scratch_cx), dtype=theta.dtype, device=theta.device)
     stream = torch.cuda.current_stream(theta.device).cuda_stream
     rc = lib.qk_split_launch(theta.data_ptr(), v0.data_ptr(), q.data_ptr(), r.data_ptr(),
                              scratch.data_ptr(), B, m, k, nc, int(iters), int(dbl),
-                             int(in_smem), smem_bytes, stream)
+                             int(plan.rows_smem),
+                             plan.smem_bytes if smem_bytes is None else smem_bytes, stream,
+                             int(plan.theta_smem), int(plan.inplace))
     _build.check(rc, "split kernel launch")
     _build.LAUNCHES["split"] += 1
     return q, r

@@ -17,7 +17,9 @@ v0. Three routes run that chain:
 - unfused split (``cfg.fused_split`` off, or a shape K1 does not take, such
   as chi 128 with the default oversampling of 16, nc = 144): the products
   as ``torch.matmul`` and every orthonormalization through
-  ``orth.qr_orth`` (kernel K3, on panels of 32 above 128 columns);
+  ``orth.qr_orth`` (kernel K3; above 128 columns the blocked route, K3 on
+  its panels with ``cfg.fused_split`` in complex64, the scanned panel step
+  otherwise);
 - fused gate (``truncated_svd_gate``, taken by ``ops/mps.apply_2site`` when
   :func:`gate_split_eligible`): one launch of K4 builds theta from the two
   site tensors and the gate, and runs the chain; theta is never formed by
@@ -85,8 +87,8 @@ def _split_subspace(theta: torch.Tensor, cfg: SimConfig, keep: int):
     else:
         v = v0.expand(B, m, nc)
         for _ in range(iters):
-            w = orth.qr_orth(theta.mH @ v)
-            v = orth.qr_orth(theta @ w)
+            w = orth.qr_orth(theta.mH @ v, cfg.fused_split)
+            v = orth.qr_orth(theta @ w, cfg.fused_split)
         q, r = v, v.mH @ theta
     total = orth.abs2(theta).sum((1, 2))
     return _finish_subspace(q, r, total, cfg, keep, nc)

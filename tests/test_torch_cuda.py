@@ -63,7 +63,7 @@ def test_orth_r_kernel_matches_plain(dev, chi, kind):
     rng = np.random.default_rng(chi)
     v = torch.from_numpy(_input(rng, kind, 32, 2 * chi, chi)).to(dev)
     before = _build.LAUNCHES["orth_r"]
-    qk, rk = orth.qr(v)
+    qk, rk = orth.qr(v, fused=True)
     assert _build.LAUNCHES["orth_r"] == before + 1
     qp, rp = orth.orth_r_plain(v)
     torch.cuda.synchronize()
@@ -159,10 +159,13 @@ def test_orth_double_and_blocked_route(dev):
     assert (qk @ qk.mH - qp @ qp.mH).abs().max().item() <= 1e-12
     wide = torch.from_numpy(_input(rng, "zero_padded", 4, 288, 144))
     before = _build.LAUNCHES["orth"]
-    q_gpu = blocked_qr.qr_orth_blocked(wide.to(dev))
+    q_gpu = blocked_qr.qr_orth_blocked(wide.to(dev), True)
     assert _build.LAUNCHES["orth"] == before + 5  # 144 columns: 5 panels of 32
-    q_cpu = blocked_qr.qr_orth_blocked(wide)
+    q_cpu = blocked_qr.qr_orth_blocked(wide, True)
     assert (q_gpu.cpu() @ q_gpu.cpu().mH - q_cpu @ q_cpu.mH).abs().max().item() <= TOL
+    q_scan = blocked_qr.qr_orth_blocked(wide.to(dev), False)  # the scanned panels: no K3
+    assert _build.LAUNCHES["orth"] == before + 5
+    assert (q_scan.cpu() @ q_scan.cpu().mH - q_cpu @ q_cpu.mH).abs().max().item() <= TOL
     q, r = orth.qr(wide.to(dev), fused=True)  # above 128 columns: blocked, then q^H v
     assert (q @ r - wide.to(dev)).abs().max().item() <= TOL
     with pytest.raises(ValueError):
@@ -326,3 +329,108 @@ def test_brick_slice_on_card_matches_cpu(dev, monkeypatch, fused_gate):
     assert sum(_build.PLAIN_ON_CUDA.values()) == 0
     K_cpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cpu")
     np.testing.assert_allclose(K_gpu, K_cpu, atol=3e-5)
+
+
+C64, C128 = torch.complex64, torch.complex128
+
+
+def _zeros_kept(q, x):
+    """Rows of the input that are exact zeros stay exact zeros in q."""
+    zero_rows = (x.abs().sum(2) == 0)[:, :, None].expand_as(q)
+    assert torch.count_nonzero(q[zero_rows]) == 0
+
+
+@pytest.mark.parametrize("B,chi,nc,dtype,plan", [
+    (1, 8, 8, C64, (True, True, False)),
+    (32, 32, 32, C64, (True, True, False)),
+    (100, 64, 64, C64, (True, True, True)),
+    (32, 64, 80, C64, (False, True, False)),
+    (32, 64, 64, C128, (False, True, True)),
+    (408, 128, 128, C64, (False, False, False)),
+])
+@pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
+def test_split_kernel_each_launch_plan(dev, B, chi, nc, dtype, plan, kind):
+    """K1 on each launch plan its wrapper chooses (theta in shared memory
+    with two row buffers or one; theta in global memory with the rows in
+    shared memory, two buffers or one; everything in global memory), against
+    the plain version; exact zeros of the input stay exact zeros. With more
+    columns than the input's rank (nc 80 on the rank-deficient and padded
+    inputs) the surplus columns are rounding residuals, so only the product
+    q r is compared there."""
+    m = 2 * chi
+    chosen = split.split_plan(B, m, m, nc, dtype, _build.smem_optin(dev.index))
+    assert (chosen.theta_smem, chosen.rows_smem, chosen.inplace) == plan
+    assert _build.load().qk_split_smem(m, m, nc, int(dtype == C128), int(plan[1]), int(plan[0]),
+                                       int(plan[2])) == chosen.smem_bytes  # C and Python agree
+    rng = np.random.default_rng(B + chi + nc)
+    npdt = np.complex64 if dtype == C64 else np.complex128
+    th = torch.from_numpy(_input(rng, kind, B, m, m, npdt)).to(dev)
+    v0 = start_block(m, nc, dtype, dev)
+    tol = TOL if dtype == C64 else 1e-12
+    qk, rk = split.subspace_factor(th, v0, 2)
+    qp, rp = split.subspace_factor_plain(th, v0, 2)
+    torch.cuda.synchronize()
+    if nc > chi and kind != "full":
+        assert (qk @ rk - qp @ rp).abs().max().item() <= tol
+    else:
+        _close(qk, rk, qp, rp, tol)
+    _zeros_kept(qk, th)
+    dead = (qk.abs().pow(2).sum(1) < 0.25)[:, None, :].expand_as(qk)
+    assert torch.count_nonzero(qk[dead]) == 0
+
+
+@pytest.mark.parametrize("B,chi,dtype,plan", [
+    (1, 64, C64, (True, True)),
+    (100, 32, C64, (True, True)),
+    (32, 64, C128, (True, False)),
+    (32, 128, C64, (False, False)),
+    (32, 128, C128, (False, False)),
+])
+@pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
+def test_orth_r_kernel_each_launch_plan(dev, B, chi, dtype, plan, kind):
+    """K2 on each launch plan its wrapper chooses (Q and v in shared memory;
+    Q alone; both in global memory), against the plain version."""
+    chosen = orth.orth_r_plan(B, 2 * chi, chi, dtype, _build.smem_optin(dev.index))
+    assert (chosen.rows_smem, chosen.v_smem) == plan
+    assert _build.load().qk_orth_r_smem(2 * chi, chi, int(dtype == C128), int(plan[0]),
+                                        int(plan[1])) == chosen.smem_bytes
+    rng = np.random.default_rng(B + chi)
+    npdt = np.complex64 if dtype == C64 else np.complex128
+    v = torch.from_numpy(_input(rng, kind, B, 2 * chi, chi, npdt)).to(dev)
+    qk, rk = orth.orth_r_cuda(v)
+    qp, rp = orth.orth_r_plain(v)
+    torch.cuda.synchronize()
+    _close(qk, rk, qp, rp, TOL if dtype == C64 else 1e-12)
+    _zeros_kept(qk, v)
+
+
+@pytest.mark.parametrize("B,chi", [(1, 64), (32, 32), (32, 64), (100, 64)])
+def test_split_and_orth_r_launches_are_bit_equal(dev, B, chi):
+    """Two launches on one input give bit-equal outputs: every sum of K1 and
+    K2 is taken in a fixed order, with no atomics."""
+    rng = np.random.default_rng(chi)
+    th = torch.from_numpy(_input(rng, "full", B, 2 * chi, 2 * chi)).to(dev)
+    v0 = start_block(2 * chi, chi, th.dtype, dev)
+    v = torch.from_numpy(_input(rng, "rank_deficient", B, 2 * chi, chi)).to(dev)
+    for fn in (lambda: split.subspace_factor_cuda(th, v0, 2), lambda: orth.orth_r_cuda(v)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_refused_split_launch_raises_and_is_not_counted(dev):
+    """A K1 launch asking for less shared memory than its plan needs is
+    refused by the C side, one asking for more than the card allows by the
+    launch; both raise and count nothing."""
+    th = torch.zeros((2, 128, 128), dtype=C64, device=dev)
+    v0 = start_block(128, 64, th.dtype, dev)
+    plan = split.split_plan(2, 128, 128, 64, th.dtype, _build.smem_optin(dev.index))
+    before = dict(_build.LAUNCHES)
+    for nbytes in (plan.smem_bytes - 16, _build.smem_optin(dev.index) + 4096):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            split.subspace_factor_cuda(th, v0, 1, smem_bytes=nbytes)
+    assert _build.LAUNCHES == before
+    q, _ = split.subspace_factor_cuda(th, v0, 1)  # the next launch is clean
+    torch.cuda.synchronize()
+    assert q.abs().max().item() == 0.0

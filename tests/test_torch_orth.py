@@ -65,7 +65,7 @@ def test_plain_matches_pallas_kernel(kind):
     rng = np.random.default_rng(["full", "ill_conditioned", "rank_deficient",
                                  "zero_padded"].index(kind))
     v = _make(kind, rng)
-    q, r = (t.numpy() for t in orth.qr(torch.from_numpy(v)))
+    q, r = (t.numpy() for t in orth.qr(torch.from_numpy(v), fused=True))
     qj, rj = _jax_qr(v)
     np.testing.assert_allclose(_proj(q), _proj(qj), atol=TOL)
     np.testing.assert_allclose(q @ r, qj @ rj, atol=TOL)
@@ -88,7 +88,7 @@ def test_partial_panel_matches_householder():
     sends it to XLA Householder (cpx.qr), the port through the same BCGS2."""
     rng = np.random.default_rng(7)
     v = _make("full", rng, b=2, m=16, k=8)
-    q, r = (t.numpy() for t in orth.qr(torch.from_numpy(v)))
+    q, r = (t.numpy() for t in orth.qr(torch.from_numpy(v), fused=True))
     for b in range(2):
         qj, rj = jcpx.qr(Cpx(jnp.asarray(v[b].real), jnp.asarray(v[b].imag)))
         qj, rj = jcpx.to_np(qj), jcpx.to_np(rj)
@@ -99,7 +99,7 @@ def test_partial_panel_matches_householder():
 def test_plain_runs_f64_to_roundoff():
     rng = np.random.default_rng(8)
     v = _make("ill_conditioned", rng).astype(np.complex128)
-    q, r = (t.numpy() for t in orth.qr(torch.from_numpy(v)))
+    q, r = (t.numpy() for t in orth.qr(torch.from_numpy(v), fused=True))
     np.testing.assert_allclose(q @ r, v, atol=1e-13)
     np.testing.assert_allclose(q.conj().transpose(0, 2, 1) @ q,
                                np.broadcast_to(np.eye(K), (B, K, K)), atol=1e-13)
@@ -112,3 +112,26 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         orth.orth_r_cuda(torch.zeros((2, 32, 16), dtype=torch.complex64))
     assert _build.LAUNCHES == before
+
+
+H100_OPTIN = 232448  # bytes of shared memory a block may opt in to on an H100
+
+
+@pytest.mark.parametrize("B,m,k,dtype,want", [
+    # the main path's center moves (B 32, chi 32 and 64, complex64)
+    (32, 64, 32, torch.complex64, (True, True, 37184)),
+    (32, 128, 64, torch.complex64, (True, True, 139840)),
+    # the chi-128 runs' center moves, and complex128
+    (32, 256, 128, torch.complex64, (False, False, 16448)),
+    (32, 128, 64, torch.complex128, (True, False, 148608)),
+    (32, 256, 128, torch.complex128, (False, False, 32896)),
+])
+def test_orth_r_launch_plan_is_a_pure_function_of_the_shapes(B, m, k, dtype, want):
+    """K2's launch plan: one 512-thread block per element, Q and a copy of v
+    where they fit the H100's 227 KB."""
+    plan = orth.orth_r_plan(B, m, k, dtype, H100_OPTIN)
+    assert (plan.threads, plan.grid) == (512, B)
+    assert (plan.rows_smem, plan.v_smem, plan.smem_bytes) == want
+    assert plan.scratch_cx == (0 if plan.rows_smem else k * (m + 1))
+    with pytest.raises(ValueError, match="no launch plan"):
+        orth.orth_r_plan(B, m, k, dtype, 1024)

@@ -111,18 +111,28 @@ def test_blocked_matches_reference():
     v[1, :, K - 6:] = 0.0  # exact-zero padding columns
     v[1, M // 2:, :] = 0.0  # engine-style zero rows: rank 64 of 138 columns
     v = (v / np.abs(v).max()).astype(np.complex64)
-    q = blocked_qr.qr_orth_blocked(torch.from_numpy(v)).numpy()
     qs = jcpx.to_np(_ref_blocked(False)(_cpx(v)))
     qp = jcpx.to_np(_ref_blocked(True)(_cpx(v)))
-    np.testing.assert_allclose(_proj(q), _proj(qs), atol=TOL)
-    np.testing.assert_allclose(_proj(q), _proj(qp), atol=TOL)
-    for b in range(2):
-        assert _orth_err(q[b]) <= TOL_ORTH
-        span = np.abs(v[b] - _proj(q[b]) @ v[b]).max() / np.abs(v[b]).max()
-        assert span <= TOL_ORTH
-    assert np.count_nonzero(q[1, :, 40]) == 0 and np.count_nonzero(q[1, :, K - 6:]) == 0
-    assert np.count_nonzero(q[1, M // 2:, :]) == 0
-    assert (np.linalg.norm(q[1], axis=0) > 0.5).sum() == M // 2
+    for kernel_panels in (True, False):
+        q = blocked_qr.qr_orth_blocked(torch.from_numpy(v), kernel_panels).numpy()
+        np.testing.assert_allclose(_proj(q), _proj(qs), atol=TOL)
+        np.testing.assert_allclose(_proj(q), _proj(qp), atol=TOL)
+        for b in range(2):
+            assert _orth_err(q[b]) <= TOL_ORTH
+            span = np.abs(v[b] - _proj(q[b]) @ v[b]).max() / np.abs(v[b]).max()
+            assert span <= TOL_ORTH
+        assert np.count_nonzero(q[1, :, 40]) == 0 and np.count_nonzero(q[1, :, K - 6:]) == 0
+        assert np.count_nonzero(q[1, M // 2:, :]) == 0
+        assert (np.linalg.norm(q[1], axis=0) > 0.5).sum() == M // 2
+
+
+def _degenerate(rng, r=40):
+    """A [M, K] input of exact rank ``r`` with exactly repeated singular
+    values (10 at 1, 10 at 1e-2, 20 at 1e-3) and its left singular vectors."""
+    u, _ = np.linalg.qr(_crandn(rng, M, r))
+    w, _ = np.linalg.qr(_crandn(rng, K, r))
+    s = np.concatenate([np.full(10, 1.0), np.full(10, 1e-2), np.full(20, 1e-3)])
+    return (u * s) @ w.conj().T, u
 
 
 def test_blocked_degenerate_and_rank_deficient():
@@ -139,16 +149,14 @@ def test_blocked_degenerate_and_rank_deficient():
     scanned panels keep exactly 40 columns at 1e-6 and 1e-5: inside the
     panel the kernel measures a column's collapse against its norm AFTER the
     projection against earlier panels, the scan against its norm before it.
-    The port reproduces the reference's kernel route here, fault included
-    (ROADMAP, faults): the bars below are that route's measured level, not
-    the scanned route's."""
+    The port reproduces the reference's kernel route here, fault included:
+    the bars below are that route's measured level, not the scanned
+    route's."""
     rng = np.random.default_rng(7)
     r = 40
-    u, _ = np.linalg.qr(_crandn(rng, M, r))
-    w, _ = np.linalg.qr(_crandn(rng, K, r))
-    s = np.concatenate([np.full(10, 1.0), np.full(10, 1e-2), np.full(20, 1e-3)])
-    v = ((u * s) @ w.conj().T).astype(np.complex64)
-    q = blocked_qr.qr_orth_blocked(torch.from_numpy(v[None]))[0].numpy()
+    v, u = _degenerate(rng, r)
+    v = v.astype(np.complex64)
+    q = blocked_qr.qr_orth_blocked(torch.from_numpy(v[None]), True)[0].numpy()
     norms = np.linalg.norm(q, axis=0)
     assert np.all((norms > 0.99) | (norms == 0.0))
     both = _cpx(np.stack([v, v]))  # batch of 2: the compile of the test above
@@ -165,6 +173,40 @@ def test_blocked_degenerate_and_rank_deficient():
     np.testing.assert_allclose(_proj(q) @ top, _proj(qs) @ top, atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype,kernel_panels", [
+    (np.complex64, False), (np.complex128, False), (np.complex128, True)])
+def test_blocked_scanned_route_matches_reference_on_degenerate_input(dtype, kernel_panels):
+    """The port's scanned route (``kernel_panels`` off, and every complex128
+    run whatever ``kernel_panels`` says) against the reference's scanned
+    route (``pallas_panels=False``) on the degenerate rank-40 input of the
+    test above: exactly 40 columns kept, the rest exact zeros, orthonormal to
+    1e-5, the projected input ``q q^H v`` and the projector on the directions
+    of singular value 1 and 1e-2 within 1e-5 of the reference's, and the
+    whole projector within 1e-5 in complex128. In complex64 the span of the
+    1e-3 cluster is fixed only to about eps / 1e-3 = 6e-5: the two routes'
+    whole projectors differ by 4.3e-5 there and each is 3e-5 to 4e-5 from the
+    reference's scan of the same input in f64, so that bar is 1e-4. In
+    complex128 the reference runs the same scan in f64 (its cutoff 1e-10, the
+    port's 1e-24: both far from this input's residual ratios of 1e-6 and
+    1e-30)."""
+    rng = np.random.default_rng(7)
+    v, u = _degenerate(rng)
+    v = v.astype(dtype)
+    assert blocked_qr.kernel_panels_used(kernel_panels, torch.from_numpy(v).dtype) is False
+    q = blocked_qr.qr_orth_blocked(torch.from_numpy(v[None]), kernel_panels)[0].numpy()
+    rdt = jnp.float32 if dtype == np.complex64 else jnp.float64
+    both = Cpx(jnp.asarray(np.stack([v, v]).real, rdt), jnp.asarray(np.stack([v, v]).imag, rdt))
+    qs = jcpx.to_np(_ref_blocked(False)(both))[0]
+    norms = np.linalg.norm(q, axis=0)
+    assert (norms > 0.5).sum() == 40 and (np.linalg.norm(qs, axis=0) > 0.5).sum() == 40
+    assert np.count_nonzero(q[:, norms < 0.5]) == 0
+    assert _orth_err(q) <= 1e-5
+    top = u[:, :20]
+    assert np.abs(_proj(q) @ top - _proj(qs) @ top).max() <= 1e-5
+    assert np.abs(_proj(q) @ v - _proj(qs) @ v).max() / np.abs(v).max() <= 1e-5
+    assert np.abs(_proj(q) - _proj(qs)).max() <= (1e-4 if dtype == np.complex64 else 1e-5)
+
+
 def test_qr_routing_and_products():
     """``orth.qr``: fused and unfused agree on q r == v and on the projector;
     above 128 columns both take the blocked route. ``qr_orth`` picks K3 or the
@@ -179,8 +221,14 @@ def test_qr_routing_and_products():
     wide = torch.from_numpy((_crandn(rng, 1, 160, 144) / 4).astype(np.complex64))
     qw, rw = orth.qr(wide, fused=True)
     np.testing.assert_allclose((qw @ rw).numpy(), wide.numpy(), atol=TOL_ORTH)
-    torch.testing.assert_close(orth.qr_orth(wide), blocked_qr.qr_orth_blocked(wide))
-    torch.testing.assert_close(orth.qr_orth(v), orth.orth_plain(v))
+    torch.testing.assert_close(orth.qr_orth(wide, True), blocked_qr.qr_orth_blocked(wide, True))
+    torch.testing.assert_close(orth.qr_orth(wide, False),
+                               blocked_qr.qr_orth_blocked(wide, False))
+    qs, rs = orth.qr(wide, fused=False)  # the scanned panels, then q^H v
+    torch.testing.assert_close(qs, blocked_qr.qr_orth_blocked(wide, False))
+    np.testing.assert_allclose((qs @ rs).numpy(), wide.numpy(), atol=TOL_ORTH)
+    for fused in (True, False):
+        torch.testing.assert_close(orth.qr_orth(v, fused), orth.orth_plain(v))
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_wide_inputs():

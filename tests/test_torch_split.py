@@ -25,7 +25,7 @@ from qml_cutensornet_tpu.ops import svd as jsvd
 from qml_cutensornet_tpu.ops.cpx import Cpx
 from qml_cutensornet_tpu.ops.pallas_split import subspace_factor_batched
 from qml_cutensornet_tpu_torch.config import SimConfig
-from qml_cutensornet_tpu_torch.ops import _build, split, svd
+from qml_cutensornet_tpu_torch.ops import _block, _build, split, svd
 
 TOL = 2e-5
 B, M, KEEP = 2, 32, 16  # one interpret-mode compile per iters value
@@ -136,3 +136,34 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         split.subspace_factor_cuda(th, v0, 1)
     assert _build.LAUNCHES == before
+
+
+H100_OPTIN = 232448  # bytes of shared memory a block may opt in to on an H100
+
+
+@pytest.mark.parametrize("B,m,k,nc,dtype,want", [
+    # the main path's stages (B 32, chi 32 and 64, complex64)
+    (32, 64, 64, 32, torch.complex64, (True, True, False, 70720)),
+    (32, 128, 128, 64, torch.complex64, (True, True, True, 206400)),
+    # chi 64 with the oversampling of the chi-128 runs: one row buffer would
+    # need two passes of the block's warps
+    (32, 128, 128, 80, torch.complex64, (False, True, False, 175424)),
+    # the brick route's full width through K1 (408 pairs, chi 128)
+    (408, 256, 256, 128, torch.complex64, (False, False, False, 16448)),
+    # complex128
+    (32, 64, 64, 32, torch.complex128, (True, True, False, 141440)),
+    (32, 128, 128, 64, torch.complex128, (False, True, True, 148608)),
+    (4, 256, 256, 128, torch.complex128, (False, False, False, 32896)),
+])
+def test_launch_plan_is_a_pure_function_of_the_shapes(B, m, k, nc, dtype, want):
+    """K1's launch plan: one 512-thread block per element, theta and the
+    rows where they fit the H100's 227 KB, and the shared-memory bytes the C
+    side computes for the same plan."""
+    plan = split.split_plan(B, m, k, nc, dtype, H100_OPTIN)
+    assert (plan.threads, plan.grid) == (512, B)
+    assert (plan.theta_smem, plan.rows_smem, plan.inplace, plan.smem_bytes) == want
+    assert plan.smem_bytes + _block.static_smem_bytes(dtype) <= H100_OPTIN
+    assert plan.scratch_cx == (0 if plan.rows_smem else nc * (m + k + 2))
+    assert split.split_plan(B, m, k, nc, dtype, H100_OPTIN) == plan
+    with pytest.raises(ValueError, match="no launch plan"):
+        split.split_plan(B, m, k, nc, dtype, 1024)
