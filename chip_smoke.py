@@ -20,17 +20,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    batch 6 and 408 pairs, 1 and 2 iterations, swap-network and plain gates,
    full inputs and zero-padded ones whose Schmidt weights are exact zeros
    past a rank of 5, and with 16 oversampled columns at chi 16), on
-   basis-invariant quantities, each against its stated tolerance; K1 and
-   K2 on every launch plan their wrappers choose (B 1, 32 and 100 at chi 8
-   to 64; K1 at nc 80, at [408, 256, 256] with nc 128 and in complex128 at
-   chi 64 and 128; K2 in complex128 at chi 64 and 128), and two launches of
-   each on one input bit-equal; then kernel, plain-version and library-call
-   times at the main-path shape with CUDA events (K5 at the brick slice's
-   chi 128, 408 pairs), beside the least time the card could take for the
-   same work (``bound_ms``); K1 and K2 also at both stage shapes of the main
-   path (chi 32 and 64, B 32, iters 2) with their launch plans, and beside
-   the parent commit's K1 and K2 where its sources were unpacked into
-   ``build/parent`` (``git archive``; absent in a plain checkout).
+   basis-invariant quantities, each against its stated tolerance; K1, K2,
+   K4 and K5 on every launch plan their wrappers choose (B 1, 32 and 100 at
+   chi 8 to 64; K1 at nc 80, at [408, 256, 256] with nc 128 and in
+   complex128 at chi 64 and 128; K2 in complex128 at chi 64 and 128; K4 at
+   nc 80 and in complex128 at chi 16 to 128; K5 in complex128 at chi 16 to
+   128), and two launches of each on one input bit-equal; then kernel,
+   plain-version and library-call times at the main-path shape with CUDA
+   events (K5 at the brick slice's chi 128, 408 pairs, beside K1 on the same
+   theta_w^H, its yardstick), beside the least time the card could take for
+   the same work (``bound_ms``); K1, K2 and K4 also at both stage shapes of
+   the main path (chi 32 and 64, B 32, iters 2) with their launch plans,
+   and beside the parent commit's K1, K2, K4 and K5 where its sources were
+   unpacked into ``build/parent`` (``git archive``; absent in a plain
+   checkout).
 4. default route: the port's ``cli.main_no_test`` at the repo's headline
    shape (32 qubits, r=2, d=6, chi 64, f32, 102 train points of the pinned v1
    data): kernels K1 and K2 carry it; K symmetric with unit diagonal, its
@@ -76,6 +79,7 @@ limit, the kernels summary JSON and the result JSON ``{"ok": true,
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
@@ -273,9 +277,9 @@ def compare_orth(orth_mod, v, what):
     return compare(qk, qk.mH @ v, qp, qp.mH @ v, v, what, False)
 
 
-def compare_gate(split_mod, A, Bm, g, v0, iters, what):
+def compare_gate(split_mod, A, Bm, g, v0, iters, what, surplus=False):
     """Kernel K4 against its plain version: the factorization of theta and
-    ``tot = ||theta||^2``."""
+    ``tot = ||theta||^2`` (``surplus`` as in :func:`compare`)."""
     qk, rk, totk = split_mod.gate_subspace_factor_cuda(A, Bm, g, v0, iters)
     qp, rp, totp = split_mod.gate_subspace_factor_plain(A, Bm, g, v0, iters)
     torch.cuda.synchronize()
@@ -283,7 +287,7 @@ def compare_gate(split_mod, A, Bm, g, v0, iters, what):
     tot_err = max(((totk - totp).abs() / totp).max().item(),
                   ((totk - theta.abs().pow(2).sum((1, 2))).abs() / totp).max().item())
     assert tot_err <= TOL_TOT, f"{what}: tot error {tot_err} > {TOL_TOT}"
-    return max(compare(qk, rk, qp, rp, theta, what, True), tot_err)
+    return max(compare(qk, rk, qp, rp, theta, what, True, surplus), tot_err)
 
 
 def compare_brick(split_mod, A, Bm, g, lam, v0, iters, what):
@@ -349,66 +353,137 @@ def plan_text(plan):
 PARENT = ROOT / "build" / "parent" / "qml_cutensornet_tpu_torch" / "csrc"
 
 
-def parent_kernels(dev):
-    """The parent commit's K1 and K2 (one 256-thread block per element,
-    ``bcgs2.cuh``), built from ``build/parent`` (the parent unpacked there by
-    ``git archive``) and called through their own C interface, or None where
-    that directory is absent. Timing only: each is checked once against the
-    current kernel on a basis-invariant quantity."""
-    import ctypes
+PARENT_SOURCES = ("subspace_split", "orth_r", "gate_split", "brick_split")
+PARENT_LIBS = ROOT / "build" / "parent_kernels"
+
+
+def parent_build_start():
+    """Start building the parent commit's K1, K2, K4 and K5 from
+    ``build/parent`` (the parent unpacked there by ``git archive``), one
+    ``nvcc`` each, in the background; None where that directory is absent."""
     import subprocess
-    import types
 
     from qml_cutensornet_tpu_torch.ops import _build
 
     if not PARENT.is_dir():
         return None
-    out = ROOT / "build" / "parent_kernels"
-    out.mkdir(parents=True, exist_ok=True)
+    PARENT_LIBS.mkdir(parents=True, exist_ok=True)
     procs = {src: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{src}.so"),
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(PARENT_LIBS / f"lib{src}.so"),
          str(PARENT / f"{src}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in ("subspace_split", "orth_r")}
+        for src in PARENT_SOURCES}
+    # A check that fails before the builds are waited for leaves no nvcc behind.
+    atexit.register(lambda: [proc.kill() for proc in procs.values() if proc.poll() is None])
+    return procs
+
+
+def parent_kernels(dev, procs):
+    """The parent commit's K1, K2, K4 and K5, once ``procs``
+    (:func:`parent_build_start`) have built them, called through their own C
+    interfaces (K4 and K5 on ``split_chain.cuh`` with the parent wrappers'
+    placement rule; K1 and K2 with the current plans), or None
+    where there is no parent. Timing only: each is checked once against the
+    current kernel on a basis-invariant quantity."""
+    import ctypes
+    import types
+
+    from qml_cutensornet_tpu_torch.ops import _build
+
+    if procs is None:
+        return None
     for src, proc in procs.items():
         log_text = proc.communicate()[0]
         assert proc.returncode == 0, f"parent {src}.cu did not build:\n{log_text}"
-    ks = ctypes.CDLL(str(out / "libsubspace_split.so"))
-    kr = ctypes.CDLL(str(out / "liborth_r.so"))
+    out, srcs = PARENT_LIBS, PARENT_SOURCES
+    ks, kr, kg, kb = (ctypes.CDLL(str(out / f"lib{src}.so")) for src in srcs)
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    ks.qk_split_smem.argtypes, ks.qk_split_smem.restype = [i] * 5, ll
-    ks.qk_split_launch.argtypes, ks.qk_split_launch.restype = [vp] * 5 + [i] * 7 + [ll, vp], i
-    kr.qk_orth_r_smem.argtypes, kr.qk_orth_r_smem.restype = [i] * 4, ll
-    kr.qk_orth_r_launch.argtypes, kr.qk_orth_r_launch.restype = [vp] * 4 + [i] * 5 + [ll, vp], i
+    ks.qk_split_launch.argtypes = [vp] * 5 + [i] * 7 + [ll, vp, i, i]
+    ks.qk_split_launch.restype = i
+    kr.qk_orth_r_launch.argtypes = [vp] * 4 + [i] * 5 + [ll, vp, i]
+    kr.qk_orth_r_launch.restype = i
+    for lib, name, nptr in ((kg, "gate_split", 8), (kb, "brick_split", 10)):
+        smem, scratch, launch = (getattr(lib, f"qk_{name}_{f}")
+                                 for f in ("smem", "scratch", "launch"))
+        smem.argtypes, smem.restype = [i] * 5, ll
+        scratch.argtypes, scratch.restype = [i] * 4, ll
+        launch.argtypes, launch.restype = [vp] * nptr + [i] * 7 + [ll, vp], i
     optin = _build.smem_optin(dev.index)
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+
+    # K1 and K2 of the parent take the current C interfaces and launch plans
+    # (ops/split.split_plan, ops/orth.orth_r_plan).
+    from qml_cutensornet_tpu_torch.ops import orth as orth_mod
+    from qml_cutensornet_tpu_torch.ops import split as split_mod
 
     def split(th, v0, iters):
         B, m, k = th.shape
         nc = v0.shape[1]
-        rows = int(ks.qk_split_smem(m, k, nc, 0, 1) <= optin)
+        plan = split_mod.split_plan(B, m, k, nc, th.dtype, optin)
         q = torch.empty((B, m, nc), dtype=th.dtype, device=dev)
         r = torch.empty((B, nc, k), dtype=th.dtype, device=dev)
-        scratch = torch.empty((B, 0 if rows else nc * (m + k + 2)), dtype=th.dtype, device=dev)
+        scratch = torch.empty((B, plan.scratch_cx), dtype=th.dtype, device=dev)
         rc = ks.qk_split_launch(th.data_ptr(), v0.data_ptr(), q.data_ptr(), r.data_ptr(),
-                                scratch.data_ptr(), B, m, k, nc, iters, 0, rows,
-                                ks.qk_split_smem(m, k, nc, 0, rows),
-                                torch.cuda.current_stream(dev).cuda_stream)
+                                scratch.data_ptr(), B, m, k, nc, iters, 0, int(plan.rows_smem),
+                                plan.smem_bytes, stream(), int(plan.theta_smem),
+                                int(plan.inplace))
         assert rc == 0, f"parent split launch: CUDA error {rc}"
         return q, r
 
     def orth_r(v):
         B, m, k = v.shape
-        rows = int(kr.qk_orth_r_smem(m, k, 0, 1) <= optin)
+        plan = orth_mod.orth_r_plan(B, m, k, v.dtype, optin)
         q = torch.empty_like(v)
         r = torch.empty((B, k, k), dtype=v.dtype, device=dev)
-        scratch = torch.empty((B, 0 if rows else k * (m + 1)), dtype=v.dtype, device=dev)
+        scratch = torch.empty((B, plan.scratch_cx), dtype=v.dtype, device=dev)
         rc = kr.qk_orth_r_launch(v.data_ptr(), q.data_ptr(), r.data_ptr(), scratch.data_ptr(),
-                                 B, m, k, 0, rows, kr.qk_orth_r_smem(m, k, 0, rows),
-                                 torch.cuda.current_stream(dev).cuda_stream)
+                                 B, m, k, 0, int(plan.rows_smem), plan.smem_bytes, stream(),
+                                 int(plan.v_smem))
         assert rc == 0, f"parent orth_r launch: CUDA error {rc}"
         return q, r
 
+    def _placement(lib, name, chi, nc):
+        """The parent wrapper's rule: rows, then theta, in shared memory
+        where they fit."""
+        smem = getattr(lib, f"qk_{name}_smem")
+        rows = int(smem(chi, nc, 0, 1, 0) <= optin)
+        th = int(rows and smem(chi, nc, 0, 1, 1) <= optin)
+        return rows, th, smem(chi, nc, 0, rows, th), getattr(lib, f"qk_{name}_scratch")(
+            chi, nc, rows, th)
+
+    def gate_split(A, Bm, g, v0, iters):
+        B, m, chi = A.shape
+        nc = v0.shape[1]
+        rows, th, nbytes, ncx = _placement(kg, "gate_split", chi, nc)
+        q = torch.empty((B, m, nc), dtype=A.dtype, device=dev)
+        r = torch.empty((B, nc, m), dtype=A.dtype, device=dev)
+        tot = torch.empty(B, dtype=A.real.dtype, device=dev)
+        scratch = torch.empty((B, ncx), dtype=A.dtype, device=dev)
+        rc = kg.qk_gate_split_launch(A.data_ptr(), Bm.data_ptr(), g.data_ptr(), v0.data_ptr(),
+                                     q.data_ptr(), r.data_ptr(), tot.data_ptr(),
+                                     scratch.data_ptr(), B, chi, nc, iters, 0, rows, th, nbytes,
+                                     stream())
+        assert rc == 0, f"parent gate_split launch: CUDA error {rc}"
+        return q, r, tot
+
+    def brick_split(A, Bm, g, lam, v0, iters):
+        B, m, chi = A.shape
+        nc = v0.shape[1]
+        rows, th, nbytes, ncx = _placement(kb, "brick_split", chi, nc)
+        q2 = torch.empty((B, nc, m), dtype=A.dtype, device=dev)
+        na0 = torch.empty((B, nc, m), dtype=A.dtype, device=dev)
+        s2 = torch.empty((B, nc), dtype=lam.dtype, device=dev)
+        tot = torch.empty(B, dtype=lam.dtype, device=dev)
+        scratch = torch.empty((B, ncx), dtype=A.dtype, device=dev)
+        rc = kb.qk_brick_split_launch(A.data_ptr(), Bm.data_ptr(), g.data_ptr(), lam.data_ptr(),
+                                      v0.data_ptr(), q2.data_ptr(), na0.data_ptr(), s2.data_ptr(),
+                                      tot.data_ptr(), scratch.data_ptr(), B, chi, nc, iters, 0,
+                                      rows, th, nbytes, stream())
+        assert rc == 0, f"parent brick_split launch: CUDA error {rc}"
+        return q2, na0, s2, tot
+
     log(f"parent kernels built from {PARENT}")
-    return types.SimpleNamespace(split=split, orth_r=orth_r)
+    return types.SimpleNamespace(split=split, orth_r=orth_r, gate_split=gate_split,
+                                 brick_split=brick_split)
 
 
 # ------------------------------------------------------------------ bounds
@@ -492,6 +567,7 @@ def phase_kernels(dev):
     from qml_cutensornet_tpu_torch.ops import _build, orth, split
     from qml_cutensornet_tpu_torch.ops.svd import gate_feeds, start_block
 
+    parent_procs = parent_build_start()  # built while the checks below run
     rng = np.random.default_rng(20261016)
     kinds = ("full", "rankdef", "padded", "graded")
     err = dict.fromkeys(KERNEL_NAMES, 0.0)
@@ -599,6 +675,21 @@ def phase_kernels(dev):
                     f"[{plan_text(orth.orth_r_plan(B, 2 * chi, chi, c128, optin))}]")
             worst("orth_r", compare(qk, rk, qp, rp, v, what, False))
 
+    # K4 on the launch plans the shapes above do not reach, each named by its
+    # wrapper's plan: theta in global scratch with two row buffers in shared
+    # memory (chi 64, nc 80: the oversampled chi-64 stage), and complex128 at
+    # chi 16 and 32 (theta and rows in shared memory), 64 (theta in scratch,
+    # one row buffer) and 128 (everything in scratch).
+    for B, chi, nc, dtype in ((32, 64, 80, c64), (32, 16, 16, c128), (32, 32, 32, c128),
+                              (32, 64, 64, c128), (8, 128, 128, c128)):
+        v0 = start_block(2 * chi, nc, dtype, dev)
+        for kind in ("full", "padded"):
+            a, b, g = (t.to(dtype) for t in make_pair(rng, kind, B, chi, dev))
+            what = (f"gate_split B={B} chi={chi} nc={nc} iters=2 {str(dtype)[6:]} {kind} "
+                    f"[{plan_text(split.gate_split_plan(B, chi, nc, dtype, optin))}]")
+            worst("gate_split", compare_gate(split, *gate_feeds(a, b, g, False), v0, 2, what,
+                                             surplus=nc > chi and kind == "padded"))
+
     # Two launches on one input give bit-equal outputs (every sum in a fixed
     # order, no atomics), on every plan of the main paths.
     for B, chi in ((1, 64), (32, 32), (32, 64), (100, 64)):
@@ -606,13 +697,15 @@ def phase_kernels(dev):
         th = torch.from_numpy(make_input(rng, "graded", B, m, m, chi)).to(dev)
         v0 = start_block(m, chi, torch.complex64, dev)
         v = torch.from_numpy(make_input(rng, "rankdef", B, m, chi, chi)).to(dev)
+        feeds = gate_feeds(*make_pair(rng, "graded", B, chi, dev), False)
         for name, fn in (("split", lambda: split.subspace_factor_cuda(th, v0, 2)),
-                         ("orth_r", lambda: orth.orth_r_cuda(v))):
+                         ("orth_r", lambda: orth.orth_r_cuda(v)),
+                         ("gate_split", lambda: split.gate_subspace_factor_cuda(*feeds, v0, 2))):
             first, second = fn(), fn()
             torch.cuda.synchronize()
             assert all(torch.equal(a, b) for a, b in zip(first, second)), (
                 f"{name} B={B} chi={chi}: two launches differ")
-        log(f"  bit-equal: split and orth_r, two launches each, B={B} chi={chi}")
+        log(f"  bit-equal: split, orth_r and gate_split, two launches each, B={B} chi={chi}")
 
     # K5 at the brick route's stages: chi 16 to 128 (thH in shared memory up
     # to chi 32; the rows in global scratch at chi 128), 6 pairs and the full
@@ -631,6 +724,28 @@ def phase_kernels(dev):
     for kind in ("full", "padded"):
         worst("brick_split", compare_brick(split, *make_brick(rng, kind, 408, 16, 1.0, dev), v0,
                                            2, f"brick_split Bn=408 chi=16 nc=32 iters=2 {kind}"))
+    # K5 in complex128 on each plan its wrapper chooses there (thH and rows in
+    # shared memory at chi 16 and 32; thH in scratch with one row buffer at
+    # 64; everything in scratch at 128), and two launches bit-equal on every
+    # complex64 plan (chi 16 and 32; 64; 128 at the full width's 408 pairs).
+    for chi in (16, 32, 64, 128):
+        v0 = start_block(2 * chi, chi, c128, dev)
+        for kind in ("full", "padded"):
+            A, Bm, g, lam = make_brick(rng, kind, 6, chi, float(kind == "full"), dev)
+            what = (f"brick_split Bn=6 chi={chi} iters=2 complex128 {kind} "
+                    f"[{plan_text(split.brick_split_plan(6, chi, chi, c128, optin))}]")
+            worst("brick_split", compare_brick(split, A.to(c128), Bm.to(c128), g.to(c128),
+                                               lam.double(), v0, 2, what))
+    for chi, Bn in ((16, 6), (32, 6), (64, 6), (128, 408)):
+        v0 = start_block(2 * chi, chi, c64, dev)
+        brick = make_brick(rng, "full", Bn, chi, 1.0, dev)
+        first = split.brick_gate_split_cuda(*brick, v0, 2)
+        second = split.brick_gate_split_cuda(*brick, v0, 2)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), (
+            f"brick_split Bn={Bn} chi={chi}: two launches differ")
+        log(f"  bit-equal: brick_split, two launches, Bn={Bn} chi={chi} "
+            f"[{plan_text(split.brick_split_plan(Bn, chi, chi, c64, optin))}]")
 
     # Times at the main paths' largest shape: chi 64, one sim batch of 32,
     # iters 2; K1 and K2 also at the chi-32 stage, and beside the parent
@@ -668,19 +783,23 @@ def phase_kernels(dev):
         log(f"  time {name} B={B} chi={chi}: kernel {k1:.4f} / {k2:.4f} ms, "
             f"plain {p1:.4f} / {p2:.4f} ms, library call "
             f"{'none' if lib is None else f'{lib:.4f} ms (torch.linalg.qr)'}")
-    parent = parent_kernels(dev)
-    stage_ms = {"split": {}, "orth_r": {}}
+    parent = parent_kernels(dev, parent_procs)
+    stage_ms = {"split": {}, "orth_r": {}, "gate_split": {}}
     for chi, (vs, ths, v0s) in stage.items():
         m = 2 * chi
+        feeds = gate_feeds(*make_pair(rng, "full", B, chi, dev), False)
         for name, kern, plan, old in (
             ("split", lambda: split.subspace_factor_cuda(ths, v0s, 2),
              split.split_plan(B, m, m, chi, ths.dtype, optin),
              parent and (lambda: parent.split(ths, v0s, 2))),
             ("orth_r", lambda: orth.orth_r_cuda(vs), orth.orth_r_plan(B, m, chi, vs.dtype, optin),
              parent and (lambda: parent.orth_r(vs))),
+            ("gate_split", lambda: split.gate_subspace_factor_cuda(*feeds, v0s, 2),
+             split.gate_split_plan(B, chi, chi, ths.dtype, optin),
+             parent and (lambda: parent.gate_split(*feeds, v0s, 2))),
         ):
             if old:
-                (qn, _), (qo, _) = kern(), old()
+                qn, qo = kern()[0], old()[0]
                 diff = (qn @ qn.mH - qo @ qo.mH).abs().max().item()
                 assert diff <= TOL_PROJ, f"{name} chi={chi}: parent's projector off by {diff}"
                 o1, k1, k2, o2 = (time_ms(f, 20) for f in (old, kern, kern, old))
@@ -695,19 +814,37 @@ def phase_kernels(dev):
                     f"(no parent sources in build/parent)")
     brick = make_brick(rng, "full", BRICK_BN, 128, 1.0, dev)
     v0b = start_block(256, 128, torch.complex64, dev)
-    p1 = time_ms(lambda: split.brick_gate_split_plain(*brick, v0b, 2), 2)
-    k1 = time_ms(lambda: split.brick_gate_split_cuda(*brick, v0b, 2), 5)
-    k2 = time_ms(lambda: split.brick_gate_split_cuda(*brick, v0b, 2), 5)
-    p2 = time_ms(lambda: split.brick_gate_split_plain(*brick, v0b, 2), 2)
+    kern = lambda: split.brick_gate_split_cuda(*brick, v0b, 2)
+    plain = lambda: split.brick_gate_split_plain(*brick, v0b, 2)
+    p1 = time_ms(plain, 2)
+    if parent:
+        old = lambda: parent.brick_split(*brick, v0b, 2)
+        (qn, nn, _, _), (qo, no, _, _) = kern(), old()
+        pair_o = no.mT @ qo.conj()
+        diff = ((nn.mT @ qn.conj() - pair_o).abs().max() / pair_o.abs().max()).item()
+        assert diff <= TOL_PROD, f"brick_split: parent's projected pair off by {diff}"
+        o1, k1, k2, o2 = (time_ms(f, 5) for f in (old, kern, kern, old))
+        parent_ms = (o1 + o2) / 2
+        vs_parent = f", parent's kernel {o1:.4f} / {o2:.4f} ms (turns parent, kernel, kernel, parent)"
+    else:
+        k1, k2 = time_ms(kern, 5), time_ms(kern, 5)
+        parent_ms, vs_parent = None, " (no parent sources in build/parent)"
+    p2 = time_ms(plain, 2)
     times["brick_split"] = ((k1 + k2) / 2, (p1 + p2) / 2, None)
-    log(f"  time brick_split Bn={BRICK_BN} chi=128 nc=128: kernel {k1:.4f} / {k2:.4f} ms, "
-        f"plain {p1:.4f} / {p2:.4f} ms, library call none")
-    # Context: the unfused brick update's split of the same pairs, K1 on
-    # theta_w^H (its theta and new_a products are torch matmuls).
+    plan = split.brick_split_plan(BRICK_BN, 128, 128, torch.complex64, optin)
+    log(f"  time brick_split Bn={BRICK_BN} chi=128 nc=128 [{plan_text(plan)}]: kernel {k1:.4f} / "
+        f"{k2:.4f} ms{vs_parent}, plain {p1:.4f} / {p2:.4f} ms, library call none")
+    # K5's yardstick: the unfused brick update's split of the same pairs, K1
+    # on theta_w^H (its theta and new_a products are torch matmuls).
     A, Bm, g, lam = brick
     th_h = (split.gate_theta(A, Bm, g) * torch.cat([lam, lam], 1)[:, :, None]).mH.contiguous()
+    yard = time_ms(lambda: split.subspace_factor_cuda(th_h, v0b, 2), 5)
+    yard_parent = parent and time_ms(lambda: parent.split(th_h, v0b, 2), 5)
+    stage_ms["brick_split"] = {"chi128_Bn408": {
+        "ms": times["brick_split"][0], "parent_ms": parent_ms, "k1_same_theta_ms": yard,
+        "parent_k1_same_theta_ms": yard_parent or None}}
     log(f"  context: K1 on the same theta_w^H [{BRICK_BN},256,256], nc 128, iters 2: "
-        f"{time_ms(lambda: split.subspace_factor_cuda(th_h, v0b, 2), 5):.4f} ms")
+        f"{yard:.4f} ms" + (f", the parent's K1 {yard_parent:.4f} ms" if parent else ""))
     log(f"  time orth panel v [32,512,32]: kernel {time_ms(lambda: orth.orth_cuda(panel), 20):.4f}"
         f" ms, torch.linalg.qr {time_ms(lambda: torch.linalg.qr(panel), 5):.4f} ms")
     log(f"  context only (another function: the full decomposition): torch.linalg.svd of theta "
@@ -1089,7 +1226,9 @@ def main() -> int:
             "max_abs_err": err[name], "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "library_ms": times[name][2],
-            **({"ms_by_stage": stage_ms[name]} if name in stage_ms else {})})
+            **({"ms_by_stage": stage_ms[name]} if name in stage_ms else {}),
+            **({"yardstick_ms": stage_ms[name]["chi128_Bn408"]["k1_same_theta_ms"]}
+               if name == "brick_split" else {})})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
 // The 512-thread, one-block-per-element building blocks of kernels K1
-// (subspace_split.cu) and K2 (orth_r.cu): a register-tiled complex GEMM over
-// shared (or global) memory, the BCGS2 orthonormalization of the rows of a
-// matrix in place, and the laid-out buffers of both kernels.
+// (subspace_split.cu), K2 (orth_r.cu), K4 (gate_split.cu) and K5
+// (brick_split.cu): a register-tiled complex GEMM over shared (or global)
+// memory, the BCGS2 orthonormalization of the rows of a matrix in place, the
+// power-iteration chain of the subspace split on one theta (split_chain), the
+// register-tiled theta build of a gated pair (theta_build), and the laid-out
+// buffers of the four kernels.
 //
-// Replaces, for K1 and K2: the routines of bcgs2.cuh and split_chain.cuh
-// (which K3, K4 and K5 keep), that is qml_cutensornet_tpu/ops/pallas_qr.py:
-// orth_rows_body and pallas_split.py:_split_chain. Same algorithm, same
+// Replaces, for K1, K2, K4 and K5: the routines of bcgs2.cuh (which K3
+// keeps), that is qml_cutensornet_tpu/ops/pallas_qr.py:orth_rows_body,
+// pallas_split.py:_split_chain, _build_theta_quadrants and _gate_combine.
+// Same algorithm, same
 // constants (bcgs2.cuh): panels of PANEL = 16; two CGS passes of each panel
 // against the finished vectors; then MGS2 column by column inside the panel;
 // a column whose residual norm^2 is not above dep_tol2 (1e-10 complex64,
@@ -101,7 +105,10 @@ namespace qk {
 namespace blk {
 
 // Phase ids of the stamps.
-enum Stamp { ST_START = 1, ST_LOAD, ST_PANEL, ST_CGS, ST_COLUMN, ST_PRODUCT, ST_ORTH, ST_END, ST_COEF, ST_ROUND };
+enum Stamp {
+  ST_START = 1, ST_LOAD, ST_PANEL, ST_CGS, ST_COLUMN, ST_PRODUCT, ST_ORTH, ST_END, ST_COEF,
+  ST_ROUND, ST_BUILD, ST_S2, ST_NA0
+};
 
 constexpr int NT = 512;
 constexpr int NW = NT / 32;
@@ -529,6 +536,145 @@ __device__ __forceinline__ void bcgs2_rows(Cx<T>* X, int ld, int nvec, int len, 
   QK_STAMP(ST_ORTH);
 }
 
+// ------------------------------------ products with global operands
+
+// gemm_staged: the GEMM of gemm (no SUB, no INPLACE) for operands that both
+// live in global memory, their slabs staged through shared memory. A pass
+// is the block's NW warp tiles stacked over the rows: PJ = NW * (32 / lc) *
+// 4 rows by PC = lc * TC columns (lc = gemm_lanes(ncol)); for each pass the
+// reduction runs over slabs of RS steps, X's rows [RS][PJ + 1] and Y's
+// columns [RS][PC + 1], copied by cp.async (neighbouring threads on the
+// source's contiguous index) into one of two buffers while the block
+// computes on the other. The tiles read the slabs from shared memory as
+// gemm reads shared operands (broadcast rows, conflict-free columns), so the
+// FMAs wait on shared memory, not on L2 or HBM. Every thread must enter;
+// ``slab`` holds staged_slab_bytes(ncol); ends with a barrier.
+constexpr int RS = 16;
+
+__host__ __device__ inline int staged_rows(int ncol) { return NW * (32 / gemm_lanes(ncol)) * 4; }
+
+template <typename T>
+__host__ __device__ inline size_t staged_slab_bytes(int ncol) {
+  return (size_t)2 * RS * (staged_rows(ncol) + 1 + gemm_lanes(ncol) * TC + 1) * sizeof(Cx<T>);
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(Cx<T>* dst, const Cx<T>* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (sizeof(Cx<T>) == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// dst[r * ld + i] = src[i * s_i + r * s_r] for i < ni, r < nr (cp.async).
+template <typename T>
+__device__ __forceinline__ void stage_slab(const Cx<T>* src, int s_i, int s_r, int ni, int nr,
+                                           Cx<T>* dst, int ld) {
+  const int n = ni * nr;
+  if (s_r == 1) {
+    for (int idx = threadIdx.x; idx < n; idx += NT) {
+      const int i = idx / nr, r = idx - i * nr;
+      cp_async<T>(dst + (size_t)r * ld + i, src + (size_t)i * s_i + r);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < n; idx += NT) {
+      const int r = idx / ni, i = idx - r * ni;
+      cp_async<T>(dst + (size_t)r * ld + i, src + (size_t)i * s_i + (size_t)r * s_r);
+    }
+  }
+}
+
+template <typename T, bool CONJX, bool CONJY>
+__device__ __forceinline__ void gemm_staged(const Cx<T>* X, int xj, int xr, const Cx<T>* Y,
+                                            int yr, int yc, Cx<T>* O, int oj, int oc, int nj,
+                                            int ncol, int nr, Cx<T>* slab) {
+  const int lc = gemm_lanes(ncol);
+  const int pj = staged_rows(ncol), pc = lc * TC;
+  const int ldx = pj + 1, ldy = pc + 1;
+  const int npc = (ncol + pc - 1) / pc, npass = ((nj + pj - 1) / pj) * npc;
+  const int nslab = (nr + RS - 1) / RS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int jl = warp * (32 / lc) * 4 + (lane / lc) * 4;  // this thread's rows in the pass
+  const int cl = lane % lc;                                // and its first column
+  const size_t nbuf = (size_t)RS * (ldx + ldy);  // complex elements of one buffer
+  const T sx = CONJX ? T(-1) : T(1);
+  const T sy = CONJY ? T(-1) : T(1);
+  for (int pass = 0; pass < npass; ++pass) {
+    const int j0 = (pass / npc) * pj, c0 = (pass % npc) * pc;
+    const int pjn = min(pj, nj - j0), pcn = min(pc, ncol - c0);
+    auto stage = [&](int s) {
+      const int r0 = s * RS, rn = min(RS, nr - r0);
+      Cx<T>* xb = slab + (s & 1) * nbuf;
+      stage_slab<T>(X + (size_t)j0 * xj + (size_t)r0 * xr, xj, xr, pjn, rn, xb, ldx);
+      stage_slab<T>(Y + (size_t)r0 * yr + (size_t)c0 * yc, yc, yr, pcn, rn, xb + (size_t)RS * ldx,
+                    ldy);
+      cp_async_commit();
+    };
+    T ar[4][TC], ai[4][TC];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < TC; ++v) ar[u][v] = ai[u][v] = T(0);
+    stage(0);
+    for (int s = 0; s < nslab; ++s) {
+      if (s + 1 < nslab) {
+        stage(s + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // slab s is in shared memory for every thread
+      const Cx<T>* xb = slab + (s & 1) * nbuf;
+      const Cx<T>* yb = xb + (size_t)RS * ldx;
+      const int rn = min(RS, nr - s * RS);
+      // Rows and columns past the pass's edge read stale slots and are never
+      // stored.
+      if (jl < pjn) {
+#pragma unroll 2
+        for (int r = 0; r < rn; ++r) {
+          Cx<T> x[4], y[TC];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) x[u] = xb[(size_t)r * ldx + jl + u];
+#pragma unroll
+          for (int v = 0; v < TC; ++v) y[v] = yb[(size_t)r * ldy + cl + v * lc];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const T xre = x[u].re, xim = sx * x[u].im;
+#pragma unroll
+            for (int v = 0; v < TC; ++v) {
+              const T yre = y[v].re, yim = sy * y[v].im;
+              ar[u][v] += xre * yre - xim * yim;
+              ai[u][v] += xre * yim + xim * yre;
+            }
+          }
+        }
+      }
+      __syncthreads();  // slab s is read: its buffer may take slab s + 2
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (jl + u >= pjn) continue;
+#pragma unroll
+      for (int v = 0; v < TC; ++v) {
+        const int c = cl + v * lc;
+        if (c >= pcn) continue;
+        O[(size_t)(j0 + jl + u) * oj + (size_t)(c0 + c) * oc] = Cx<T>{ar[u][v], ai[u][v]};
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- K1 layout
 
 // Where K1's buffers live (each kernel instantiation has its placement as
@@ -536,8 +682,10 @@ __device__ __forceinline__ void bcgs2_rows(Cx<T>* X, int ld, int nvec, int len, 
 // shared memory). theta_smem: theta [m][k + 1] in shared memory,
 // else read from global memory. rows_smem: the working rows in shared
 // memory, else in a per-element global scratch buffer of split_scratch_cx
-// complex elements. inplace (needs rows_smem and one-pass products): W and V
-// share one buffer of nc rows.
+// complex elements, and then (theta in global memory too) the products are
+// gemm_staged, whose slabs share the space of the orthonormalizer's work
+// (the two are never live at once). inplace (needs rows_smem and one-pass
+// products): W and V share one buffer of nc rows.
 struct SplitPlan {
   int theta_smem, rows_smem, inplace;
 };
@@ -554,9 +702,274 @@ template <typename T>
 __host__ __device__ size_t split_smem_bytes(int m, int k, int nc, SplitPlan p) {
   size_t cx = 0;
   if (p.theta_smem) cx += (size_t)m * ((size_t)k + 1);
-  if (p.rows_smem)
+  if (p.rows_smem) {
     cx += p.inplace ? (size_t)nc * ((size_t)(m > k ? m : k) + 1) : split_scratch_cx(m, k, nc);
-  return cx * sizeof(Cx<T>) + orth_work_bytes<T>(nc);
+    return cx * sizeof(Cx<T>) + orth_work_bytes<T>(nc);
+  }
+  size_t shared = orth_work_bytes<T>(nc);
+  if (staged_slab_bytes<T>(m) > shared) shared = staged_slab_bytes<T>(m);
+  if (staged_slab_bytes<T>(k) > shared) shared = staged_slab_bytes<T>(k);
+  return cx * sizeof(Cx<T>) + shared;
+}
+
+// ------------------------------------------------- the chain (K1, K4, K5)
+
+// The chain's working rows: W [nc][ldw] and V [nc][ldv] (one buffer when
+// INPLACE).
+template <typename T>
+struct Rows {
+  Cx<T>* W;
+  Cx<T>* V;
+  int ldw, ldv;
+};
+
+// Lay the rows out at ``p`` (advanced past them) when ROWS_SMEM, else in the
+// element's global scratch ``rows_scratch`` (split_scratch_cx elements).
+template <typename T, bool ROWS_SMEM, bool INPLACE>
+__device__ __forceinline__ Rows<T> rows_carve(Cx<T>*& p, Cx<T>* rows_scratch, int m, int k,
+                                              int nc) {
+  Rows<T> x;
+  if constexpr (INPLACE) {
+    x.W = x.V = p;
+    x.ldw = x.ldv = (m > k ? m : k) + 1;
+    p += (size_t)nc * x.ldw;
+  } else {
+    Cx<T>* rows;
+    if constexpr (ROWS_SMEM) {
+      rows = p;
+      p += split_scratch_cx(m, k, nc);
+    } else {
+      rows = rows_scratch;
+    }
+    x.W = rows;
+    x.V = rows + (size_t)nc * (k + 1);
+    x.ldw = k + 1;
+    x.ldv = m + 1;
+  }
+  return x;
+}
+
+// The power iterations of the subspace split on theta [m, k] (row mm at
+// th + mm * ldt, in shared or global memory) from the shared start block v0
+// [m, nc], in rows layout:
+//   W = v^T conj(theta)  -> orth(W)   (v = v0 on the first iteration)
+//   V = W theta^T        -> orth(V)
+// Entered by the whole block after a barrier that makes theta visible;
+// returns, after a barrier, with the basis as the rows of x.V.
+template <typename T, bool INPLACE, bool STAGED = false>
+__device__ __forceinline__ void split_chain(const Cx<T>* th, int ldt, const Cx<T>* v0,
+                                            const Rows<T>& x, const OrthWork<T>& ow, int m,
+                                            int k, int nc, int iters, Cx<T>* slab = nullptr) {
+  for (int it = 0; it < iters; ++it) {
+    // W[j][kk] = sum_mm v[mm, j] conj(theta[mm, kk]), v = v0 or V^T.
+    if constexpr (STAGED) {
+      if (it == 0) {
+        gemm_staged<T, false, true>(v0, 1, nc, th, ldt, 1, x.W, x.ldw, 1, nc, k, m, slab);
+      } else {
+        gemm_staged<T, false, true>(x.V, x.ldv, 1, th, ldt, 1, x.W, x.ldw, 1, nc, k, m, slab);
+      }
+    } else if (it == 0) {
+      gemm<T, false, true, false, false>(v0, 1, nc, th, ldt, 1, x.W, x.ldw, 1, nc, k, m);
+    } else {
+      gemm<T, false, true, false, INPLACE>(x.V, x.ldv, 1, th, ldt, 1, x.W, x.ldw, 1, nc, k, m);
+    }
+    __syncthreads();
+    QK_STAMP(ST_PRODUCT);
+    bcgs2_rows<T>(x.W, x.ldw, nc, k, ow);
+    // V[j][mm] = sum_kk W[j][kk] theta[mm, kk]
+    if constexpr (STAGED) {
+      gemm_staged<T, false, false>(x.W, x.ldw, 1, th, 1, ldt, x.V, x.ldv, 1, nc, m, k, slab);
+    } else {
+      gemm<T, false, false, false, INPLACE>(x.W, x.ldw, 1, th, 1, ldt, x.V, x.ldv, 1, nc, m, k);
+    }
+    __syncthreads();
+    QK_STAMP(ST_PRODUCT);
+    bcgs2_rows<T>(x.V, x.ldv, nc, m, ow);
+  }
+}
+
+// The split's outputs for one element: qb [m, nc] = V^T and rb [nc, k] =
+// conj(V) theta (= q^H theta).
+template <typename T, bool STAGED = false>
+__device__ __forceinline__ void split_outputs(const Cx<T>* th, int ldt, const Rows<T>& x,
+                                              Cx<T>* qb, Cx<T>* rb, int m, int k, int nc,
+                                              Cx<T>* slab = nullptr) {
+  for (int idx = threadIdx.x; idx < m * nc; idx += NT) {
+    const int j = idx % nc, mm = idx / nc;
+    qb[idx] = x.V[(size_t)j * x.ldv + mm];
+  }
+  // r[j][kk] = sum_mm conj(V[j][mm]) theta[mm, kk]
+  if constexpr (STAGED) {
+    gemm_staged<T, true, false>(x.V, x.ldv, 1, th, ldt, 1, rb, k, 1, nc, k, m, slab);
+  } else {
+    gemm<T, true, false, false, false>(x.V, x.ldv, 1, th, ldt, 1, rb, k, 1, nc, k, m);
+  }
+}
+
+// ------------------------------------------------ the theta build (K4, K5)
+
+// The pair's theta from the site tensors A [2 chi, chi] (rows (u, al),
+// u-major) and B [chi, 2 chi] (columns (v, be), v-major) and the gate g
+// [4, 4] (g[2s+t][2u+v]):
+//   theta[(s al), (t be)] = sum_uv g[2s+t][2u+v] (A B)[(u al), (v be)].
+// theta_build computes the product X Y of X [2 chi, chi] (row (u i) at
+// X + (u chi + i) * xi, column c at + c * xc) and Y [chi, 2 chi] (row c at
+// Y + c * yc, column (v j) at + (v chi + j) * yj), each thread holding a tile
+// of 2 i by 2 j outputs in all four (u, v) quadrants (16 complex
+// accumulators in registers), lanes on neighbouring j; combines the
+// quadrants with the gate in registers and hands every entry to
+// store(row, col, value), row (s i) and col (t j), which returns the entry's
+// weight in the total. X and Y are staged through shared memory in slabs of
+// KS reduction steps, [KS][2 chi + 1] each, copied by stage_slab
+// (``stage``: build_stage_bytes). With TRANS the product is the transpose:
+// X = B^T, Y = A^T, the gate read as g[2t+s][2v+u], so row (s i) of the
+// output is (t be) and col (t j) is (s al). Returns the block's total of the
+// weights, summed in a fixed order (each warp's lanes by a butterfly, then
+// the warps in order): two launches give bit-equal totals. Entered and left
+// with a barrier; the stage is free on return.
+constexpr int KS = 16;
+
+template <typename T>
+__host__ __device__ inline size_t build_stage_bytes(int chi) {
+  return (size_t)2 * KS * (2 * (size_t)chi + 1) * sizeof(Cx<T>) + NW * sizeof(T);
+}
+
+// Lanes of a warp along j: the fewest (4 to 32) whose 2 columns each cover chi.
+__host__ __device__ inline int build_lanes(int chi) {
+  int lc = 4;
+  while (lc < 32 && lc * 2 < chi) lc *= 2;
+  return lc;
+}
+
+template <typename T, bool TRANS, typename Store>
+__device__ __forceinline__ T theta_build(const Cx<T>* X, int xi, int xc, const Cx<T>* Y, int yc,
+                                         int yj, const Cx<T>* __restrict__ g, int chi,
+                                         Cx<T>* stage, Store store) {
+  const int m = 2 * chi, ld = m + 1;
+  Cx<T>* xs = stage;
+  Cx<T>* ys = stage + (size_t)KS * ld;
+  T* red = reinterpret_cast<T*>(ys + (size_t)KS * ld);
+  const int lc = build_lanes(chi);
+  const int iw = (32 / lc) * 2, jw = lc * 2;
+  const int nit = (chi + iw - 1) / iw, njt = (chi + jw - 1) / jw;
+  const int ntiles = nit * njt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T part = 0;
+  for (int t0 = 0; t0 < ntiles; t0 += NW) {
+    const int tile = t0 + warp;
+    const bool live = tile < ntiles;
+    const int i0 = (live ? tile / njt : 0) * iw + (lane / lc) * 2;
+    const int j0 = (live ? tile % njt : 0) * jw + (lane % lc);
+    // Rows and columns past the edge read index 0 and are never stored.
+    int ir[2], jr[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      ir[a] = i0 + a < chi ? i0 + a : 0;
+      jr[a] = j0 + a * lc < chi ? j0 + a * lc : 0;
+    }
+    // acc[2u+v][2a+b]: quadrant (u, v), output (i0 + a, j0 + b lc)
+    T ar[4][4], ai[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int o = 0; o < 4; ++o) ar[q][o] = ai[q][o] = T(0);
+    for (int c0 = 0; c0 < chi; c0 += KS) {
+      const int kw = min(KS, chi - c0);
+      __syncthreads();  // the previous slab is read
+      stage_slab<T>(X + (size_t)c0 * xc, xi, xc, m, kw, xs, ld);
+      stage_slab<T>(Y + (size_t)c0 * yc, yj, yc, m, kw, ys, ld);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (live) {
+#pragma unroll 2
+        for (int c = 0; c < kw; ++c) {
+          Cx<T> x[4], y[4];  // x[2u+a], y[2v+b]
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int a = 0; a < 2; ++a) {
+              x[2 * u + a] = xs[(size_t)c * ld + u * chi + ir[a]];
+              y[2 * u + a] = ys[(size_t)c * ld + u * chi + jr[a]];
+            }
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int v = 0; v < 2; ++v)
+#pragma unroll
+              for (int a = 0; a < 2; ++a)
+#pragma unroll
+                for (int b = 0; b < 2; ++b) {
+                  const Cx<T> xv = x[2 * u + a], yv = y[2 * v + b];
+                  ar[2 * u + v][2 * a + b] += xv.re * yv.re - xv.im * yv.im;
+                  ai[2 * u + v][2 * a + b] += xv.re * yv.im + xv.im * yv.re;
+                }
+        }
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int i = i0 + a, j = j0 + b * lc;
+          if (i >= chi || j >= chi) continue;
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+#pragma unroll
+            for (int t = 0; t < 2; ++t) {
+              T xr = 0, xi_ = 0;
+#pragma unroll
+              for (int u = 0; u < 2; ++u)
+#pragma unroll
+                for (int v = 0; v < 2; ++v) {
+                  const Cx<T> gc = TRANS ? g[4 * (2 * t + s) + 2 * v + u]
+                                         : g[4 * (2 * s + t) + 2 * u + v];
+                  const T qr = ar[2 * u + v][2 * a + b], qi = ai[2 * u + v][2 * a + b];
+                  xr += gc.re * qr - gc.im * qi;
+                  xi_ += gc.re * qi + gc.im * qr;
+                }
+              part += store(s * chi + i, t * chi + j, Cx<T>{xr, xi_});
+            }
+        }
+    }
+  }
+  part = warp_sum(part);
+  if (lane == 0) red[warp] = part;
+  __syncthreads();
+  T total = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) total += red[w];
+  __syncthreads();  // every thread has read red: the stage is free
+  QK_STAMP(ST_BUILD);
+  return total;
+}
+
+// ------------------------------------------------------ K4 and K5 layouts
+
+// K4 and K5 carry K1's placements (SplitPlan) on m = k = 2 chi, theta being
+// the kernel's own: built in place into [m][m + 1] shared memory
+// (theta_smem), else into the element's global scratch ([m][m]); the
+// theta build's stage overlays the rows and the orthonormalizer's work
+// (free until the chain starts) and extends the request where it is the
+// larger. K5 also keeps its unweighted theta (the na0 product's operand) in
+// global scratch, [m][m] ahead of the rest.
+template <typename T>
+__host__ __device__ size_t gate_split_smem_bytes(int chi, int nc, SplitPlan p) {
+  const int m = 2 * chi;
+  const size_t theta = p.theta_smem ? (size_t)m * (m + 1) * sizeof(Cx<T>) : 0;
+  const size_t rest = split_smem_bytes<T>(m, m, nc, SplitPlan{0, p.rows_smem, p.inplace});
+  const size_t stage = build_stage_bytes<T>(chi);
+  return theta + (rest > stage ? rest : stage);
+}
+
+__host__ __device__ inline size_t gate_split_scratch_cx(int chi, int nc, SplitPlan p) {
+  const int m = 2 * chi;
+  return (p.theta_smem ? 0 : (size_t)m * m) + (p.rows_smem ? 0 : split_scratch_cx(m, m, nc));
+}
+
+__host__ __device__ inline size_t brick_split_scratch_cx(int chi, int nc, SplitPlan p) {
+  return (size_t)4 * chi * chi + gate_split_scratch_cx(chi, nc, p);
 }
 
 // ---------------------------------------------------------------- K2 layout

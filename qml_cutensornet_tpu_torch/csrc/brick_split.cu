@@ -16,10 +16,10 @@
 //   theta_t[(s alpha), (t beta)] = sum_uv g[2s+t, 2u+v] (A B)[(u alpha), (v beta)]
 //   theta_w = diag(lam, lam) theta_t       (row (s alpha) weighted by lam[alpha])
 //   tot[b]  = ||theta_w||_F^2
-// then runs the power iterations of split_chain.cuh on theta_w^H (rows
-// (t beta), columns (s alpha)), whose left basis is the top right singular
-// basis of theta_w. With V the final basis as rows [nc, 2 chi] (the chain's
-// V; the engine's right factor is conj(V)), the epilogue writes
+// then runs kernel K1's chain (block_chain.cuh split_chain) on theta_w^H
+// (rows (t beta), columns (s alpha)), whose basis is the top right singular
+// basis of theta_w. With V the final basis as rows [nc, 2 chi] (the engine's
+// right factor is conj(V)), the epilogue writes
 //   q2[b]  [nc, 2 chi] = V
 //   na0[b] [nc, 2 chi] = V theta_t^T       (rows of theta_t V^T: the new left
 //                                            tensor, from the UNWEIGHTED theta,
@@ -28,204 +28,185 @@
 // The TPU kernel's replicated-lane gate rows and its sublane-partial tot are
 // layout workarounds of that compiler and are not carried over.
 //
-// Each thread of the theta build owns one (alpha, beta) pair at a time, as in
-// kernel K4: it accumulates the four quadrant entries of A B over the shared
-// bond in registers, applies the 16 gate coefficients and writes both thetas
-// TRANSPOSED, thT[(t beta)][(s alpha)] = theta_t and thH = lam conj(theta_t).
-// Neighbouring threads take neighbouring beta, so the 4 chi reads of each
-// thread are coalesced (B) or broadcast (A); only its 8 writes are strided.
-// thH is the chain's input, read on every product of the chain; thT is read
-// once, by the epilogue's na0 product.
+// The design is K4's (block_chain.cuh): one 512-thread block per element;
+// the theta build as a register-tiled product over slabs of A and B staged
+// in shared memory, the gate combined in registers, computed transposed (B^T
+// A^T, lanes on neighbouring alpha) so that both thetas are written with
+// coalesced stores in the chain's orientation: theta_w^H [(t beta)][(s
+// alpha)] into shared memory ([2 chi][2 chi + 1]) where the plan has it there
+// (chi 16 to 64 in complex64), else into the element's global scratch, and
+// theta_t^T [(t beta)][(s alpha)] always into the scratch: it is read once,
+// by the na0 product, and rebuilding it from A, B and g there would add the
+// build's product to that one. Then K1's chain on K1's placements (SplitPlan
+// on m = k = 2 chi, chosen by the wrapper, ops/split.py brick_split_plan; the
+// launch refuses a shared-memory size below what the plan needs); then the
+// epilogue's two products as the chain's register-tiled GEMMs, the rows of
+// conj(V) theta_w^H passing through na0's output rows before their norms are
+// summed in a fixed order.
 //
-// Where the data lives: thH in dynamic shared memory when it fits beside the
-// chain's working rows (f32 up to chi 32), in a per-element global scratch
-// buffer otherwise; the rows in shared memory up to chi 64 in f32 (chi 32 in
-// f64), in the scratch buffer above; thT always in the scratch buffer. The
-// scratch is allocated by the wrapper from torch, and written and read only
-// by its own block. At chi 128 it is 1.6 MB per element in f32.
-//
-// What bounds it on Hopper: as K1 and K4, the latency of the serial BCGS2
-// column chains (one 256-thread block per element), not arithmetic or bytes;
-// the fusion removes the torch launches and the theta-sized temporaries of
-// the unfused pair update. Complex FMAs on CUDA cores only (no TF32, no
-// tensor cores).
+// What bounds it on Hopper: the chain, as in K1. At the brick route's chi 128
+// (408 pairs) nothing of an element fits in shared memory (theta_w^H alone is
+// 512 KB in complex64), so every product streams its operands from global
+// memory through L1 and L2, and one 512-thread block of up to 128 registers
+// a thread fills an SM's register file: 408 elements run in 4 waves on 132
+// SMs. Complex FMAs on CUDA cores only (no TF32, no tensor cores).
 //
 // C interface (ctypes): every entry point returns a cudaError_t as int.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "split_chain.cuh"
+#include "block_chain.cuh"
 
 namespace qk {
 
-constexpr int BRICK_GATE_CX = 16;  // the gate's 4 x 4 coefficients, staged in shared memory
-
-template <typename T>
-__host__ __device__ size_t brick_split_smem_bytes(int chi, int nc, bool rows_in_smem,
-                                                  bool theta_in_smem) {
-  const int m = 2 * chi;
-  size_t bytes = chain_smem_bytes<T>(m, m, nc, rows_in_smem) + BRICK_GATE_CX * sizeof(Cx<T>);
-  if (theta_in_smem) bytes += (size_t)m * m * sizeof(Cx<T>);
-  return bytes;
-}
-
-// Per-element global scratch, in complex elements: thT, then thH and the rows
-// where they are not in shared memory.
-__host__ __device__ inline size_t brick_split_scratch_cx(int chi, int nc, bool rows_in_smem,
-                                                         bool theta_in_smem) {
-  const int m = 2 * chi;
-  return (size_t)m * m + (theta_in_smem ? 0 : (size_t)m * m) +
-         (rows_in_smem ? 0 : chain_rows_cx(m, m, nc));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
+template <typename T, bool THETA_SMEM, bool ROWS_SMEM, bool INPLACE>
+__global__ void __launch_bounds__(blk::NT, 1)
 brick_split_kernel(const Cx<T>* __restrict__ A, const Cx<T>* __restrict__ Bm,
                    const Cx<T>* __restrict__ g, const T* __restrict__ lam,
                    const Cx<T>* __restrict__ v0, Cx<T>* __restrict__ q2,
                    Cx<T>* __restrict__ na0, T* __restrict__ s2, T* __restrict__ tot,
-                   Cx<T>* scratch, int chi, int nc, int iters, int rows_in_smem,
-                   int theta_in_smem) {
+                   Cx<T>* scratch, int chi, int nc, int iters) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x;
   const int m = 2 * chi;
+  Cx<T>* p = reinterpret_cast<Cx<T>*>(smem_raw);
+  Cx<T>* sb = scratch + (size_t)b * blk::brick_split_scratch_cx(
+                                       chi, nc, blk::SplitPlan{THETA_SMEM, ROWS_SMEM, INPLACE});
 
-  Cx<T>* sp = reinterpret_cast<Cx<T>*>(smem_raw);
-  Cx<T>* gp = scratch + (size_t)b * brick_split_scratch_cx(chi, nc, rows_in_smem != 0,
-                                                            theta_in_smem != 0);
-  Cx<T>* gs = sp;
-  sp += BRICK_GATE_CX;
-  Cx<T>* thT = gp;
-  gp += (size_t)m * m;
+  // theta_t^T [m][m] in the element's scratch; theta_w^H [m][m + 1] in shared
+  // memory or [m][m] in the scratch.
+  Cx<T>* thT = sb;
+  sb += (size_t)m * m;
   Cx<T>* thH;
-  if (theta_in_smem) {
-    thH = sp;
-    sp += (size_t)m * m;
+  int ldh;
+  if constexpr (THETA_SMEM) {
+    thH = p;
+    ldh = m + 1;
+    p += (size_t)m * (m + 1);
   } else {
-    thH = gp;
-    gp += (size_t)m * m;
+    thH = sb;
+    ldh = m;
+    sb += (size_t)m * m;
   }
-  const ChainWork<T> w = chain_carve<T>(sp, gp, m, m, nc, rows_in_smem != 0);
+  Cx<T>* stage = p;  // the build's slabs, over the rows and the work
+  const blk::Rows<T> x = blk::rows_carve<T, ROWS_SMEM, INPLACE>(p, sb, m, m, nc);
+  const blk::OrthWork<T> ow = blk::orth_work_carve<T>(reinterpret_cast<unsigned char*>(p), nc);
+  QK_STAMP(blk::ST_START);
 
-  if (tid < BRICK_GATE_CX) gs[tid] = g[(size_t)b * BRICK_GATE_CX + tid];
-  __syncthreads();
-
-  const Cx<T>* Ab = A + (size_t)b * m * chi;
-  const Cx<T>* Bb = Bm + (size_t)b * chi * m;
+  // theta_t^T = (B^T A^T) with the gate transposed: row (t be), col (s al).
   const T* lb = lam + (size_t)b * chi;
-  T part = 0;
-  for (int idx = tid; idx < chi * chi; idx += NTHREADS) {
-    const int be = idx % chi, al = idx / chi;
-    // t0[2u+v] = (A B)[(u al), (v be)]
-    T t0r[4] = {0, 0, 0, 0}, t0i[4] = {0, 0, 0, 0};
-    const Cx<T>* a0 = Ab + (size_t)al * chi;
-    const Cx<T>* a1 = Ab + (size_t)(chi + al) * chi;
-    for (int c = 0; c < chi; ++c) {
-      const Cx<T> au[2] = {a0[c], a1[c]};
-      const Cx<T> bv[2] = {Bb[(size_t)c * m + be], Bb[(size_t)c * m + chi + be]};
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          t0r[2 * u + v] += au[u].re * bv[v].re - au[u].im * bv[v].im;
-          t0i[2 * u + v] += au[u].re * bv[v].im + au[u].im * bv[v].re;
-        }
-      }
-    }
-    const T l = lb[al];
-#pragma unroll
-    for (int st = 0; st < 4; ++st) {
-      T xr = 0, xi = 0;
-#pragma unroll
-      for (int uv = 0; uv < 4; ++uv) {
-        const Cx<T> c = gs[4 * st + uv];
-        xr += c.re * t0r[uv] - c.im * t0i[uv];
-        xi += c.re * t0i[uv] + c.im * t0r[uv];
-      }
-      const int s = st >> 1, t = st & 1;
-      const size_t o = (size_t)(t * chi + be) * m + s * chi + al;
-      thT[o] = Cx<T>{xr, xi};
-      thH[o] = Cx<T>{l * xr, -(l * xi)};
-      part += l * l * (xr * xr + xi * xi);
-    }
-  }
-  const T total = block_sum(part, w.red);
-  if (tid == 0) tot[b] = total;
-  __syncthreads();  // both thetas complete before the chain reads them
+  const T total = blk::theta_build<T, true>(
+      Bm + (size_t)b * chi * m, 1, m, A + (size_t)b * m * chi, 1, chi, g + (size_t)b * 16, chi,
+      stage, [&](int row, int col, Cx<T> v) {
+        const T l = lb[col < chi ? col : col - chi];
+        thT[(size_t)row * m + col] = v;
+        thH[(size_t)row * ldh + col] = Cx<T>{l * v.re, -(l * v.im)};
+        return l * l * (v.re * v.re + v.im * v.im);
+      });
+  if (threadIdx.x == 0) tot[b] = total;
 
-  chain_iterate<T>(thH, v0, w, m, m, nc, iters);
+  Cx<T>* slab = p;  // gemm_staged's slabs where the rows are in global memory
+  blk::split_chain<T, INPLACE, !ROWS_SMEM>(thH, ldh, v0, x, ow, m, m, nc, iters, slab);
 
-  const Cx<T>* V = w.V;
-  const int ldv = w.ldv;
   Cx<T>* q2b = q2 + (size_t)b * nc * m;
-  for (int idx = tid; idx < nc * m; idx += NTHREADS) {
+  Cx<T>* nab = na0 + (size_t)b * nc * m;
+  for (int idx = threadIdx.x; idx < nc * m; idx += blk::NT) {
     const int j = idx / m, e = idx - j * m;
-    q2b[idx] = V[(size_t)j * ldv + e];
+    q2b[idx] = x.V[(size_t)j * x.ldv + e];
   }
-  // W[j][e] = sum_kk conj(V[j][kk]) thH[kk][e]: the rows of q^H theta_w^H,
-  // whose squared norms are s2. W is free once the iterations are done.
-  gemm_xty<T, true, false>(V, ldv, 1, thH, m, w.W, w.ldw, nc, m, m);
-  // na0[j][e] = sum_kk V[j][kk] thT[kk][e] = (theta_t q)[e, j]
-  gemm_xty<T, false, false>(V, ldv, 1, thT, m, na0 + (size_t)b * nc * m, m, nc, m, m);
+  // na0's rows hold conj(V) theta_w^H first, whose squared row norms are s2:
+  // rw[j][e] = sum_kk conj(V[j][kk]) thH[kk][e].
+  if constexpr (ROWS_SMEM) {
+    blk::gemm<T, true, false, false, false>(x.V, x.ldv, 1, thH, ldh, 1, nab, m, 1, nc, m, m);
+  } else {
+    blk::gemm_staged<T, true, false>(x.V, x.ldv, 1, thH, ldh, 1, nab, m, 1, nc, m, m, slab);
+  }
   __syncthreads();
-  for (int j = warp; j < nc; j += NWARPS) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = warp; j < nc; j += blk::NW) {
     T acc = 0;
     for (int e = lane; e < m; e += 32) {
-      const Cx<T> x = w.W[(size_t)j * w.ldw + e];
-      acc += x.re * x.re + x.im * x.im;
+      const Cx<T> v = nab[(size_t)j * m + e];
+      acc += v.re * v.re + v.im * v.im;
     }
     acc = warp_sum(acc);
     if (lane == 0) s2[(size_t)b * nc + j] = acc;
   }
+  __syncthreads();
+  QK_STAMP(blk::ST_S2);
+  // na0[j][e] = sum_kk V[j][kk] thT[kk][e] = (theta_t q)[e, j]
+  if constexpr (ROWS_SMEM) {
+    blk::gemm<T, false, false, false, false>(x.V, x.ldv, 1, thT, m, 1, nab, m, 1, nc, m, m);
+  } else {
+    blk::gemm_staged<T, false, false>(x.V, x.ldv, 1, thT, m, 1, nab, m, 1, nc, m, m, slab);
+  }
+  QK_STAMP(blk::ST_NA0);
+}
+
+template <typename T, bool THETA_SMEM, bool ROWS_SMEM, bool INPLACE>
+int brick_split_launch_as(const void* A, const void* Bm, const void* g, const void* lam,
+                          const void* v0, void* q2, void* na0, void* s2, void* tot,
+                          void* scratch, int B, int chi, int nc, int iters, long long smem_bytes,
+                          cudaStream_t stream) {
+  auto kern = brick_split_kernel<T, THETA_SMEM, ROWS_SMEM, INPLACE>;
+  // A request over the card's limit fails here AND at the launch; both
+  // errors surface through the single cudaGetLastError() below.
+  if (smem_bytes > 48 * 1024)
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+  kern<<<B, blk::NT, (size_t)smem_bytes, stream>>>(
+      static_cast<const Cx<T>*>(A), static_cast<const Cx<T>*>(Bm), static_cast<const Cx<T>*>(g),
+      static_cast<const T*>(lam), static_cast<const Cx<T>*>(v0), static_cast<Cx<T>*>(q2),
+      static_cast<Cx<T>*>(na0), static_cast<T*>(s2), static_cast<T*>(tot),
+      static_cast<Cx<T>*>(scratch), chi, nc, iters);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int brick_split_launch(const void* A, const void* Bm, const void* g, const void* lam,
                        const void* v0, void* q2, void* na0, void* s2, void* tot, void* scratch,
-                       int B, int chi, int nc, int iters, int rows_in_smem, int theta_in_smem,
+                       int B, int chi, int nc, int iters, blk::SplitPlan plan,
                        long long smem_bytes, cudaStream_t stream) {
-  auto kern = brick_split_kernel<T>;
-  // A request over the card's limit fails here AND at the launch; both
-  // errors surface through the single cudaGetLastError() below.
-  if (smem_bytes > 48 * 1024)
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
-  kern<<<B, NTHREADS, (size_t)smem_bytes, stream>>>(
-      static_cast<const Cx<T>*>(A), static_cast<const Cx<T>*>(Bm), static_cast<const Cx<T>*>(g),
-      static_cast<const T*>(lam), static_cast<const Cx<T>*>(v0), static_cast<Cx<T>*>(q2),
-      static_cast<Cx<T>*>(na0), static_cast<T*>(s2), static_cast<T*>(tot),
-      static_cast<Cx<T>*>(scratch), chi, nc, iters, rows_in_smem, theta_in_smem);
-  return (int)cudaGetLastError();
+  const int m = 2 * chi;
+  if (plan.inplace && !(plan.rows_smem && blk::split_inplace_ok(m, m, nc)))
+    return (int)cudaErrorInvalidValue;
+  if (plan.theta_smem && !plan.rows_smem) return (int)cudaErrorInvalidValue;
+  if (smem_bytes < (long long)blk::gate_split_smem_bytes<T>(chi, nc, plan))
+    return (int)cudaErrorInvalidValue;
+#define QK_BRICK_SPLIT(TH, RS, IP) \
+  brick_split_launch_as<T, TH, RS, IP>(A, Bm, g, lam, v0, q2, na0, s2, tot, scratch, B, chi, \
+                                       nc, iters, smem_bytes, stream)
+  if (plan.theta_smem) return plan.inplace ? QK_BRICK_SPLIT(true, true, true)
+                                           : QK_BRICK_SPLIT(true, true, false);
+  if (plan.rows_smem) return plan.inplace ? QK_BRICK_SPLIT(false, true, true)
+                                          : QK_BRICK_SPLIT(false, true, false);
+  return QK_BRICK_SPLIT(false, false, false);
+#undef QK_BRICK_SPLIT
 }
 
 }  // namespace qk
 
 extern "C" {
 
-// Dynamic shared memory the kernel needs (dbl: complex128).
-long long qk_brick_split_smem(int chi, int nc, int dbl, int rows_in_smem, int theta_in_smem) {
-  const bool rs = rows_in_smem != 0, ts = theta_in_smem != 0;
-  return dbl ? (long long)qk::brick_split_smem_bytes<double>(chi, nc, rs, ts)
-             : (long long)qk::brick_split_smem_bytes<float>(chi, nc, rs, ts);
-}
-
-// Complex elements of global scratch the kernel needs per batch element.
-long long qk_brick_split_scratch(int chi, int nc, int rows_in_smem, int theta_in_smem) {
-  return (long long)qk::brick_split_scratch_cx(chi, nc, rows_in_smem != 0, theta_in_smem != 0);
+// Dynamic shared memory of a launch plan, in bytes (dbl: complex128): the
+// same as K4's.
+long long qk_brick_split_smem(int chi, int nc, int dbl, int theta_in_smem, int rows_in_smem,
+                              int inplace) {
+  const qk::blk::SplitPlan p{theta_in_smem, rows_in_smem, inplace};
+  return dbl ? (long long)qk::blk::gate_split_smem_bytes<double>(chi, nc, p)
+             : (long long)qk::blk::gate_split_smem_bytes<float>(chi, nc, p);
 }
 
 int qk_brick_split_launch(const void* A, const void* Bm, const void* g, const void* lam,
                           const void* v0, void* q2, void* na0, void* s2, void* tot, void* scratch,
-                          int B, int chi, int nc, int iters, int dbl, int rows_in_smem,
-                          int theta_in_smem, long long smem_bytes, void* stream) {
+                          int B, int chi, int nc, int iters, int dbl, int theta_in_smem,
+                          int rows_in_smem, int inplace, long long smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const qk::blk::SplitPlan p{theta_in_smem, rows_in_smem, inplace};
   return dbl ? qk::brick_split_launch<double>(A, Bm, g, lam, v0, q2, na0, s2, tot, scratch, B,
-                                              chi, nc, iters, rows_in_smem, theta_in_smem,
-                                              smem_bytes, s)
+                                              chi, nc, iters, p, smem_bytes, s)
              : qk::brick_split_launch<float>(A, Bm, g, lam, v0, q2, na0, s2, tot, scratch, B,
-                                             chi, nc, iters, rows_in_smem, theta_in_smem,
-                                             smem_bytes, s);
+                                             chi, nc, iters, p, smem_bytes, s);
 }
 
 }  // extern "C"

@@ -21,12 +21,16 @@
 // neither bytes nor operations (bound 0.036 ms at chi 64) but the serial
 // chain of 2 * iters orthonormalizations, each nc dependent column steps with
 // block-wide reductions, beside 2 * iters + 1 theta products of about 8 MFLOP
-// per element. The design (block_chain.cuh): one 512-thread block per
-// element; theta in shared memory for the whole launch where it fits beside
-// the rows (chi 64 in complex64: W and V share one buffer), else read from
+// per element. The design (block_chain.cuh, whose split_chain and
+// split_outputs K4 and K5 share): one 512-thread block per element; theta
+// in shared memory for the whole launch where it fits beside the rows (chi
+// 64 in complex64: W and V share one buffer), else read from
 // global memory (the batch's thetas sit in the 50 MB L2); the products as
 // register-tiled CUDA-core GEMMs; the rows in shared memory where they fit,
-// else in a per-element global scratch buffer (chi 128, or f64 above chi 32).
+// else in a per-element global scratch buffer (chi 128, or f64 above chi
+// 32), and with both theta and the rows in global memory the products stage
+// their operands through shared memory (gemm_staged: cp.async slabs, double
+// buffered).
 // The launch plan (SplitPlan) is chosen by the wrapper, ops/split.py
 // split_plan; the launch refuses a shared-memory size below what the plan
 // needs.
@@ -64,62 +68,19 @@ split_kernel(const Cx<T>* __restrict__ theta, const Cx<T>* __restrict__ v0,
     ldt = k + 1;
   }
   // The rows: W [nc][k + 1] and V [nc][m + 1], or one buffer X [nc][max + 1].
-  Cx<T>* W;
-  Cx<T>* V;
-  int ldw, ldv;
-  if constexpr (INPLACE) {
-    W = V = p;
-    ldw = ldv = (m > k ? m : k) + 1;
-    p += (size_t)nc * ldw;
-  } else {
-    Cx<T>* rows;
-    if constexpr (ROWS_SMEM) {
-      rows = p;
-      p += blk::split_scratch_cx(m, k, nc);
-    } else {
-      rows = scratch + (size_t)b * blk::split_scratch_cx(m, k, nc);
-    }
-    W = rows;
-    V = rows + (size_t)nc * (k + 1);
-    ldw = k + 1;
-    ldv = m + 1;
-  }
+  const blk::Rows<T> x = blk::rows_carve<T, ROWS_SMEM, INPLACE>(
+      p, scratch + (ROWS_SMEM ? 0 : (size_t)b * blk::split_scratch_cx(m, k, nc)), m, k, nc);
   const blk::OrthWork<T> ow = blk::orth_work_carve<T>(reinterpret_cast<unsigned char*>(p), nc);
   QK_STAMP(blk::ST_START);
   __syncthreads();
   QK_STAMP(blk::ST_LOAD);
 
-  for (int it = 0; it < iters; ++it) {
-    // W[j][kk] = sum_mm v[mm, j] conj(theta[mm, kk]), v = v0 or V^T.
-    if (it == 0) {
-      blk::gemm<T, false, true, false, false>(v0, 1, nc, th, ldt, 1, W, ldw, 1, nc, k, m);
-    } else if constexpr (INPLACE) {
-      blk::gemm<T, false, true, false, true>(V, ldv, 1, th, ldt, 1, W, ldw, 1, nc, k, m);
-    } else {
-      blk::gemm<T, false, true, false, false>(V, ldv, 1, th, ldt, 1, W, ldw, 1, nc, k, m);
-    }
-    __syncthreads();
-    QK_STAMP(blk::ST_PRODUCT);
-    blk::bcgs2_rows<T>(W, ldw, nc, k, ow);
-    // V[j][mm] = sum_kk W[j][kk] theta[mm, kk]
-    if constexpr (INPLACE) {
-      blk::gemm<T, false, false, false, true>(W, ldw, 1, th, 1, ldt, V, ldv, 1, nc, m, k);
-    } else {
-      blk::gemm<T, false, false, false, false>(W, ldw, 1, th, 1, ldt, V, ldv, 1, nc, m, k);
-    }
-    __syncthreads();
-    QK_STAMP(blk::ST_PRODUCT);
-    blk::bcgs2_rows<T>(V, ldv, nc, m, ow);
-  }
-
-  Cx<T>* qb = q + (size_t)b * m * nc;
-  for (int idx = threadIdx.x; idx < m * nc; idx += blk::NT) {
-    const int j = idx % nc, mm = idx / nc;
-    qb[idx] = V[(size_t)j * ldv + mm];
-  }
-  // r[j][kk] = sum_mm conj(V[j][mm]) theta[mm, kk]
-  blk::gemm<T, true, false, false, false>(V, ldv, 1, th, ldt, 1, r + (size_t)b * nc * k, k, 1,
-                                          nc, k, m);
+  // With the rows in global memory (theta too) the products stage their
+  // operands through shared memory, in the space of the orthonormalizer's work.
+  Cx<T>* slab = p;
+  blk::split_chain<T, INPLACE, !ROWS_SMEM>(th, ldt, v0, x, ow, m, k, nc, iters, slab);
+  blk::split_outputs<T, !ROWS_SMEM>(th, ldt, x, q + (size_t)b * m * nc, r + (size_t)b * nc * k,
+                                    m, k, nc, slab);
   QK_STAMP(blk::ST_END);
 }
 

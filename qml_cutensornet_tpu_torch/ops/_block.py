@@ -1,4 +1,5 @@
-"""The host-side shape rules of ``csrc/block_chain.cuh`` (kernels K1 and K2),
+"""The host-side shape rules of ``csrc/block_chain.cuh`` (kernels K1, K2, K4
+and K5),
 mirrored in Python so that the wrappers' launch plans are pure functions the
 CPU tests can check: the block size, the GEMM's warp tiling and the bytes of
 the orthonormalizer's scratch. A launch whose shared-memory request is below
@@ -51,3 +52,27 @@ def static_smem_bytes(dtype: torch.dtype) -> int:
     slots, one set per element count (``blk::static_smem_bytes``). A plan's
     dynamic request plus this must fit the block's opt-in."""
     return 2 * (2 * GW * 32) * (cx_bytes(dtype) // 2)
+
+
+KS = 16  # reduction steps per slab of the theta build (``blk::KS``)
+
+
+def build_stage_bytes(chi: int, dtype: torch.dtype) -> int:
+    """Shared memory of the theta build's slabs of A and B (``[KS][2chi + 1]``
+    each) and its warps' partial sums (``blk::build_stage_bytes``)."""
+    cx = cx_bytes(dtype)
+    return 2 * KS * (2 * chi + 1) * cx + NW * (cx // 2)
+
+
+RS = 16  # reduction steps per slab of the staged products (``blk::RS``)
+
+
+def staged_slab_bytes(ncol: int, dtype: torch.dtype) -> int:
+    """Shared memory of ``blk::gemm_staged``'s two slab buffers for an
+    ``ncol``-wide output: each ``[RS][PJ + 1]`` of X's rows and ``[RS][PC +
+    1]`` of Y's columns, a pass being the block's warp tiles stacked over
+    the rows (``blk::staged_slab_bytes``)."""
+    lc = 4
+    while lc < 32 and lc * TC < ncol:
+        lc *= 2
+    return 2 * RS * (NW * (32 // lc) * TJ + 1 + lc * TC + 1) * cx_bytes(dtype)

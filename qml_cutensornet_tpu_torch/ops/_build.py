@@ -26,7 +26,7 @@ import time
 import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-HEADERS = ("bcgs2.cuh", "split_chain.cuh", "block_chain.cuh")
+HEADERS = ("bcgs2.cuh", "block_chain.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,14 +59,12 @@ SOURCES = {
         "qk_orth_launch": ([_vp, _vp, _vp, _i, _i, _i, _i, _i, _ll, _vp], _i),
     },
     "gate_split.cu": {
-        "qk_gate_split_smem": ([_i, _i, _i, _i, _i], _ll),
-        "qk_gate_split_scratch": ([_i, _i, _i, _i], _ll),
-        "qk_gate_split_launch": ([_vp] * 8 + [_i] * 7 + [_ll, _vp], _i),
+        "qk_gate_split_smem": ([_i] * 6, _ll),
+        "qk_gate_split_launch": ([_vp] * 8 + [_i] * 8 + [_ll, _vp], _i),
     },
     "brick_split.cu": {
-        "qk_brick_split_smem": ([_i, _i, _i, _i, _i], _ll),
-        "qk_brick_split_scratch": ([_i, _i, _i, _i], _ll),
-        "qk_brick_split_launch": ([_vp] * 10 + [_i] * 7 + [_ll, _vp], _i),
+        "qk_brick_split_smem": ([_i] * 6, _ll),
+        "qk_brick_split_launch": ([_vp] * 10 + [_i] * 8 + [_ll, _vp], _i),
     },
 }
 

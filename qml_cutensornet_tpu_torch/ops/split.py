@@ -35,11 +35,12 @@ lambda inverse), ``s2`` the squared norms ``||theta_w q_j||^2`` and ``total =
 ||theta_w||_F^2``.
 
 Routing: a CPU tensor runs the plain version; a CUDA tensor runs the CUDA
-kernel (``csrc/subspace_split.cu`` on ``csrc/block_chain.cuh``, launched as
-:func:`split_plan` says; ``csrc/gate_split.cu`` and ``csrc/brick_split.cu``
-on the chain of ``csrc/split_chain.cuh``) or raises. The kernels take nc <=
-128, m, k <= 256 (chi <= 128), iters >= 1, in complex64 (complex128 runs the
-double instantiation).
+kernel (``csrc/subspace_split.cu``, ``csrc/gate_split.cu`` and
+``csrc/brick_split.cu``, all three on the chain of ``csrc/block_chain.cuh``,
+launched as :func:`split_plan`, :func:`gate_split_plan` and
+:func:`brick_split_plan` say) or raises. The kernels take nc <= 128, m, k <=
+256 (chi <= 128), iters >= 1, in complex64 (complex128 runs the double
+instantiation).
 """
 
 from __future__ import annotations
@@ -98,6 +99,38 @@ class SplitPlan:
     scratch_cx: int
 
 
+def _plan(B: int, m: int, k: int, nc: int, dtype: torch.dtype, smem_optin: int,
+          stage: int, what: str) -> SplitPlan:
+    """The first of K1's placements (theta and rows in shared memory; the
+    same with one buffer for W and V; theta in global memory and the rows in
+    shared memory, two buffers or one; everything in global memory, the
+    products' operands staged through shared memory) that fits, with
+    ``stage`` bytes over the rows and the orthonormalizer's work (0 for K1;
+    the theta build's slabs for K4 and K5). One buffer needs one-pass
+    products (:func:`_block.inplace_ok`)."""
+    cx = _block.cx_bytes(dtype)
+    work = _block.orth_work_bytes(nc, dtype)
+    static = _block.static_smem_bytes(dtype)
+    theta = m * (k + 1) * cx
+    rows_two = nc * (k + 1 + m + 1) * cx
+    rows_one = nc * (max(m, k) + 1) * cx
+    one_ok = _block.inplace_ok(m, k, nc)
+    # Without the rows in shared memory (theta in global memory too) the
+    # products stage their operands through shared memory, in the space of
+    # the orthonormalizer's work.
+    slab = max(_block.staged_slab_bytes(m, dtype), _block.staged_slab_bytes(k, dtype))
+    options = ((True, True, False, theta, rows_two), (True, True, True, theta, rows_one),
+               (False, True, False, 0, rows_two), (False, True, True, 0, rows_one),
+               (False, False, False, 0, 0))
+    for th, rows, inplace, th_bytes, rows_bytes in options:
+        nbytes = th_bytes + max(rows_bytes + work if rows else max(work, slab), stage)
+        if (one_ok or not inplace) and nbytes + static <= smem_optin:
+            return SplitPlan(_block.NT, B, th, rows, inplace, nbytes,
+                             0 if rows else nc * (k + 1 + m + 1))
+    raise ValueError(f"{what}: no launch plan fits {smem_optin} bytes of shared memory "
+                     f"(m={m}, k={k}, nc={nc}, {dtype})")
+
+
 def split_plan(B: int, m: int, k: int, nc: int, dtype: torch.dtype,
                smem_optin: int) -> SplitPlan:
     """K1's launch plan, a pure function of the shapes, the dtype and the
@@ -106,22 +139,31 @@ def split_plan(B: int, m: int, k: int, nc: int, dtype: torch.dtype,
     memory and the rows in shared memory, two buffers or one; everything in
     global memory) that fits. One buffer needs one-pass products
     (:func:`_block.inplace_ok`)."""
-    cx = _block.cx_bytes(dtype)
-    work = _block.orth_work_bytes(nc, dtype)
-    static = _block.static_smem_bytes(dtype)
-    theta = m * (k + 1) * cx
-    rows_two = nc * (k + 1 + m + 1) * cx
-    rows_one = nc * (max(m, k) + 1) * cx
-    one_ok = _block.inplace_ok(m, k, nc)
-    options = ((True, True, False, theta + rows_two), (True, True, True, theta + rows_one),
-               (False, True, False, rows_two), (False, True, True, rows_one),
-               (False, False, False, 0))
-    for th, rows, inplace, nbytes in options:
-        if (one_ok or not inplace) and nbytes + work + static <= smem_optin:
-            return SplitPlan(_block.NT, B, th, rows, inplace, nbytes + work,
-                             0 if rows else nc * (k + 1 + m + 1))
-    raise ValueError(f"split: no launch plan fits {smem_optin} bytes of shared memory "
-                     f"(m={m}, k={k}, nc={nc}, {dtype})")
+    return _plan(B, m, k, nc, dtype, smem_optin, 0, "split")
+
+
+def gate_split_plan(B: int, chi: int, nc: int, dtype: torch.dtype,
+                    smem_optin: int) -> SplitPlan:
+    """K4's launch plan (``csrc/gate_split.cu``): K1's placements on theta
+    ``[2chi, 2chi]``, theta built in place (``theta_smem``: ``[2chi][2chi +
+    1]`` in shared memory, else ``[2chi][2chi]`` in the element's global
+    scratch, counted in ``scratch_cx``), the theta build's slabs over the rows
+    and the work (:func:`_block.build_stage_bytes`). At chi 32 and 64 in
+    complex64 it is K1's plan."""
+    m = 2 * chi
+    plan = _plan(B, m, m, nc, dtype, smem_optin, _block.build_stage_bytes(chi, dtype),
+                 "gate_split")
+    return dataclasses.replace(plan, scratch_cx=plan.scratch_cx + (0 if plan.theta_smem
+                                                                    else m * m))
+
+
+def brick_split_plan(B: int, chi: int, nc: int, dtype: torch.dtype,
+                     smem_optin: int) -> SplitPlan:
+    """K5's launch plan (``csrc/brick_split.cu``): K4's, ``theta_smem``
+    placing theta_w^H (the chain's theta), plus the unweighted theta_t^T
+    ``[2chi][2chi]`` that always lives in the element's global scratch."""
+    plan = gate_split_plan(B, chi, nc, dtype, smem_optin)
+    return dataclasses.replace(plan, scratch_cx=plan.scratch_cx + 4 * chi * chi)
 
 
 def subspace_factor_cuda(theta: torch.Tensor, v0: torch.Tensor, iters: int,
@@ -207,27 +249,24 @@ def _check_gate_feeds(A, Bm, g, v0, iters: int, what: str):
     return dbl, B, chi, nc
 
 
-def gate_subspace_factor_cuda(A, Bm, g, v0, iters: int):
-    """Launch K4. theta lives in shared memory when it fits beside the
-    chain's working rows, otherwise in a global scratch buffer, as do the
-    rows when they do not fit (``csrc/gate_split.cu``)."""
+def gate_subspace_factor_cuda(A, Bm, g, v0, iters: int, smem_bytes: int | None = None):
+    """Launch K4 as :func:`gate_split_plan` says. ``smem_bytes`` overrides
+    the plan's dynamic shared memory request (used only to test the
+    launch-error path)."""
     dbl, B, chi, nc = _check_gate_feeds(A, Bm, g, v0, iters, "gate_split")
     m = 2 * chi
     lib = _build.load()
-    optin = _build.smem_optin(A.device.index)
-    rows = lib.qk_gate_split_smem(chi, nc, int(dbl), 1, 0) <= optin
-    th = rows and lib.qk_gate_split_smem(chi, nc, int(dbl), 1, 1) <= optin
-    smem_bytes = lib.qk_gate_split_smem(chi, nc, int(dbl), int(rows), int(th))
+    plan = gate_split_plan(B, chi, nc, A.dtype, _build.smem_optin(A.device.index))
     q = torch.empty((B, m, nc), dtype=A.dtype, device=A.device)
     r = torch.empty((B, nc, m), dtype=A.dtype, device=A.device)
     tot = torch.empty(B, dtype=A.real.dtype, device=A.device)
-    scratch = torch.empty((B, lib.qk_gate_split_scratch(chi, nc, int(rows), int(th))),
-                          dtype=A.dtype, device=A.device)
+    scratch = torch.empty((B, plan.scratch_cx), dtype=A.dtype, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     rc = lib.qk_gate_split_launch(A.data_ptr(), Bm.data_ptr(), g.data_ptr(), v0.data_ptr(),
                                   q.data_ptr(), r.data_ptr(), tot.data_ptr(),
                                   scratch.data_ptr(), B, chi, nc, int(iters), int(dbl),
-                                  int(rows), int(th), smem_bytes, stream)
+                                  int(plan.theta_smem), int(plan.rows_smem), int(plan.inplace),
+                                  plan.smem_bytes if smem_bytes is None else smem_bytes, stream)
     _build.check(rc, "gate_split kernel launch")
     _build.LAUNCHES["gate_split"] += 1
     return q, r, tot
@@ -255,12 +294,10 @@ def brick_gate_split(A, Bm, g, lam, v0, iters: int):
     return brick_gate_split_cuda(A, Bm, g, lam, v0, iters)
 
 
-def brick_gate_split_cuda(A, Bm, g, lam, v0, iters: int):
-    """Launch K5. The weighted theta's conjugate transpose (the chain's
-    input) lives in shared memory when it fits beside the chain's rows, in a
-    global scratch buffer otherwise, as do the rows; the unweighted theta,
-    read once by the epilogue, always lives in the scratch buffer
-    (``csrc/brick_split.cu``)."""
+def brick_gate_split_cuda(A, Bm, g, lam, v0, iters: int, smem_bytes: int | None = None):
+    """Launch K5 as :func:`brick_split_plan` says. ``smem_bytes`` overrides
+    the plan's dynamic shared memory request (used only to test the
+    launch-error path)."""
     dbl, B, chi, nc = _check_gate_feeds(A, Bm, g, v0, iters, "brick_split")
     if lam.device != A.device or lam.dtype != A.real.dtype or tuple(lam.shape) != (B, chi) or (
             not lam.is_contiguous()):
@@ -268,21 +305,19 @@ def brick_gate_split_cuda(A, Bm, g, lam, v0, iters: int):
                          f"dtype on A's device; got {tuple(lam.shape)} {lam.dtype} {lam.device}")
     m = 2 * chi
     lib = _build.load()
-    optin = _build.smem_optin(A.device.index)
-    rows = lib.qk_brick_split_smem(chi, nc, int(dbl), 1, 0) <= optin
-    th = rows and lib.qk_brick_split_smem(chi, nc, int(dbl), 1, 1) <= optin
-    smem_bytes = lib.qk_brick_split_smem(chi, nc, int(dbl), int(rows), int(th))
+    plan = brick_split_plan(B, chi, nc, A.dtype, _build.smem_optin(A.device.index))
     q2 = torch.empty((B, nc, m), dtype=A.dtype, device=A.device)
     na0 = torch.empty((B, nc, m), dtype=A.dtype, device=A.device)
     s2 = torch.empty((B, nc), dtype=lam.dtype, device=A.device)
     total = torch.empty(B, dtype=lam.dtype, device=A.device)
-    scratch = torch.empty((B, lib.qk_brick_split_scratch(chi, nc, int(rows), int(th))),
-                          dtype=A.dtype, device=A.device)
+    scratch = torch.empty((B, plan.scratch_cx), dtype=A.dtype, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     rc = lib.qk_brick_split_launch(A.data_ptr(), Bm.data_ptr(), g.data_ptr(), lam.data_ptr(),
                                    v0.data_ptr(), q2.data_ptr(), na0.data_ptr(), s2.data_ptr(),
                                    total.data_ptr(), scratch.data_ptr(), B, chi, nc, int(iters),
-                                   int(dbl), int(rows), int(th), smem_bytes, stream)
+                                   int(dbl), int(plan.theta_smem), int(plan.rows_smem),
+                                   int(plan.inplace),
+                                   plan.smem_bytes if smem_bytes is None else smem_bytes, stream)
     _build.check(rc, "brick_split kernel launch")
     _build.LAUNCHES["brick_split"] += 1
     return q2, na0, s2, total

@@ -1,19 +1,24 @@
-"""Where the time of kernels K1 and K2 goes, from phase stamps inside the
-kernels.
+"""Where the time of kernels K1, K2, K4 and K5 goes, from phase stamps inside
+the kernels.
 
-    python3 -m qml_cutensornet_tpu_torch.utils.chain_stamps   # needs one GPU
+    python3 -m qml_cutensornet_tpu_torch.utils.chain_stamps [KERNEL ...]   # needs one GPU
 
-Builds ``csrc/subspace_split.cu`` and ``csrc/orth_r.cu`` with
-``-DQK_STAMPS`` into ``build/stamps/`` (gitignored): thread 0 of block 0
-then records ``clock64()`` and a phase id after each block barrier that
-ends a phase (``QK_STAMP`` in ``csrc/block_chain.cuh``). Each kernel is
-launched once to warm up and once stamped, at the main path's stage shapes
-(B 32, chi 32 and 64, complex64; K1 with iters 2), and the SM cycles of each
-phase are summed: the load, the theta products, the panels' norms, the CGS
+KERNEL is any of ``split``, ``orth_r``, ``gate_split``, ``brick_split``
+(default: all four). Builds their sources (``csrc/subspace_split.cu``,
+``orth_r.cu``, ``gate_split.cu``, ``brick_split.cu``) with ``-DQK_STAMPS``
+into ``build/stamps/`` (gitignored): thread 0 of block 0 then records
+``clock64()`` and a phase id after each block barrier that ends a phase
+(``QK_STAMP`` in ``csrc/block_chain.cuh``). Each kernel is launched once to
+warm up and once stamped, and the SM cycles of each phase are summed: the
+load or the theta build, the theta products, the panels' norms, the CGS
 coefficients and updates, the in-panel group rounds and column ends, the
-epilogue. The same
-launch's CUDA-event time gives the cycle rate. The last lines are the card's
-name and power limit and a JSON object of the breakdowns.
+epilogue (K5: its s2 and na0 products). Shapes, complex64, iters 2: K1, K2
+and K4 at the main path's stages (B 32, chi 32 and 64); K1 and K5 at the
+brick route's full width (408 pairs, chi 128, nc 128), where one block of
+512 threads fills an SM, so that 408 elements run in 4 waves on 132 SMs.
+The same launch's CUDA-event time gives the cycle rate (over all waves).
+The last lines are the card's name and power limit and a JSON object of
+the breakdowns.
 """
 
 from __future__ import annotations
@@ -32,32 +37,32 @@ from qml_cutensornet_tpu_torch.utils.device import nvidia_smi
 
 STAMP_DIR = _build.BUILD_DIR.parent / "stamps"
 PHASES = {1: "start", 2: "load", 3: "panel_norms", 4: "cgs_update", 5: "column_end",
-          6: "product", 7: "orth_end", 8: "epilogue", 9: "cgs_coefficients", 10: "group_round"}
+          6: "product", 7: "orth_end", 8: "epilogue", 9: "cgs_coefficients", 10: "group_round",
+          11: "theta_build", 12: "s2", 13: "na0"}
+SOURCES = {"split": "subspace_split", "orth_r": "orth_r", "gate_split": "gate_split",
+           "brick_split": "brick_split"}
 
 
-def _libs(srcs):
-    """Build each source with -DQK_STAMPS (one nvcc each, all at once) and
-    load it."""
+def _libs(kernels):
+    """Build each kernel's source with -DQK_STAMPS (one nvcc each, all at
+    once) and load it with the C signatures of ``ops/_build.py``."""
     STAMP_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {src: subprocess.Popen(
+    procs = {name: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-DQK_STAMPS", "-o",
-         str(STAMP_DIR / f"lib{src}_stamps.so"), str(_build.CSRC / f"{src}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for src in srcs}
-    libs = []
-    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for src, proc in procs.items():
+         str(STAMP_DIR / f"lib{SOURCES[name]}_stamps.so"),
+         str(_build.CSRC / f"{SOURCES[name]}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in kernels}
+    libs = {}
+    for name, proc in procs.items():
         out = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}.cu:\n{out}")
-        lib = ctypes.CDLL(str(STAMP_DIR / f"lib{src}_stamps.so"))
-        lib.qk_read_stamps.argtypes, lib.qk_read_stamps.restype = [vp, vp, i], i
-        if src == "subspace_split":
-            lib.qk_split_launch.argtypes = [vp] * 5 + [i] * 7 + [ll, vp, i, i]
-            lib.qk_split_launch.restype = i
-        else:
-            lib.qk_orth_r_launch.argtypes = [vp] * 4 + [i] * 5 + [ll, vp, i]
-            lib.qk_orth_r_launch.restype = i
-        libs.append(lib)
+            raise RuntimeError(f"nvcc failed on {SOURCES[name]}.cu:\n{out}")
+        lib = ctypes.CDLL(str(STAMP_DIR / f"lib{SOURCES[name]}_stamps.so"))
+        lib.qk_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        lib.qk_read_stamps.restype = ctypes.c_int
+        for fn, (argtypes, restype) in _build.SOURCES[f"{SOURCES[name]}.cu"].items():
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
+        libs[name] = lib
     return libs
 
 
@@ -92,37 +97,79 @@ def _stamped(lib, launch):
     return out
 
 
-def main() -> int:
+def _crandn(rng, *shape):
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return x / np.abs(x).max()
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chain_stamps: needs a CUDA card", file=sys.stderr)
+        return 2
+    kernels = list(argv if argv is not None else sys.argv[1:]) or list(SOURCES)
+    unknown = set(kernels) - set(SOURCES)
+    if unknown:
+        print(f"chain_stamps: unknown kernels {sorted(unknown)}; known: {list(SOURCES)}",
+              file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     optin = _build.smem_optin(dev.index)
     rng = np.random.default_rng(0)
-    ks, kr = _libs(("subspace_split", "orth_r"))
+    libs = _libs(kernels)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    cuda = lambda x: torch.from_numpy(x.astype(np.complex64)).to(dev)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.complex64, device=dev)
     result = {}
-    for chi in (32, 64):
-        B, m = 32, 2 * chi
-        th = torch.from_numpy((rng.standard_normal((B, m, m)) + 1j * rng.standard_normal(
-            (B, m, m))).astype(np.complex64)).to(dev)
-        v0 = start_block(m, chi, th.dtype, dev)
-        p = split.split_plan(B, m, m, chi, th.dtype, optin)
-        q = torch.empty((B, m, chi), dtype=th.dtype, device=dev)
-        r = torch.empty((B, chi, m), dtype=th.dtype, device=dev)
-        scratch = torch.empty((B, p.scratch_cx), dtype=th.dtype, device=dev)
-        result[f"split_chi{chi}"] = _stamped(ks, lambda: ks.qk_split_launch(
-            th.data_ptr(), v0.data_ptr(), q.data_ptr(), r.data_ptr(), scratch.data_ptr(), B, m, m,
-            chi, 2, 0, int(p.rows_smem), p.smem_bytes, stream, int(p.theta_smem),
-            int(p.inplace)))
-        v = th[:, :, :chi].contiguous()
-        po = orth.orth_r_plan(B, m, chi, v.dtype, optin)
-        qo = torch.empty_like(v)
-        ro = torch.empty((B, chi, chi), dtype=v.dtype, device=dev)
-        so = torch.empty((B, po.scratch_cx), dtype=v.dtype, device=dev)
-        result[f"orth_r_chi{chi}"] = _stamped(kr, lambda: kr.qk_orth_r_launch(
-            v.data_ptr(), qo.data_ptr(), ro.data_ptr(), so.data_ptr(), B, m, chi, 0,
-            int(po.rows_smem), po.smem_bytes, stream, int(po.v_smem)))
+    if "split" in kernels:
+        lib = libs["split"]
+        for B, chi, nc in ((32, 32, 32), (32, 64, 64), (408, 128, 128)):
+            m = 2 * chi
+            th = cuda(_crandn(rng, B, m, m))
+            v0 = start_block(m, nc, th.dtype, dev)
+            p = split.split_plan(B, m, m, nc, th.dtype, optin)
+            q, r, scratch = empty(B, m, nc), empty(B, nc, m), empty(B, p.scratch_cx)
+            result[f"split_chi{chi}" + (f"_B{B}" if B != 32 else "")] = _stamped(
+                lib, lambda: lib.qk_split_launch(
+                    th.data_ptr(), v0.data_ptr(), q.data_ptr(), r.data_ptr(),
+                    scratch.data_ptr(), B, m, m, nc, 2, 0, int(p.rows_smem), p.smem_bytes,
+                    stream, int(p.theta_smem), int(p.inplace)))
+    if "orth_r" in kernels:
+        lib = libs["orth_r"]
+        for chi in (32, 64):
+            B, m = 32, 2 * chi
+            v = cuda(_crandn(rng, B, m, chi))
+            po = orth.orth_r_plan(B, m, chi, v.dtype, optin)
+            qo, ro, so = empty(B, m, chi), empty(B, chi, chi), empty(B, po.scratch_cx)
+            result[f"orth_r_chi{chi}"] = _stamped(lib, lambda: lib.qk_orth_r_launch(
+                v.data_ptr(), qo.data_ptr(), ro.data_ptr(), so.data_ptr(), B, m, chi, 0,
+                int(po.rows_smem), po.smem_bytes, stream, int(po.v_smem)))
+    for name, shapes in (("gate_split", ((32, 32), (32, 64))), ("brick_split", ((408, 128),))):
+        if name not in kernels:
+            continue
+        lib = libs[name]
+        for B, chi in shapes:
+            m = 2 * chi
+            A, Bm = cuda(_crandn(rng, B, m, chi)), cuda(_crandn(rng, B, chi, m))
+            g = cuda(np.linalg.qr(_crandn(rng, B, 4, 4))[0])
+            v0 = start_block(m, chi, A.dtype, dev)
+            plan_fn = split.gate_split_plan if name == "gate_split" else split.brick_split_plan
+            p = plan_fn(B, chi, chi, A.dtype, optin)
+            scratch = empty(B, p.scratch_cx)
+            tot = torch.empty(B, device=dev)
+            where = (int(p.theta_smem), int(p.rows_smem), int(p.inplace), p.smem_bytes, stream)
+            if name == "gate_split":
+                q, r = empty(B, m, chi), empty(B, chi, m)
+                launch = lambda: lib.qk_gate_split_launch(
+                    A.data_ptr(), Bm.data_ptr(), g.data_ptr(), v0.data_ptr(), q.data_ptr(),
+                    r.data_ptr(), tot.data_ptr(), scratch.data_ptr(), B, chi, chi, 2, 0, *where)
+            else:
+                lam = torch.from_numpy(rng.uniform(0.3, 1.0, (B, chi)).astype(np.float32)).to(dev)
+                q2, na0, s2 = empty(B, chi, m), empty(B, chi, m), torch.empty((B, chi), device=dev)
+                launch = lambda: lib.qk_brick_split_launch(
+                    A.data_ptr(), Bm.data_ptr(), g.data_ptr(), lam.data_ptr(), v0.data_ptr(),
+                    q2.data_ptr(), na0.data_ptr(), s2.data_ptr(), tot.data_ptr(),
+                    scratch.data_ptr(), B, chi, chi, 2, 0, *where)
+            result[f"{name}_chi{chi}" + (f"_B{B}" if B != 32 else "")] = _stamped(lib, launch)
     for name, res in result.items():
         parts = ", ".join(f"{k} {v['share']:.3f} ({v['count']} x {v['cycles_each']:.0f})"
                           for k, v in res.items() if isinstance(v, dict))

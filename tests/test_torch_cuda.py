@@ -134,7 +134,7 @@ def _close_gate(dev, A, Bm, g, nc, iters, tol):
 @pytest.mark.parametrize("iters", [1, 2])
 @pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
 def test_gate_split_kernel_matches_plain(dev, chi, iters, kind):
-    """K4: theta in shared memory up to chi 32, in global scratch at chi 64."""
+    """K4: theta built in shared memory (chi 8 to 64 in complex64)."""
     rng = np.random.default_rng(100 + chi + iters)
     _close_gate(dev, *_gate_inputs(rng, kind, 32, chi), chi, iters, TOL)
 
@@ -259,9 +259,9 @@ def _lam(rng, b, chi, rank, dtype=np.float32):
 @pytest.mark.parametrize("iters", [1, 2])
 @pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
 def test_brick_split_kernel_matches_plain(dev, chi, iters, kind):
-    """K5: thH in shared memory up to chi 32, in global scratch from chi 64;
-    the rows in global scratch at chi 128; lambda with exact zeros past a
-    rank of 5 on the rank-deficient and zero-padded inputs."""
+    """K5: thH in shared memory up to chi 64, everything in global scratch
+    at chi 128; lambda with exact zeros past a rank of 5 on the
+    rank-deficient and zero-padded inputs."""
     rng = np.random.default_rng(200 + chi + iters)
     A, Bm, g = _gate_inputs(rng, kind, 6, chi)
     lam = _lam(rng, 6, chi, chi if kind == "full" else 5)
@@ -434,3 +434,94 @@ def test_refused_split_launch_raises_and_is_not_counted(dev):
     q, _ = split.subspace_factor_cuda(th, v0, 1)  # the next launch is clean
     torch.cuda.synchronize()
     assert q.abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("B,chi,nc,dtype,plan", [
+    (32, 16, 16, C64, (True, True, False)),
+    (32, 64, 64, C64, (True, True, True)),
+    (32, 64, 80, C64, (False, True, False)),
+    (8, 128, 128, C64, (False, False, False)),
+    (8, 32, 32, C128, (True, True, False)),
+    (8, 64, 64, C128, (False, True, True)),
+    (2, 128, 128, C128, (False, False, False)),
+])
+@pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
+def test_gate_and_brick_kernels_each_launch_plan(dev, B, chi, nc, dtype, plan, kind):
+    """K4 and K5 on each launch plan their wrappers choose (theta in shared
+    memory with two row buffers or one; theta in global scratch with the rows
+    in shared memory, two buffers or one; everything in global scratch),
+    against their plain versions; exact zeros of the input stay exact zeros.
+    With more columns than theta's rank the surplus columns are rounding
+    residuals, so only K4's product q r is compared there."""
+    optin = _build.smem_optin(dev.index)
+    chosen = split.gate_split_plan(B, chi, nc, dtype, optin)
+    assert (chosen.theta_smem, chosen.rows_smem, chosen.inplace) == plan
+    assert split.brick_split_plan(B, chi, nc, dtype, optin).smem_bytes == chosen.smem_bytes
+    lib = _build.load()
+    for smem in (lib.qk_gate_split_smem, lib.qk_brick_split_smem):  # C and Python agree
+        assert smem(chi, nc, int(dtype == C128), *map(int, plan)) == chosen.smem_bytes
+    rng = np.random.default_rng(300 + B + chi + nc)
+    npdt = np.complex64 if dtype == C64 else np.complex128
+    tol = TOL if dtype == C64 else 1e-12
+    A, Bm, g = _gate_inputs(rng, kind, B, chi, npdt)
+    if nc > chi and kind != "full":
+        tA, tB, tg = (torch.from_numpy(x).to(dev) for x in (A, Bm, g))
+        v0 = start_block(2 * chi, nc, tA.dtype, dev)
+        qk, rk, _ = split.gate_subspace_factor_cuda(tA, tB, tg, v0, 2)
+        qp, rp, _ = split.gate_subspace_factor_plain(tA, tB, tg, v0, 2)
+        torch.cuda.synchronize()
+        assert (qk @ rk - qp @ rp).abs().max().item() <= tol
+    else:
+        _close_gate(dev, A, Bm, g, nc, 2, tol)
+    tA, tB, tg = (torch.from_numpy(x).to(dev) for x in (A, Bm, g))
+    qk, _, _ = split.gate_subspace_factor_cuda(tA, tB, tg, start_block(2 * chi, nc, tA.dtype,
+                                                                       dev), 2)
+    _zeros_kept(qk, split.gate_theta(tA, tB, tg))
+    lam = _lam(rng, B, chi, chi if kind == "full" else 5,
+               np.float32 if dtype == C64 else np.float64)
+    if nc == chi:
+        _close_brick(dev, A, Bm, g, lam, nc, 2, tol)
+
+
+@pytest.mark.parametrize("chi,B", [(16, 6), (32, 32), (64, 32), (128, 408)])
+def test_gate_and_brick_launches_are_bit_equal(dev, chi, B):
+    """Two launches of K4 and of K5 on one input give bit-equal outputs: the
+    theta build's total and every sum of the chain in a fixed order, no
+    atomics."""
+    rng = np.random.default_rng(400 + chi)
+    A, Bm, g = (torch.from_numpy(x).to(dev) for x in _gate_inputs(rng, "full", B, chi))
+    lam = torch.from_numpy(_lam(rng, B, chi, chi)).to(dev)
+    v0 = start_block(2 * chi, chi, A.dtype, dev)
+    for fn in (lambda: split.gate_subspace_factor_cuda(A, Bm, g, v0, 2),
+               lambda: split.brick_gate_split_cuda(A, Bm, g, lam, v0, 2)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_refused_gate_and_brick_launches_raise_and_are_not_counted(dev):
+    """A K4 or K5 launch asking for less shared memory than its plan needs
+    is refused by the C side, one asking for more than the card allows by
+    the launch; both raise and count nothing."""
+    chi = 64
+    A = torch.zeros((2, 2 * chi, chi), dtype=C64, device=dev)
+    Bm = torch.zeros((2, chi, 2 * chi), dtype=C64, device=dev)
+    g = torch.eye(4, dtype=C64, device=dev).expand(2, 4, 4).contiguous()
+    lam = torch.ones((2, chi), device=dev)
+    v0 = start_block(2 * chi, chi, C64, dev)
+    optin = _build.smem_optin(dev.index)
+    plan = split.gate_split_plan(2, chi, chi, C64, optin)
+    before = dict(_build.LAUNCHES)
+    for nbytes in (plan.smem_bytes - 16, optin + 4096):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            split.gate_subspace_factor_cuda(A, Bm, g, v0, 1, smem_bytes=nbytes)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            split.brick_gate_split_cuda(A, Bm, g, lam, v0, 1, smem_bytes=nbytes)
+    assert _build.LAUNCHES == before
+    q, _, tot = split.gate_subspace_factor_cuda(A, Bm, g, v0, 1)  # the next launches are clean
+    q2, na0, _, total = split.brick_gate_split_cuda(A, Bm, g, lam, v0, 1)
+    torch.cuda.synchronize()
+    assert q.abs().max().item() == 0.0 and tot.abs().max().item() == 0.0
+    assert q2.abs().max().item() == 0.0 and na0.abs().max().item() == 0.0
+    assert total.abs().max().item() == 0.0

@@ -148,12 +148,13 @@ H100_OPTIN = 232448  # bytes of shared memory a block may opt in to on an H100
     # chi 64 with the oversampling of the chi-128 runs: one row buffer would
     # need two passes of the block's warps
     (32, 128, 128, 80, torch.complex64, (False, True, False, 175424)),
-    # the brick route's full width through K1 (408 pairs, chi 128)
-    (408, 256, 256, 128, torch.complex64, (False, False, False, 16448)),
+    # the brick route's full width through K1 (408 pairs, chi 128): theta
+    # and rows in global memory, the products' slabs staged in shared memory
+    (408, 256, 256, 128, torch.complex64, (False, False, False, 49664)),
     # complex128
     (32, 64, 64, 32, torch.complex128, (True, True, False, 141440)),
     (32, 128, 128, 64, torch.complex128, (False, True, True, 148608)),
-    (4, 256, 256, 128, torch.complex128, (False, False, False, 32896)),
+    (4, 256, 256, 128, torch.complex128, (False, False, False, 99328)),
 ])
 def test_launch_plan_is_a_pure_function_of_the_shapes(B, m, k, nc, dtype, want):
     """K1's launch plan: one 512-thread block per element, theta and the
