@@ -33,7 +33,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the main path (chi 32 and 64, B 32, iters 2) with their launch plans,
    and beside the parent commit's K1, K2, K4 and K5 where its sources were
    unpacked into ``build/parent`` (``git archive``; absent in a plain
-   checkout).
+   checkout); K3 on every launch plan its wrapper chooses (rows in shared
+   memory or global scratch, each in-panel group), complex64 and
+   complex128, two launches bit-equal, and its times at every shape of its
+   routes (m 64 to 2048, k 16 to 80) beside the parent's K3.
 4. default route: the port's ``cli.main_no_test`` at the repo's headline
    shape (32 qubits, r=2, d=6, chi 64, f32, 102 train points of the pinned v1
    data): kernels K1 and K2 carry it; K symmetric with unit diagonal, its
@@ -353,12 +356,12 @@ def plan_text(plan):
 PARENT = ROOT / "build" / "parent" / "qml_cutensornet_tpu_torch" / "csrc"
 
 
-PARENT_SOURCES = ("subspace_split", "orth_r", "gate_split", "brick_split")
+PARENT_SOURCES = ("subspace_split", "orth_r", "gate_split", "brick_split", "orth")
 PARENT_LIBS = ROOT / "build" / "parent_kernels"
 
 
 def parent_build_start():
-    """Start building the parent commit's K1, K2, K4 and K5 from
+    """Start building the parent commit's K1 to K5 from
     ``build/parent`` (the parent unpacked there by ``git archive``), one
     ``nvcc`` each, in the background; None where that directory is absent."""
     import subprocess
@@ -378,12 +381,12 @@ def parent_build_start():
 
 
 def parent_kernels(dev, procs):
-    """The parent commit's K1, K2, K4 and K5, once ``procs``
+    """The parent commit's K1 to K5, once ``procs``
     (:func:`parent_build_start`) have built them, called through their own C
-    interfaces (K4 and K5 on ``split_chain.cuh`` with the parent wrappers'
-    placement rule; K1 and K2 with the current plans), or None
-    where there is no parent. Timing only: each is checked once against the
-    current kernel on a basis-invariant quantity."""
+    interfaces (K1, K2, K4 and K5 with the current plans; K3 on
+    ``bcgs2.cuh``'s 256-thread chain with the parent wrapper's placement
+    rule), or None where there is no parent. Timing only: each is checked
+    once against the current kernel on a basis-invariant quantity."""
     import ctypes
     import types
 
@@ -395,23 +398,25 @@ def parent_kernels(dev, procs):
         log_text = proc.communicate()[0]
         assert proc.returncode == 0, f"parent {src}.cu did not build:\n{log_text}"
     out, srcs = PARENT_LIBS, PARENT_SOURCES
-    ks, kr, kg, kb = (ctypes.CDLL(str(out / f"lib{src}.so")) for src in srcs)
+    ks, kr, kg, kb, ko = (ctypes.CDLL(str(out / f"lib{src}.so")) for src in srcs)
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ks.qk_split_launch.argtypes = [vp] * 5 + [i] * 7 + [ll, vp, i, i]
     ks.qk_split_launch.restype = i
     kr.qk_orth_r_launch.argtypes = [vp] * 4 + [i] * 5 + [ll, vp, i]
     kr.qk_orth_r_launch.restype = i
-    for lib, name, nptr in ((kg, "gate_split", 8), (kb, "brick_split", 10)):
-        smem, scratch, launch = (getattr(lib, f"qk_{name}_{f}")
-                                 for f in ("smem", "scratch", "launch"))
-        smem.argtypes, smem.restype = [i] * 5, ll
-        scratch.argtypes, scratch.restype = [i] * 4, ll
-        launch.argtypes, launch.restype = [vp] * nptr + [i] * 7 + [ll, vp], i
+    kg.qk_gate_split_launch.argtypes = [vp] * 8 + [i] * 8 + [ll, vp]
+    kg.qk_gate_split_launch.restype = i
+    kb.qk_brick_split_launch.argtypes = [vp] * 10 + [i] * 8 + [ll, vp]
+    kb.qk_brick_split_launch.restype = i
+    ko.qk_orth_smem.argtypes, ko.qk_orth_smem.restype = [i] * 4, ll
+    ko.qk_orth_scratch.argtypes, ko.qk_orth_scratch.restype = [i] * 3, ll
+    ko.qk_orth_launch.argtypes, ko.qk_orth_launch.restype = [vp] * 3 + [i] * 5 + [ll, vp], i
     optin = _build.smem_optin(dev.index)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
 
-    # K1 and K2 of the parent take the current C interfaces and launch plans
-    # (ops/split.split_plan, ops/orth.orth_r_plan).
+    # K1, K2, K4 and K5 of the parent take the current C interfaces and
+    # launch plans (ops/split.split_plan, gate_split_plan, brick_split_plan,
+    # ops/orth.orth_r_plan).
     from qml_cutensornet_tpu_torch.ops import orth as orth_mod
     from qml_cutensornet_tpu_torch.ops import split as split_mod
 
@@ -441,49 +446,55 @@ def parent_kernels(dev, procs):
         assert rc == 0, f"parent orth_r launch: CUDA error {rc}"
         return q, r
 
-    def _placement(lib, name, chi, nc):
-        """The parent wrapper's rule: rows, then theta, in shared memory
-        where they fit."""
-        smem = getattr(lib, f"qk_{name}_smem")
-        rows = int(smem(chi, nc, 0, 1, 0) <= optin)
-        th = int(rows and smem(chi, nc, 0, 1, 1) <= optin)
-        return rows, th, smem(chi, nc, 0, rows, th), getattr(lib, f"qk_{name}_scratch")(
-            chi, nc, rows, th)
-
     def gate_split(A, Bm, g, v0, iters):
         B, m, chi = A.shape
         nc = v0.shape[1]
-        rows, th, nbytes, ncx = _placement(kg, "gate_split", chi, nc)
+        plan = split_mod.gate_split_plan(B, chi, nc, A.dtype, optin)
         q = torch.empty((B, m, nc), dtype=A.dtype, device=dev)
         r = torch.empty((B, nc, m), dtype=A.dtype, device=dev)
         tot = torch.empty(B, dtype=A.real.dtype, device=dev)
-        scratch = torch.empty((B, ncx), dtype=A.dtype, device=dev)
+        scratch = torch.empty((B, plan.scratch_cx), dtype=A.dtype, device=dev)
         rc = kg.qk_gate_split_launch(A.data_ptr(), Bm.data_ptr(), g.data_ptr(), v0.data_ptr(),
                                      q.data_ptr(), r.data_ptr(), tot.data_ptr(),
-                                     scratch.data_ptr(), B, chi, nc, iters, 0, rows, th, nbytes,
-                                     stream())
+                                     scratch.data_ptr(), B, chi, nc, iters, 0,
+                                     int(plan.theta_smem), int(plan.rows_smem),
+                                     int(plan.inplace), plan.smem_bytes, stream())
         assert rc == 0, f"parent gate_split launch: CUDA error {rc}"
         return q, r, tot
 
     def brick_split(A, Bm, g, lam, v0, iters):
         B, m, chi = A.shape
         nc = v0.shape[1]
-        rows, th, nbytes, ncx = _placement(kb, "brick_split", chi, nc)
+        plan = split_mod.brick_split_plan(B, chi, nc, A.dtype, optin)
         q2 = torch.empty((B, nc, m), dtype=A.dtype, device=dev)
         na0 = torch.empty((B, nc, m), dtype=A.dtype, device=dev)
         s2 = torch.empty((B, nc), dtype=lam.dtype, device=dev)
         tot = torch.empty(B, dtype=lam.dtype, device=dev)
-        scratch = torch.empty((B, ncx), dtype=A.dtype, device=dev)
+        scratch = torch.empty((B, plan.scratch_cx), dtype=A.dtype, device=dev)
         rc = kb.qk_brick_split_launch(A.data_ptr(), Bm.data_ptr(), g.data_ptr(), lam.data_ptr(),
                                       v0.data_ptr(), q2.data_ptr(), na0.data_ptr(), s2.data_ptr(),
                                       tot.data_ptr(), scratch.data_ptr(), B, chi, nc, iters, 0,
-                                      rows, th, nbytes, stream())
+                                      int(plan.theta_smem), int(plan.rows_smem),
+                                      int(plan.inplace), plan.smem_bytes, stream())
         assert rc == 0, f"parent brick_split launch: CUDA error {rc}"
         return q2, na0, s2, tot
 
+    def orth(v):
+        """The parent's K3: finished vectors and working panel in shared
+        memory while they fit (``place`` 2, 1), else in global scratch."""
+        B, m, k = v.shape
+        dbl = int(v.dtype == torch.complex128)
+        place = next((p for p in (2, 1) if ko.qk_orth_smem(m, k, dbl, p) <= optin), 0)
+        q = torch.empty_like(v)
+        scratch = torch.empty((B, ko.qk_orth_scratch(m, k, place)), dtype=v.dtype, device=dev)
+        rc = ko.qk_orth_launch(v.data_ptr(), q.data_ptr(), scratch.data_ptr(), B, m, k, dbl,
+                               place, ko.qk_orth_smem(m, k, dbl, place), stream())
+        assert rc == 0, f"parent orth launch: CUDA error {rc}"
+        return q
+
     log(f"parent kernels built from {PARENT}")
     return types.SimpleNamespace(split=split, orth_r=orth_r, gate_split=gate_split,
-                                 brick_split=brick_split)
+                                 brick_split=brick_split, orth=orth)
 
 
 # ------------------------------------------------------------------ bounds
@@ -605,15 +616,38 @@ def phase_kernels(dev):
                             split, *gate_feeds(a, b, g, is_left), v0, iters,
                             f"gate_split B={B} chi={chi} iters={iters} {kind} feed={feed}"))
 
-    # K3 at the blocked route's panel shapes: 32 columns, m = 2 chi for chi
-    # 64, 256 and 1024 (the last with panel and finished vectors in global
-    # scratch); K4 at chi 128, where rows and theta are in global scratch.
-    # At chi 128 and 256 the split is chi + 16 columns wide, so its last
-    # panel has 16 columns.
-    for m, k in ((128, 32), (256, 32), (256, 16), (512, 32), (512, 16), (2048, 32)):
+    # K3 at the blocked route's panel shapes (32 columns, m = 2 chi for chi
+    # 64, 128, 256 and 1024; at chi 128 and 256 the split is chi + 16 columns
+    # wide, so its last panel has 16 columns), at the unfused route's split
+    # shapes (k = chi + 16), and on every launch plan its wrapper chooses
+    # (ops/orth.orth_plan: the rows in shared memory or in global scratch,
+    # times the in-panel group of the length: 4, 8 and 16 warps at one
+    # element a lane, the whole block at two, the whole block on the panel
+    # in memory), in complex64 and complex128, with two
+    # launches of each bit-equal. K4 at chi 128 after it, where rows and
+    # theta are in global scratch.
+    c64, c128 = torch.complex64, torch.complex128
+    plans = {}
+    for dtype, m, k in ((c64, 128, 32), (c64, 256, 32), (c64, 256, 16), (c64, 512, 32),
+                        (c64, 512, 16), (c64, 2048, 32), (c64, 64, 48), (c64, 128, 80),
+                        (c64, 1024, 16), (c64, 1024, 32), (c64, 2048, 8), (c64, 256, 128),
+                        (c64, 512, 64),
+                        (c128, 128, 64), (c128, 256, 32), (c128, 512, 16), (c128, 1024, 8),
+                        (c128, 2048, 4), (c128, 128, 128), (c128, 256, 64), (c128, 512, 32),
+                        (c128, 1024, 32), (c128, 2048, 32)):
+        plan = orth.orth_plan(32, m, k, dtype, optin)
+        plans.setdefault(str(dtype)[6:], set()).add(
+            (plan.rows_smem, plan.group_warps, plan.group_epl))
         for kind in kinds:
-            v = torch.from_numpy(make_input(rng, kind, 32, m, k, m // 2)).to(dev)
-            worst("orth", compare_orth(orth, v, f"orth panel B=32 m={m} k={k} {kind}"))
+            v = torch.from_numpy(make_input(rng, kind, 32, m, k, m // 2)).to(dev, dtype)
+            worst("orth", compare_orth(orth, v, f"orth B=32 m={m} k={k} {str(dtype)[6:]} {kind} "
+                                              f"[{plan_text(plan)}]"))
+        first, second = orth.orth_cuda(v), orth.orth_cuda(v)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), f"orth m={m} k={k} {dtype}: two launches differ"
+    log(f"  orth plans checked (rows_smem, group warps, elements a lane; -1 in memory), two "
+        f"launches bit-equal on each: {plans}")
+    assert len(plans["complex64"]) == 9 and len(plans["complex128"]) == 10, plans
     v0 = start_block(256, 128, torch.complex64, dev)
     for kind in ("full", "padded"):
         a, b, g = make_pair(rng, kind, 8, 128, dev)
@@ -651,7 +685,6 @@ def phase_kernels(dev):
     # everything in global memory (chi 128: the brick route's [408, 256, 256]
     # with nc 128, and complex128); K2 with Q alone in shared memory
     # (complex128 at chi 64) and in global scratch (complex128 at chi 128).
-    c64, c128 = torch.complex64, torch.complex128
     for B, chi, nc, dtype in ((32, 64, 80, c64), (408, 128, 128, c64), (32, 64, 64, c128),
                               (4, 128, 128, c128)):
         m = 2 * chi
@@ -812,6 +845,33 @@ def phase_kernels(dev):
                 stage_ms[name][f"chi{chi}"] = {"ms": k1, "parent_ms": None}
                 log(f"  time {name} B={B} chi={chi} [{plan_text(plan)}]: kernel {k1:.4f} ms "
                     f"(no parent sources in build/parent)")
+    # K3 at every shape of its routes, B 32: the unfused route's split and
+    # center-move shapes at chi 32 and 64 (m 64, 128; k chi and chi + 16) and
+    # the blocked route's panels at chi 128, 256 and 1024 (m 256, 512, 2048;
+    # k 32 and a last panel of 16), beside the parent's K3 and the bound.
+    stage_ms["orth"] = {}
+    for m, k in ((64, 32), (64, 48), (128, 64), (128, 80), (256, 32), (256, 16), (512, 32),
+                 (512, 16), (2048, 32)):
+        vs = torch.from_numpy(make_input(rng, "full", B, m, k, m // 2)).to(dev)
+        plan = orth.orth_plan(B, m, k, vs.dtype, optin)
+        kern = lambda: orth.orth_cuda(vs)
+        bound_ms = bound(B * _orth_ops(m, k), 8.0 * B * 2 * m * k)[0]
+        entry = {"plan": plan_text(plan), "bound_ms": bound_ms, "parent_ms": None}
+        if parent:
+            old = lambda: parent.orth(vs)
+            qn, qo = kern(), old()
+            diff = (qn @ qn.mH - qo @ qo.mH).abs().max().item()
+            assert diff <= TOL_PROJ, f"orth m={m} k={k}: parent's projector off by {diff}"
+            o1, k1, k2, o2 = (time_ms(f, 20) for f in (old, kern, kern, old))
+            entry.update(ms=(k1 + k2) / 2, parent_ms=(o1 + o2) / 2)
+            vs_parent = (f"kernel {k1:.4f} / {k2:.4f} ms, parent's kernel {o1:.4f} / {o2:.4f} ms "
+                         f"(same call, turns parent, kernel, kernel, parent)")
+        else:
+            entry["ms"] = time_ms(kern, 20)
+            vs_parent = f"kernel {entry['ms']:.4f} ms (no parent sources in build/parent)"
+        stage_ms["orth"][f"m{m}_k{k}"] = entry
+        log(f"  time orth B={B} m={m} k={k} [{plan_text(plan)}]: {vs_parent}, bound "
+            f"{bound_ms:.4f} ms")
     brick = make_brick(rng, "full", BRICK_BN, 128, 1.0, dev)
     v0b = start_block(256, 128, torch.complex64, dev)
     kern = lambda: split.brick_gate_split_cuda(*brick, v0b, 2)

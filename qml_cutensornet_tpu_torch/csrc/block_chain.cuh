@@ -1,13 +1,12 @@
 // The 512-thread, one-block-per-element building blocks of kernels K1
-// (subspace_split.cu), K2 (orth_r.cu), K4 (gate_split.cu) and K5
-// (brick_split.cu): a register-tiled complex GEMM over shared (or global)
+// (subspace_split.cu), K2 (orth_r.cu), K3 (orth.cu), K4 (gate_split.cu) and
+// K5 (brick_split.cu): a register-tiled complex GEMM over shared (or global)
 // memory, the BCGS2 orthonormalization of the rows of a matrix in place, the
 // power-iteration chain of the subspace split on one theta (split_chain), the
 // register-tiled theta build of a gated pair (theta_build), and the laid-out
-// buffers of the four kernels.
+// buffers of the kernels.
 //
-// Replaces, for K1, K2, K4 and K5: the routines of bcgs2.cuh (which K3
-// keeps), that is qml_cutensornet_tpu/ops/pallas_qr.py:orth_rows_body,
+// Replaces, for K1 to K5: qml_cutensornet_tpu/ops/pallas_qr.py:orth_rows_body,
 // pallas_split.py:_split_chain, _build_theta_quadrants and _gate_combine.
 // Same algorithm, same
 // constants (bcgs2.cuh): panels of PANEL = 16; two CGS passes of each panel
@@ -45,11 +44,13 @@
 //   copy, whose rows must be 16-byte aligned).
 // - The CGS coefficients: each warp takes 4 x 4 tiles, its lanes split the
 //   vector, and one reduce-scatter butterfly of 31 shuffles sums the tile.
-// - Inside a panel the column steps run on the registers of 4 warps (one
-//   or two vector elements a thread): two reduction rounds a column (the first pass
-//   shares its round with the previous column's norm), each a warp
-//   butterfly, one 128-thread named barrier and the 4 warps' partials added
-//   in a fixed order; no block-wide barrier.
+// - Inside a panel the column steps run on the registers of a group of warps
+//   (4 warps, one or two vector elements a thread, for K1, K2, K4 and K5; K3
+//   names a group by its vector length, up to the whole block, and past 1024
+//   elements keeps the panel in memory): two reduction rounds a column (the
+//   first pass shares its round with the previous column's norm), each a warp
+//   butterfly, one named barrier of the group and the group's warp partials
+//   added in a fixed order; no block-wide barrier.
 //
 // Arithmetic: full-precision complex FMAs on CUDA cores, no TF32, no tensor
 // cores. Every sum is taken in a fixed order, with no atomics: two launches on
@@ -206,14 +207,16 @@ __device__ __forceinline__ void gemm(const Cx<T>* X, int xj, int xr, const Cx<T>
   }
 }
 
-// The in-panel steps run on a group of the block's first GW warps (one or
-// two vector elements per thread, len <= 2 * GW * 32), synchronized by a
-// named barrier.
+// The in-panel steps run on a group of the block's first GWN warps,
+// synchronized by a named barrier. K1, K2, K4 and K5 take GWN = GW with one
+// or two vector elements a thread (len <= 2 * GW * 32); K3 takes the group
+// its launch plan names (orth.cu), up to the whole block.
 constexpr int GW = 4;
 constexpr int GT = GW * 32;
 
+template <int GWN = GW>
 __device__ __forceinline__ void group_bar() {
-  asm volatile("bar.sync 1, %0;" ::"n"(GT) : "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(GWN * 32) : "memory");
 }
 
 // One stage of the reduce-scatter butterfly and the stages after it: lanes
@@ -283,20 +286,21 @@ __device__ __forceinline__ OrthWork<T> orth_work_carve(unsigned char* p, int nve
   return w;
 }
 
-// One reduction round of the group: every thread gives v[0..N-1]; every
-// thread gets, in lane l, the group-wide sum of v[l % N] (warp butterflies,
-// one named barrier, then the GW warp partials added in warp order, so every
-// thread holds bit-identical sums).
-template <int N, typename T>
+// One reduction round of a group of GWN warps: every thread gives
+// v[0..N-1]; every thread gets, in lane l, the group-wide sum of v[l % N]
+// (warp butterflies, one named barrier, then the GWN warp partials added in
+// warp order, so every thread holds bit-identical sums). ``part`` holds two
+// buffers of GWN x 32 values, used in turn.
+template <int N, int GWN = GW, typename T>
 __device__ __forceinline__ T group_sum(T (&v)[N], T* part, int& buf) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const T s = warp_reduce_scatter<N>(v);
-  T* pb = part + buf * (GW * 32);
+  T* pb = part + buf * (GWN * 32);
   if (lane < N) pb[warp * 32 + lane] = s;
-  group_bar();
+  group_bar<GWN>();
   T tot = 0;
 #pragma unroll
-  for (int w = 0; w < GW; ++w) tot += pb[w * 32 + (lane % N)];
+  for (int w = 0; w < GWN; ++w) tot += pb[w * 32 + (lane % N)];
   buf ^= 1;
   QK_STAMP(ST_ROUND);
   return tot;
@@ -388,63 +392,166 @@ __device__ __forceinline__ void project_out(Cx<T> (&x)[PANEL][EPL], T tot, T las
 // finished q); the second is the second pass. The last column's norm is a
 // round of its own. Unrolled over the columns, so every register index and
 // every butterfly width is a compile-time constant.
-template <typename T, int EPL, int TT>
+template <typename T, int EPL, int TT, int GWN = GW>
 __device__ __forceinline__ void mgs_columns(Cx<T> (&x)[PANEL][EPL], int pw, T* part, int& buf,
                                             const T* n2o, T dep_tol2) {
   if constexpr (TT == PANEL) {
     T v[1] = {norm2<T, EPL>(x[PANEL - 1])};
-    finish_column<T, EPL>(x[PANEL - 1], group_sum<1>(v, part, buf), n2o[PANEL - 1], dep_tol2);
+    finish_column<T, EPL>(x[PANEL - 1], group_sum<1, GWN>(v, part, buf), n2o[PANEL - 1],
+                          dep_tol2);
   } else if constexpr (TT == 0) {
-    mgs_columns<T, EPL, 1>(x, pw, part, buf, n2o, dep_tol2);
+    mgs_columns<T, EPL, 1, GWN>(x, pw, part, buf, n2o, dep_tol2);
   } else {
     if (TT >= pw) {
       T v[1] = {norm2<T, EPL>(x[TT - 1])};
-      finish_column<T, EPL>(x[TT - 1], group_sum<1>(v, part, buf), n2o[TT - 1], dep_tol2);
+      finish_column<T, EPL>(x[TT - 1], group_sum<1, GWN>(v, part, buf), n2o[TT - 1], dep_tol2);
       return;
     }
     constexpr int N = pow2_at_least(2 * TT + 1);
     T v[N];
     dots<T, EPL, TT, N>(x, v);
     v[2 * TT] = norm2<T, EPL>(x[TT - 1]);
-    T tot = group_sum<N>(v, part, buf);
+    T tot = group_sum<N, GWN>(v, part, buf);
     const T inv = finish_column<T, EPL>(x[TT - 1], __shfl_sync(0xffffffffu, tot, 2 * TT),
                                         n2o[TT - 1], dep_tol2);
     project_out<T, EPL, TT>(x, tot, inv);
     T w[N];
     dots<T, EPL, TT, N>(x, w);
-    tot = group_sum<N>(w, part, buf);
+    tot = group_sum<N, GWN>(w, part, buf);
     project_out<T, EPL, TT>(x, tot, T(1));
-    mgs_columns<T, EPL, TT + 1>(x, pw, part, buf, n2o, dep_tol2);
+    mgs_columns<T, EPL, TT + 1, GWN>(x, pw, part, buf, n2o, dep_tol2);
   }
 }
 
-// The panel's MGS2 on the group: load the panel into registers, run the
-// columns, store them back. Not inlined: one copy per (T, EPL) for every
-// kernel of a source, which keeps the unrolled column code from being
-// compiled once per call site and launch plan. Its reduction slots are
-// static shared memory of its own (2 x GW x 32 values), so their accesses
-// are known to be shared-memory ones.
-template <typename T, int EPL>
+// The panel's MGS2 on a group of GWN warps (len <= EPL * GWN * 32): load the
+// panel into registers, run the columns, store them back. Not inlined: one
+// copy per (T, EPL, GWN) for every kernel of a source, which keeps the
+// unrolled column code from being compiled once per call site and launch
+// plan. Its reduction slots are static shared memory of its own (2 x GWN x
+// 32 values), so their accesses are known to be shared-memory ones.
+template <typename T, int EPL, int GWN = GW>
 __device__ __noinline__ void mgs_panel(Cx<T>* P, int ld, int pw, int len, const T* n2o,
                                        T dep_tol2) {
-  __shared__ T part[2 * GW * 32];
+  __shared__ T part[2 * GWN * 32];
   int buf = 0;
   Cx<T> x[PANEL][EPL];
 #pragma unroll
   for (int t = 0; t < PANEL; ++t)
 #pragma unroll
     for (int u = 0; u < EPL; ++u) {
-      const int e = threadIdx.x + u * GT;
+      const int e = threadIdx.x + u * GWN * 32;
       x[t][u] = (t < pw && e < len) ? P[(size_t)t * ld + e] : Cx<T>{T(0), T(0)};
     }
-  mgs_columns<T, EPL, 0>(x, pw, part, buf, n2o, dep_tol2);
+  mgs_columns<T, EPL, 0, GWN>(x, pw, part, buf, n2o, dep_tol2);
 #pragma unroll
   for (int t = 0; t < PANEL; ++t)
 #pragma unroll
     for (int u = 0; u < EPL; ++u) {
-      const int e = threadIdx.x + u * GT;
+      const int e = threadIdx.x + u * GWN * 32;
       if (t < pw && e < len) P[(size_t)t * ld + e] = x[t][u];
     }
+}
+
+// The same MGS2 for a vector of any length, with the panel left where it is
+// (shared or global memory) and the whole block as the group: each thread
+// owns the elements threadIdx.x + u * NT of every column and is the only
+// thread to read or write them, so the rounds' sums are the only traffic
+// between threads. Column TT takes the register version's two rounds, each
+// a pass over the thread's elements of columns 0..TT.
+template <typename T, int TT>
+__device__ __forceinline__ void mgs_columns_mem(Cx<T>* P, int ld, int pw, int len, T* part,
+                                                int& buf, const T* n2o, T dep_tol2) {
+  const int tid = threadIdx.x;
+  // Column c's norm^2 from the round's sum: scale it to unit norm, or to
+  // exact zeros when dependent.
+  auto finish = [&](int c, T n2) {
+    const T keep = (n2 > dep_tol2 * n2o[c]) ? T(1) : T(0);
+    const T inv = rsqrt_(n2 + T(TINY)) * keep;
+    for (int e = tid; e < len; e += NT) {
+      Cx<T>& x = P[(size_t)c * ld + e];
+      x.re *= inv;
+      x.im *= inv;
+    }
+    QK_STAMP(ST_COLUMN);
+    return inv;
+  };
+  auto norm = [&](int c) {
+    T s = 0;
+    for (int e = tid; e < len; e += NT) {
+      const Cx<T> x = P[(size_t)c * ld + e];
+      s += x.re * x.re + x.im * x.im;
+    }
+    return s;
+  };
+  if constexpr (TT == PANEL) {
+    T v[1] = {norm(PANEL - 1)};
+    finish(PANEL - 1, group_sum<1, NW>(v, part, buf));
+  } else if constexpr (TT == 0) {
+    mgs_columns_mem<T, 1>(P, ld, pw, len, part, buf, n2o, dep_tol2);
+  } else {
+    if (TT >= pw) {
+      T v[1] = {norm(TT - 1)};
+      finish(TT - 1, group_sum<1, NW>(v, part, buf));
+      return;
+    }
+    constexpr int N = pow2_at_least(2 * TT + 1);
+    Cx<T>* xt = P + (size_t)TT * ld;
+    // v[2s], v[2s + 1] = this thread's part of conj(x_s) . x_TT (s < TT)
+    auto dots_mem = [&](T (&v)[N]) {
+#pragma unroll
+      for (int a = 0; a < N; ++a) v[a] = T(0);
+      for (int e = tid; e < len; e += NT) {
+        const Cx<T> b = xt[e];
+#pragma unroll
+        for (int s = 0; s < TT; ++s) {
+          const Cx<T> a = P[(size_t)s * ld + e];
+          v[2 * s] += a.re * b.re + a.im * b.im;
+          v[2 * s + 1] += a.re * b.im - a.im * b.re;
+        }
+      }
+    };
+    // x_TT -= sum_s x_s c_s, the coefficients from lanes 2s, 2s + 1 of tot
+    // (column TT - 1's times ``last``), in two interleaved chains.
+    auto project = [&](T tot, T last) {
+      T cr[TT], ci[TT];
+#pragma unroll
+      for (int s = 0; s < TT; ++s) {
+        cr[s] = __shfl_sync(0xffffffffu, tot, 2 * s);
+        ci[s] = __shfl_sync(0xffffffffu, tot, 2 * s + 1);
+      }
+      cr[TT - 1] *= last;
+      ci[TT - 1] *= last;
+      for (int e = tid; e < len; e += NT) {
+        T sr[2] = {T(0), T(0)}, si[2] = {T(0), T(0)};
+#pragma unroll
+        for (int s = 0; s < TT; ++s) {
+          const Cx<T> a = P[(size_t)s * ld + e];
+          sr[s & 1] += a.re * cr[s] - a.im * ci[s];
+          si[s & 1] += a.re * ci[s] + a.im * cr[s];
+        }
+        xt[e].re -= sr[0] + sr[1];
+        xt[e].im -= si[0] + si[1];
+      }
+    };
+    T v[N];
+    dots_mem(v);
+    v[2 * TT] = norm(TT - 1);
+    T tot = group_sum<N, NW>(v, part, buf);
+    const T inv = finish(TT - 1, __shfl_sync(0xffffffffu, tot, 2 * TT));
+    project(tot, inv);
+    dots_mem(v);
+    tot = group_sum<N, NW>(v, part, buf);
+    project(tot, T(1));
+    mgs_columns_mem<T, TT + 1>(P, ld, pw, len, part, buf, n2o, dep_tol2);
+  }
+}
+
+template <typename T>
+__device__ __noinline__ void mgs_panel_mem(Cx<T>* P, int ld, int pw, int len, const T* n2o,
+                                           T dep_tol2) {
+  __shared__ T part[2 * NT];
+  int buf = 0;
+  mgs_columns_mem<T, 0>(P, ld, pw, len, part, buf, n2o, dep_tol2);
 }
 
 // coef[i][t] = sum_e conj(X[i][e]) P[t][e] for i < p0, t < pw: each warp
@@ -488,11 +595,21 @@ __device__ __forceinline__ void cgs_coefficients(const Cx<T>* X, const Cx<T>* P,
   }
 }
 
-// Orthonormalize, in place, the ``nvec`` vectors of length ``len`` (at most
-// 2 * GT) held as the rows of X (row j at X + j * ld). Must be entered by the
-// whole block after a barrier that makes X visible; ends with a barrier.
-template <typename T>
+// The in-panel group of bcgs2_rows: EPL_AUTO is the rule of K1, K2, K4 and
+// K5 (GW warps, one element a thread up to len GT, else two); EPL_MEM the
+// whole block on the panel in memory (mgs_panel_mem, any len); EPL >= 1 that
+// many elements a thread on GWN warps in registers (len <= EPL * GWN * 32).
+constexpr int EPL_AUTO = 0;
+constexpr int EPL_MEM = -1;
+
+// Orthonormalize, in place, the ``nvec`` vectors of length ``len`` held as
+// the rows of X (row j at X + j * ld), the in-panel steps on the group
+// (GWN, EPL) names; with the default group len is at most 2 * GT. Must be
+// entered by the whole block after a barrier that makes X visible; ends
+// with a barrier.
+template <typename T, int GWN = GW, int EPL = EPL_AUTO>
 __device__ __forceinline__ void bcgs2_rows(Cx<T>* X, int ld, int nvec, int len, const OrthWork<T>& w) {
+  static_assert(EPL != EPL_MEM || GWN == NW, "the memory step takes the whole block");
   const T dep_tol2 = sizeof(T) == sizeof(double) ? T(DEP_TOL2_F64) : T(DEP_TOL2);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int p0 = 0; p0 < nvec; p0 += PANEL) {
@@ -523,9 +640,13 @@ __device__ __forceinline__ void bcgs2_rows(Cx<T>* X, int ld, int nvec, int len, 
       }
     }
 
-    // MGS2 inside the panel, column by column, on the group's registers.
-    if (tid < GT) {
-      if (len <= GT) {
+    // MGS2 inside the panel, column by column, on the group.
+    if (tid < GWN * 32) {
+      if constexpr (EPL == EPL_MEM) {
+        mgs_panel_mem<T>(P, ld, pw, len, w.n2o, dep_tol2);
+      } else if constexpr (EPL > 0) {
+        mgs_panel<T, EPL, GWN>(P, ld, pw, len, w.n2o, dep_tol2);
+      } else if (len <= GT) {
         mgs_panel<T, 1>(P, ld, pw, len, w.n2o, dep_tol2);
       } else {
         mgs_panel<T, 2>(P, ld, pw, len, w.n2o, dep_tol2);

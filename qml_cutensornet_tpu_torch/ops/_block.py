@@ -1,5 +1,4 @@
-"""The host-side shape rules of ``csrc/block_chain.cuh`` (kernels K1, K2, K4
-and K5),
+"""The host-side shape rules of ``csrc/block_chain.cuh`` (kernels K1 to K5),
 mirrored in Python so that the wrappers' launch plans are pure functions the
 CPU tests can check: the block size, the GEMM's warp tiling and the bytes of
 the orthonormalizer's scratch. A launch whose shared-memory request is below
@@ -47,11 +46,34 @@ def orth_work_bytes(nvec: int, dtype: torch.dtype) -> int:
     return nvec * PANEL * cx + PANEL * (cx // 2)
 
 
+def group_static_bytes(warps: int, dtype: torch.dtype) -> int:
+    """Static shared memory of one in-panel group's reduction slots, two
+    buffers of ``warps`` x 32 values (``mgs_panel`` / ``mgs_panel_mem``)."""
+    return 2 * warps * 32 * (cx_bytes(dtype) // 2)
+
+
 def static_smem_bytes(dtype: torch.dtype) -> int:
-    """Static shared memory of K1 and K2: the in-panel group's reduction
+    """Static shared memory of K1 and K2: the 4-warp group's reduction
     slots, one set per element count (``blk::static_smem_bytes``). A plan's
     dynamic request plus this must fit the block's opt-in."""
-    return 2 * (2 * GW * 32) * (cx_bytes(dtype) // 2)
+    return 2 * group_static_bytes(GW, dtype)
+
+
+EPL_MEM = -1  # the in-panel step on the panel in memory (``blk::EPL_MEM``)
+
+
+def orth_group(m: int) -> tuple[int, int]:
+    """K3's in-panel group for vectors of length ``m``: ``(warps, elements a
+    lane)``, the elements held in registers (``m <= warps * 32 * elements``):
+    one element a lane on 4, 8 or 16 warps up to 512, two on the whole block
+    up to 1024; past that ``(NW, EPL_MEM)``, the whole block on the panel
+    left in memory (``csrc/orth.cu``)."""
+    for warps in (GW, 2 * GW, NW):
+        if m <= warps * 32:
+            return warps, 1
+    if m <= 2 * NW * 32:
+        return NW, 2
+    return NW, EPL_MEM
 
 
 KS = 16  # reduction steps per slab of the theta build (``blk::KS``)

@@ -54,9 +54,8 @@ SOURCES = {
         "qk_split_launch": ([_vp] * 5 + [_i] * 7 + [_ll, _vp, _i, _i], _i),
     },
     "orth.cu": {
-        "qk_orth_smem": ([_i, _i, _i, _i], _ll),
-        "qk_orth_scratch": ([_i, _i, _i], _ll),
-        "qk_orth_launch": ([_vp, _vp, _vp, _i, _i, _i, _i, _i, _ll, _vp], _i),
+        "qk_orth_smem": ([_i] * 4, _ll),
+        "qk_orth_launch": ([_vp] * 3 + [_i] * 7 + [_ll, _vp], _i),
     },
     "gate_split.cu": {
         "qk_gate_split_smem": ([_i] * 6, _ll),

@@ -25,8 +25,9 @@ kernel or raises.
   ``r = q^H v`` as a batched matrix product; above 128 columns the blocked
   route (``ops/blocked_qr.py``: K3 on each panel with ``fused`` in
   complex64, the scanned MGS2 panel step otherwise) and the same product.
-- :func:`qr_orth` ``(v, fused)``: K3 (``csrc/orth.cu``: k <= 128, any m) up
-  to 128 columns, the blocked route above.
+- :func:`qr_orth` ``(v, fused)``: K3 (``csrc/orth.cu``: k <= 128, any m;
+  launched as :func:`orth_plan` says) up to 128 columns, the blocked route
+  above.
 
 Both kernels run complex64 and, through the double instantiation of the
 same code, complex128. A partial last panel is fine.
@@ -206,10 +207,47 @@ def orth_r_cuda(v: torch.Tensor, smem_bytes: int | None = None):
     return q, r
 
 
-def orth_cuda(v: torch.Tensor) -> torch.Tensor:
-    """Launch K3 on ``v [B, m, k]`` (k <= 128, any m). The finished vectors
-    and the working panel go to shared memory while they fit and to a global
-    scratch buffer otherwise (``place`` in ``csrc/orth.cu``)."""
+@dataclasses.dataclass(frozen=True)
+class OrthPlan:
+    """How K3 is launched (``csrc/orth.cu``): ``grid`` blocks of ``threads``,
+    one block per batch element; the rows Q in shared memory (``rows_smem``)
+    or in a per-element global scratch buffer of ``scratch_cx`` complex
+    elements; the in-panel group, ``group_warps`` warps holding
+    ``group_epl`` vector elements a lane in registers (``_block.EPL_MEM``:
+    the whole block on the panel left in memory); ``smem_bytes`` of dynamic
+    shared memory per block."""
+
+    threads: int
+    grid: int
+    rows_smem: bool
+    group_warps: int
+    group_epl: int
+    smem_bytes: int
+    scratch_cx: int
+
+
+def orth_plan(B: int, m: int, k: int, dtype: torch.dtype, smem_optin: int) -> OrthPlan:
+    """K3's launch plan, a pure function of the shapes, the dtype and the
+    shared memory a block may opt in to: the in-panel group of the vector
+    length (``_block.orth_group``), and the rows in shared memory where they
+    fit beside the work and the group's static slots, else in global
+    scratch."""
+    warps, epl = _block.orth_group(m)
+    work = _block.orth_work_bytes(k, dtype)
+    static = _block.group_static_bytes(warps, dtype)
+    rows = k * (m + 1) * _block.cx_bytes(dtype)
+    for in_smem, nbytes in ((True, rows), (False, 0)):
+        if nbytes + work + static <= smem_optin:
+            return OrthPlan(_block.NT, B, in_smem, warps, epl, nbytes + work,
+                            0 if in_smem else k * (m + 1))
+    raise ValueError(f"orth: no launch plan fits {smem_optin} bytes of shared memory "
+                     f"(m={m}, k={k}, {dtype})")
+
+
+def orth_cuda(v: torch.Tensor, smem_bytes: int | None = None) -> torch.Tensor:
+    """Launch K3 on ``v [B, m, k]`` (k <= 128, any m) as :func:`orth_plan`
+    says. ``smem_bytes`` overrides the plan's dynamic shared memory request
+    (used only to test the launch-error path)."""
     dbl = _check_input(v, "orth")
     if v.dim() != 3:
         raise ValueError(f"orth: expected [B, m, k], got {tuple(v.shape)}")
@@ -217,13 +255,13 @@ def orth_cuda(v: torch.Tensor) -> torch.Tensor:
     if not (1 <= k <= MAX_K and m >= 1 and B >= 1):
         raise ValueError(f"orth: kernel takes k <= {MAX_K}; got m={m}, k={k}")
     lib = _build.load()
-    optin = _build.smem_optin(v.device.index)
-    place = next((p for p in (2, 1) if lib.qk_orth_smem(m, k, int(dbl), p) <= optin), 0)
+    plan = orth_plan(B, m, k, v.dtype, _build.smem_optin(v.device.index))
     q = torch.empty_like(v)
-    scratch = torch.empty((B, lib.qk_orth_scratch(m, k, place)), dtype=v.dtype, device=v.device)
+    scratch = torch.empty((B, plan.scratch_cx), dtype=v.dtype, device=v.device)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     rc = lib.qk_orth_launch(v.data_ptr(), q.data_ptr(), scratch.data_ptr(), B, m, k, int(dbl),
-                            place, lib.qk_orth_smem(m, k, int(dbl), place), stream)
+                            int(plan.rows_smem), plan.group_warps, plan.group_epl,
+                            plan.smem_bytes if smem_bytes is None else smem_bytes, stream)
     _build.check(rc, "orth kernel launch")
     _build.LAUNCHES["orth"] += 1
     return q

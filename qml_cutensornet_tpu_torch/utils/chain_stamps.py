@@ -1,12 +1,15 @@
-"""Where the time of kernels K1, K2, K4 and K5 goes, from phase stamps inside
-the kernels.
+"""Where the time of kernels K1 to K5 goes, from phase stamps inside the
+kernels.
 
     python3 -m qml_cutensornet_tpu_torch.utils.chain_stamps [KERNEL ...]   # needs one GPU
 
-KERNEL is any of ``split``, ``orth_r``, ``gate_split``, ``brick_split``
-(default: all four). Builds their sources (``csrc/subspace_split.cu``,
-``orth_r.cu``, ``gate_split.cu``, ``brick_split.cu``) with ``-DQK_STAMPS``
-into ``build/stamps/`` (gitignored): thread 0 of block 0 then records
+KERNEL is any of ``split``, ``orth_r``, ``orth``, ``gate_split``,
+``brick_split`` (default: all five). Builds their sources
+(``csrc/subspace_split.cu``, ``orth_r.cu``, ``orth.cu``, ``gate_split.cu``,
+``brick_split.cu``) with ``-DQK_STAMPS`` into ``build/stamps/``
+(gitignored; ``orth.cu`` also with ``-DQK_ORTH_CANDIDATES``, which adds the
+in-panel groups measured against the chosen ones): thread 0 of block 0 then
+records
 ``clock64()`` and a phase id after each block barrier that ends a phase
 (``QK_STAMP`` in ``csrc/block_chain.cuh``). Each kernel is launched once to
 warm up and once stamped, and the SM cycles of each phase are summed: the
@@ -15,10 +18,14 @@ coefficients and updates, the in-panel group rounds and column ends, the
 epilogue (K5: its s2 and na0 products). Shapes, complex64, iters 2: K1, K2
 and K4 at the main path's stages (B 32, chi 32 and 64); K1 and K5 at the
 brick route's full width (408 pairs, chi 128, nc 128), where one block of
-512 threads fills an SM, so that 408 elements run in 4 waves on 132 SMs.
-The same launch's CUDA-event time gives the cycle rate (over all waves).
-The last lines are the card's name and power limit and a JSON object of
-the breakdowns.
+512 threads fills an SM, so that 408 elements run in 4 waves on 132 SMs;
+K3 (B 32) at v [32, 128, 64] (the unfused route at chi 64) and on the
+blocked route's panels of 32 columns at m 256 and 512, once for every
+in-panel group (``ORTH_GROUPS``: warps, elements a lane; -1 the panel in
+memory) that holds the length, with its rows in shared memory. The same
+launch's CUDA-event time gives the cycle rate (over all waves). The last
+lines are the card's name and power limit and a JSON object of the
+breakdowns.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import sys
 import numpy as np
 import torch
 
-from qml_cutensornet_tpu_torch.ops import _build, orth, split
+from qml_cutensornet_tpu_torch.ops import _block, _build, orth, split
 from qml_cutensornet_tpu_torch.ops.svd import start_block
 from qml_cutensornet_tpu_torch.utils.device import nvidia_smi
 
@@ -39,8 +46,11 @@ STAMP_DIR = _build.BUILD_DIR.parent / "stamps"
 PHASES = {1: "start", 2: "load", 3: "panel_norms", 4: "cgs_update", 5: "column_end",
           6: "product", 7: "orth_end", 8: "epilogue", 9: "cgs_coefficients", 10: "group_round",
           11: "theta_build", 12: "s2", 13: "na0"}
-SOURCES = {"split": "subspace_split", "orth_r": "orth_r", "gate_split": "gate_split",
-           "brick_split": "brick_split"}
+SOURCES = {"split": "subspace_split", "orth_r": "orth_r", "orth": "orth",
+           "gate_split": "gate_split", "brick_split": "brick_split"}
+# K3's in-panel groups (warps, elements a lane; _block.EPL_MEM: the panel in
+# memory): the plan's and the candidates of -DQK_ORTH_CANDIDATES.
+ORTH_GROUPS = ((4, 1), (4, 2), (4, 4), (8, 1), (8, 2), (16, 1), (16, 2), (16, _block.EPL_MEM))
 
 
 def _libs(kernels):
@@ -48,7 +58,8 @@ def _libs(kernels):
     once) and load it with the C signatures of ``ops/_build.py``."""
     STAMP_DIR.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-DQK_STAMPS", "-o",
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DQK_STAMPS",
+         *(["-DQK_ORTH_CANDIDATES"] if name == "orth" else []), "-o",
          str(STAMP_DIR / f"lib{SOURCES[name]}_stamps.so"),
          str(_build.CSRC / f"{SOURCES[name]}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in kernels}
@@ -57,6 +68,11 @@ def _libs(kernels):
         out = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {SOURCES[name]}.cu:\n{out}")
+        if name == "orth":  # the candidates' registers and spills
+            for line in out.splitlines():
+                if any(w in line for w in ("orth_kernel", "Function properties", "registers",
+                                           "spill")):
+                    print("ptxas orth: " + line.strip())
         lib = ctypes.CDLL(str(STAMP_DIR / f"lib{SOURCES[name]}_stamps.so"))
         lib.qk_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         lib.qk_read_stamps.restype = ctypes.c_int
@@ -143,6 +159,30 @@ def main(argv=None) -> int:
             result[f"orth_r_chi{chi}"] = _stamped(lib, lambda: lib.qk_orth_r_launch(
                 v.data_ptr(), qo.data_ptr(), ro.data_ptr(), so.data_ptr(), B, m, chi, 0,
                 int(po.rows_smem), po.smem_bytes, stream, int(po.v_smem)))
+    if "orth" in kernels:
+        lib = libs["orth"]
+        for m, k in ((128, 64), (256, 32), (512, 32)):
+            B = 32
+            v = cuda(_crandn(rng, B, m, k))
+            p = orth.orth_plan(B, m, k, v.dtype, optin)
+            assert p.rows_smem, (m, k)
+            qo = empty(B, m, k)
+            for warps, epl in ORTH_GROUPS:
+                if epl != _block.EPL_MEM and m > warps * 32 * epl:
+                    continue
+                chosen = "_plan" if (warps, epl) == (p.group_warps, p.group_epl) else ""
+                launch = lambda: lib.qk_orth_launch(v.data_ptr(), qo.data_ptr(), 0, B, m, k, 0,
+                                                    1, warps, epl, p.smem_bytes, stream)
+                res = _stamped(lib, launch)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(20):
+                    launch()
+                end.record()
+                torch.cuda.synchronize()
+                res["mean_us_20_launches"] = start.elapsed_time(end) * 1e3 / 20
+                result[f"orth_m{m}_k{k}_g{warps}x{epl}{chosen}"] = res
     for name, shapes in (("gate_split", ((32, 32), (32, 64))), ("brick_split", ((408, 128),))):
         if name not in kernels:
             continue
@@ -173,7 +213,9 @@ def main(argv=None) -> int:
     for name, res in result.items():
         parts = ", ".join(f"{k} {v['share']:.3f} ({v['count']} x {v['cycles_each']:.0f})"
                           for k, v in res.items() if isinstance(v, dict))
-        print(f"{name}: {res['total_cycles']} cycles, {res['event_us']:.1f} us; {parts}")
+        mean = (f", {res['mean_us_20_launches']:.1f} us a launch over 20"
+                if "mean_us_20_launches" in res else "")
+        print(f"{name}: {res['total_cycles']} cycles, {res['event_us']:.1f} us{mean}; {parts}")
     print(nvidia_smi())
     print(json.dumps(result))
     return 0

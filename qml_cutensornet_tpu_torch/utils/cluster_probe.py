@@ -10,9 +10,9 @@ iteration; every value read feeds the next round, so nothing overlaps):
 - ``syncthreads`` at 256 and 1024 threads: write a shared slot, one
   ``__syncthreads``, read a neighbour's slot (double-buffered slots, so one
   barrier a round);
-- ``block reduction`` at 256 threads: the reduction round of the per-block
-  kernels (``bcgs2.cuh`` ``block_sum``: warp shuffles, two barriers, a sum of
-  the warps' partials);
+- ``block reduction`` at 256 threads: the reduction round of a block-wide
+  BCGS2 chain (a block sum: warp shuffles, two barriers, a sum of the warps'
+  partials);
 - ``cluster barrier`` for C = 2, 4, 8: ``barrier.cluster.arrive`` + ``wait``
   alone;
 - ``cluster round`` for C = 2, 4, 8: one scalar reduced over the cluster as

@@ -90,9 +90,8 @@ def test_split_kernel_matches_plain(dev, chi, iters, kind):
 @pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
 def test_orth_kernel_matches_plain(dev, m, k, kind):
     """K3 at the center-move and split shapes and at the panel shapes of the
-    blocked route (k 32; m 512 keeps the panel in shared memory and the
-    finished vectors in global scratch in f64, m 2048 puts both in global
-    scratch)."""
+    blocked route (k 32; m 512 takes the whole block as the in-panel group,
+    m 2048 the rows in global scratch and the panel step in memory)."""
     rng = np.random.default_rng(m + k)
     v = torch.from_numpy(_input(rng, kind, 8, m, k)).to(dev)
     before = _build.LAUNCHES["orth"]
@@ -151,8 +150,8 @@ def test_gate_split_oversampled_double_and_scratch(dev):
 
 
 def test_orth_double_and_blocked_route(dev):
-    """K3 in complex128 (panel shape: finished vectors in global scratch) and
-    the blocked route above 128 columns on the card against the CPU."""
+    """K3 in complex128 (panel shape: the rows in global scratch) and the
+    blocked route above 128 columns on the card against the CPU."""
     rng = np.random.default_rng(11)
     v = torch.from_numpy(_input(rng, "full", 4, 512, 32, np.complex128)).to(dev)
     qk, qp = orth.orth_cuda(v), orth.orth_plain(v)
@@ -525,3 +524,61 @@ def test_refused_gate_and_brick_launches_raise_and_are_not_counted(dev):
     assert q.abs().max().item() == 0.0 and tot.abs().max().item() == 0.0
     assert q2.abs().max().item() == 0.0 and na0.abs().max().item() == 0.0
     assert total.abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("m,k,dtype,plan", [
+    (128, 64, C64, (True, 4, 1)),
+    (256, 32, C64, (True, 8, 1)),
+    (512, 32, C64, (True, 16, 1)),
+    (1024, 16, C64, (True, 16, 2)),
+    (2048, 8, C64, (True, 16, -1)),
+    (256, 128, C64, (False, 8, 1)),
+    (512, 64, C64, (False, 16, 1)),
+    (1024, 32, C64, (False, 16, 2)),
+    (2048, 32, C64, (False, 16, -1)),
+    (128, 64, C128, (True, 4, 1)),
+    (256, 32, C128, (True, 8, 1)),
+    (512, 16, C128, (True, 16, 1)),
+    (1024, 8, C128, (True, 16, 2)),
+    (2048, 4, C128, (True, 16, -1)),
+    (128, 128, C128, (False, 4, 1)),
+    (256, 64, C128, (False, 8, 1)),
+    (512, 32, C128, (False, 16, 1)),
+    (1024, 32, C128, (False, 16, 2)),
+    (2048, 32, C128, (False, 16, -1)),
+])
+@pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
+def test_orth_kernel_each_launch_plan(dev, m, k, dtype, plan, kind):
+    """K3 on each launch plan its wrapper chooses (the rows in shared memory
+    or in global scratch; each in-panel group) against the plain version,
+    and two launches bit-equal."""
+    chosen = orth.orth_plan(8, m, k, dtype, _build.smem_optin(dev.index))
+    assert (chosen.rows_smem, chosen.group_warps, chosen.group_epl) == plan
+    assert _build.load().qk_orth_smem(m, k, int(dtype == C128), int(plan[0])) == chosen.smem_bytes
+    rng = np.random.default_rng(m + k)
+    npdt = np.complex64 if dtype == C64 else np.complex128
+    v = torch.from_numpy(_input(rng, kind, 8, m, k, npdt)).to(dev)
+    qk, qk2, qp = orth.orth_cuda(v), orth.orth_cuda(v), orth.orth_plain(v)
+    torch.cuda.synchronize()
+    assert torch.equal(qk, qk2)
+    _close(qk, qk.mH @ v, qp, qp.mH @ v, TOL if dtype == C64 else 1e-12)
+    _zeros_kept(qk, v)
+    live = (qk.abs().sum(1) > 0).to(qk.real.dtype)
+    gram = qk.mH @ qk - torch.diag_embed(live).to(qk.dtype)
+    assert gram.abs().max().item() <= (5e-6 if dtype == C64 else 1e-12)
+
+
+def test_refused_orth_launch_raises_and_is_not_counted(dev):
+    """A K3 launch asking for less shared memory than its plan needs is
+    refused by the C side, one asking for more than the card allows by the
+    launch; both raise and count nothing."""
+    v = torch.zeros((2, 512, 32), dtype=C64, device=dev)
+    plan = orth.orth_plan(2, 512, 32, v.dtype, _build.smem_optin(dev.index))
+    before = dict(_build.LAUNCHES)
+    for nbytes in (plan.smem_bytes - 16, _build.smem_optin(dev.index) + 4096):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            orth.orth_cuda(v, smem_bytes=nbytes)
+    assert _build.LAUNCHES == before
+    q = orth.orth_cuda(v)  # the next launch is clean
+    torch.cuda.synchronize()
+    assert q.abs().max().item() == 0.0

@@ -135,3 +135,63 @@ def test_orth_r_launch_plan_is_a_pure_function_of_the_shapes(B, m, k, dtype, wan
     assert plan.scratch_cx == (0 if plan.rows_smem else k * (m + 1))
     with pytest.raises(ValueError, match="no launch plan"):
         orth.orth_r_plan(B, m, k, dtype, 1024)
+
+
+@pytest.mark.parametrize("m,k,dtype,want", [
+    # the unfused route's split and center-move shapes (chi 32 and 64)
+    (64, 32, torch.complex64, (True, 4, 1, 20800)),
+    (64, 48, torch.complex64, (True, 4, 1, 31168)),
+    (128, 64, torch.complex64, (True, 4, 1, 74304)),
+    (128, 80, torch.complex64, (True, 4, 1, 92864)),
+    # the blocked route's panels at chi 128, 256 and 1024
+    (256, 32, torch.complex64, (True, 8, 1, 69952)),
+    (256, 16, torch.complex64, (True, 8, 1, 35008)),
+    (512, 32, torch.complex64, (True, 16, 1, 135488)),
+    (512, 16, torch.complex64, (True, 16, 1, 67776)),
+    (2048, 32, torch.complex64, (False, 16, -1, 4160)),
+    # the same shapes in complex128
+    (64, 32, torch.complex128, (True, 4, 1, 41600)),
+    (64, 48, torch.complex128, (True, 4, 1, 62336)),
+    (128, 64, torch.complex128, (True, 4, 1, 148608)),
+    (128, 80, torch.complex128, (True, 4, 1, 185728)),
+    (256, 32, torch.complex128, (True, 8, 1, 139904)),
+    (256, 16, torch.complex128, (True, 8, 1, 70016)),
+    (512, 32, torch.complex128, (False, 16, 1, 8320)),
+    (512, 16, torch.complex128, (True, 16, 1, 135552)),
+    (2048, 32, torch.complex128, (False, 16, -1, 8320)),
+])
+def test_orth_launch_plan_is_a_pure_function_of_the_shapes(m, k, dtype, want):
+    """K3's launch plan: one 512-thread block per element, the rows Q [k][m + 1]
+    in shared memory where they fit the H100's 227 KB beside the work and the
+    in-panel group's static slots, and the group named by the vector length
+    (one element a lane on 4 warps up to 128, 8 up to 256, 16 up to 512; the
+    panel in memory past 1024)."""
+    from qml_cutensornet_tpu_torch.ops import _block
+
+    plan = orth.orth_plan(32, m, k, dtype, H100_OPTIN)
+    assert (plan.threads, plan.grid) == (512, 32)
+    assert (plan.rows_smem, plan.group_warps, plan.group_epl, plan.smem_bytes) == want
+    assert (plan.group_warps, plan.group_epl) == _block.orth_group(m)
+    cx = _block.cx_bytes(dtype)
+    rows = k * (m + 1) * cx
+    assert plan.smem_bytes == (rows if plan.rows_smem else 0) + _block.orth_work_bytes(k, dtype)
+    static = _block.group_static_bytes(plan.group_warps, dtype)
+    assert plan.smem_bytes + static <= H100_OPTIN
+    assert plan.rows_smem == (rows + _block.orth_work_bytes(k, dtype) + static <= H100_OPTIN)
+    assert plan.scratch_cx == (0 if plan.rows_smem else k * (m + 1))
+    with pytest.raises(ValueError, match="no launch plan"):
+        orth.orth_plan(32, m, k, dtype, 1024)
+
+
+@pytest.mark.parametrize("m", [1, 64, 128, 129, 256, 257, 512, 513, 1024, 1025, 4096])
+def test_orth_group_holds_the_vector(m):
+    """Every in-panel group in registers holds the whole vector; past 1024
+    elements the whole block works on the panel in memory."""
+    from qml_cutensornet_tpu_torch.ops import _block
+
+    warps, epl = _block.orth_group(m)
+    if m > 1024:
+        assert (warps, epl) == (_block.NW, _block.EPL_MEM)
+    else:
+        assert epl in (1, 2) and warps in (4, 8, 16) and m <= warps * 32 * epl
+        assert m > warps * 32 * epl // 2 or warps == 4  # no group twice as large as needed
