@@ -61,7 +61,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    gated; and a chi-128 run (stages 32, 64, 128), where the
    default oversampling makes the split 144 columns wide, so that it leaves
    K1 for the blocked route while the center moves stay on K2, held to its
-   f64 run likewise.
+   f64 run likewise. Each of these Grams (v1 and v2, f32 and f64) is also
+   held against the dense statevector Gram ``|<psi_i|psi_j>|^2`` of the same
+   points, each state built once by the port's ``ops/dense`` (complex128, on
+   the host): the errors are printed (the dense verdict), not gated.
 7. brick route (``QMLTPU_ROUTING=brick``, chi 128, oversampling 0, so that
    every stage from chi 16 is one K5 takes): (a) 14 qubits, r=2, d=6, one sim
    batch of 32, with ``QMLTPU_FUSED_GATE=1`` (K5, and K1 on the chi-8 stage),
@@ -72,6 +75,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    launches); (c) the same with ``QMLTPU_FUSED_GATE=0``, K1 on every pair
    update, held to (b) within 1e-4; (e) (b) in f64; fidelity, chi, sim and
    tile seconds of each run beside the card's name and power limit.
+8. svd and eigh routes: ``QMLTPU_SVD=svd`` and ``=eigh`` at the headline
+   shape on one sim batch of 8 circuits (the golden's 8 train points,
+   through ``cli._pipeline.build``, the train-Gram call of
+   ``cli.main_no_test``; a batch of 32 takes minutes, cuSOLVER factoring
+   each matrix in turn): cuSOLVER factors every two-site update, K2 every
+   center move, K1 never; the 8x8 block against the golden at 1e-6 and the
+   Gram within 3e-5 of the default route's (eigh in f32, which squares the
+   condition number, is reported and run again in f64 for both bars if it
+   misses either).
+9. reference routing: ``QMLTPU_ROUTING=reference`` through
+   ``cli.main_no_test`` at the headline shape (2803 two-site ops against
+   tracked's 1092), golden and tracked-route bars, sim seconds beside the
+   tracked route's; then ``simulate_gate_list`` of ``circuit_for_data`` for
+   two points, op by op at chi 64, against the route's own states (1 minus
+   the normalized overlap within 3e-5).
+10. checkpoint and resume: ``QMLTPU_CHECKPOINT=1`` (tile 32, raw Grams with
+   ``QMLTPU_NORMALIZE=0``) through ``cli.main_no_test``: the full run, a
+   partial checkpoint holding its first tile, the resumed run equal to the
+   full one (1e-7; bit-equality printed), the file gone after each run.
+11. ``QMLTPU_CHI=auto`` through ``cli.main`` on 20 + 20 points, probes
+   capped at chi 64: one probe sequence (chi, min fidelity, max bond
+   printed) serves the train and the test Gram.
+12. ``cli.main_track_mem`` at nf 100, r 2, d 6, chi 64, one circuit: one
+   ``MPS size`` line per op of the schedule (3744), all positive.
 
 On every route the launch counters must equal the counts worked out from
 the op stream (the brick layers' chunk plan on the brick route) and the
@@ -101,6 +128,10 @@ ARGV = ["main", "GPU", "32", "2", "1.0", "6", "64", "64", "5", CSV_V1]
 # 20 + 20 points: 32 train points, one sim batch.
 ARGV_ONE_BATCH = ["main", "GPU", "32", "2", "1.0", "6", "20", "20", "5", CSV_V1]
 ARGV_CHI256 = ["main", "GPU", "16", "2", "1.0", "6", "20", "20", "5", CSV_V1]
+# The svd and eigh routes: the first SVD_POINTS train points of the headline
+# draw (the golden's 8), one sim batch: cuSOLVER factors each matrix of a
+# batch in turn, so a batch of 32 takes minutes.
+SVD_POINTS = 8
 # The brick route: 14 qubits on one sim batch of 32, and the full width, nf
 # 100 on 5 + 5 points (8 train points, one sim batch of 8).
 ARGV_BRICK14 = ["main", "GPU", "14", "2", "1.0", "6", "20", "20", "5", CSV_V1]
@@ -912,51 +943,73 @@ def phase_kernels(dev):
     return err, times, stage_ms
 
 
-def expected_launches(argv, n_batches):
-    """Kernel launches the simulation of ``n_batches`` sim batches must make
-    under the current environment, from the op stream's chunk plan and the
-    routing rules: per two-site gate one K4 launch where the stage is
-    gate-split eligible, else one K1 launch where the fused split takes the
-    shape, else 2 * iters orthonormalizations by K3; per center move one K2
+def op_launches(cfg, count):
+    """``add(chi, kind)``: add to ``count`` the kernel launches of one op of
+    a stream at stage ``chi`` under ``cfg``: per two-site gate one K4 launch
+    where the stage is gate-split eligible, else one K1 launch where the
+    fused split takes the shape, else 2 * iters orthonormalizations by K3,
+    and none with the svd or eigh method (cuSOLVER); per center move one K2
     launch with the fused split up to ``orth.MAX_K`` columns, else one
     orthonormalization by K3. An orthonormalization of more columns than that
     is one K3 launch per panel of ``blocked_qr.PANEL`` on the fused split in
-    complex64 and none otherwise (the scanned panel step). On the brick route,
-    per chunk of the layer plan and per layer, one update per pair chunk:
-    one K5 launch where the stage is brick-split eligible, else the split's
-    K1 or K3 launches as above."""
-    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
-    from qml_cutensornet_tpu_torch.models import simulate
-    from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX, BrickSchedule
-    from qml_cutensornet_tpu_torch.ops import blocked_qr, orth, svd, vidal
+    complex64 and none otherwise (the scanned panel step). Also returns
+    ``split(chi)``, the launches of one truncating split off the gate
+    kernels."""
+    from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX
+    from qml_cutensornet_tpu_torch.ops import blocked_qr, orth, svd
 
-    params = pipe.parse_argv(list(argv))
-    cfg = pipe.sim_config(params)
-    chunk_len = int(os.environ.get("QMLTPU_CHUNK_LEN", "128"))
-    staged = os.environ.get("QMLTPU_STAGED", "1") != "0"
-    schedule = pipe.make_ansatz(params).schedule
     iters = max(1, cfg.subspace_iters)
 
     def panels(k):
-        """K3 launches of one orthonormalization of k columns: one up to
-        ``orth.MAX_K``; above, one per panel where the blocked route runs K3
-        on its panels (fused split, complex64), else none (scanned panels)."""
         if k <= orth.MAX_K:
             return 1
         if blocked_qr.kernel_panels_used(cfg.fused_split, cfg.complex_dtype):
             return -(-k // blocked_qr.PANEL)
         return 0
 
-    def split_launches(chi, count):
-        """One truncating split of a stage-chi pair update off the gate
-        kernels: K1 where the fused split takes it, else K3."""
+    def split(chi):
+        if cfg.svd_method != "subspace":
+            return
         nc = chi + max(0, cfg.oversample)
         if cfg.fused_split and svd.fused_split_supported(2 * chi, 2 * chi, nc):
             count["split"] += 1
         else:
             count["orth"] += 2 * iters * panels(nc)
 
+    def add(chi, kind):
+        if kind >= GATE_RX:
+            return
+        if kind == GATE_I:
+            if cfg.fused_split and chi <= orth.MAX_K:
+                count["orth_r"] += 1
+            else:
+                count["orth"] += panels(chi)
+        elif svd.gate_split_eligible(dataclasses.replace(cfg, chi=chi), chi):
+            count["gate_split"] += 1
+        else:
+            split(chi)
+
+    return add, split
+
+
+def expected_launches(argv, n_batches):
+    """Kernel launches the simulation of ``n_batches`` sim batches must make
+    under the current environment, from the op stream's chunk plan and the
+    routing rules (:func:`op_launches`). On the brick route, per chunk of the
+    layer plan and per layer, one update per pair chunk: one K5 launch where
+    the stage is brick-split eligible, else the split's K1 or K3 launches."""
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.models import simulate
+    from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX, BrickSchedule
+    from qml_cutensornet_tpu_torch.ops import svd, vidal
+
+    params = pipe.parse_argv(list(argv))
+    cfg = pipe.sim_config(params)
+    chunk_len = int(os.environ.get("QMLTPU_CHUNK_LEN", "128"))
+    staged = os.environ.get("QMLTPU_STAGED", "1") != "0"
+    schedule = pipe.make_ansatz(params).schedule
     count = dict.fromkeys(KERNEL_NAMES, 0)
+    add, split_launches = op_launches(cfg, count)
     if isinstance(schedule, BrickSchedule):
         # Per chunk of the plan (padded to its full length with inactive
         # layers, computed all the same), per layer, one update per pair chunk.
@@ -974,7 +1027,7 @@ def expected_launches(argv, n_batches):
                 if svd.brick_split_eligible(dataclasses.replace(cfg, chi=cur), cur, cur, cur):
                     count["brick_split"] += 1
                 else:
-                    split_launches(cur, count)
+                    split_launches(cur)
         log(f"  brick plan per sim batch of {batch}: {len(chunks2)} chunks of {layers} layers, "
             f"{K} pairs a layer; stage chi -> chunks {by_stage}")
         return {k: n * n_batches for k, n in count.items()}
@@ -985,43 +1038,37 @@ def expected_launches(argv, n_batches):
         for c in range(n_chunks):
             cur = max(cur, stages[c])
             for kind in gk[c * chunk_len:(c + 1) * chunk_len]:
-                if kind >= GATE_RX:
-                    continue
-                gates_moves = by_stage.setdefault(cur, [0, 0])
-                if kind == GATE_I:
-                    gates_moves[1] += 1
-                    if cfg.fused_split and cur <= orth.MAX_K:
-                        count["orth_r"] += 1
-                    else:
-                        count["orth"] += panels(cur)
-                    continue
-                gates_moves[0] += 1
-                if svd.gate_split_eligible(dataclasses.replace(cfg, chi=cur), cur):
-                    count["gate_split"] += 1
-                else:
-                    split_launches(cur, count)
+                if kind < GATE_RX:
+                    by_stage.setdefault(cur, [0, 0])[int(kind == GATE_I)] += 1
+                add(cur, int(kind))
     log(f"  op stream per sim batch, stage chi -> [two-site gates, center moves]: {by_stage}")
     return {k: n * n_batches for k, n in count.items()}
 
 
-def run_counted(entry, argv, n_batches, what):
-    """Drive one entry point with the counters set to 0 just before and read
-    just after; the launches must equal the expected counts and no plain
-    version may have run on a CUDA tensor."""
+def count_launches(run, want, what):
+    """Call ``run()`` with the counters set to 0 just before and read just
+    after; the launches must equal ``want`` and no plain version may have
+    run on a CUDA tensor."""
     from qml_cutensornet_tpu_torch.ops import _build
 
-    want = expected_launches(argv, n_batches)
     _build.reset_counters()
     t0 = time.perf_counter()
-    out = entry.main(list(argv))
+    out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_on_cuda = dict(_build.LAUNCHES), dict(_build.PLAIN_ON_CUDA)
     log(f"{what}: launches {launches}, plain versions on CUDA tensors {plain_on_cuda}, "
-        f"main() {wall:.3f} s")
+        f"{wall:.3f} s")
     assert launches == want, f"{what}: launches {launches} != expected {want}"
     assert sum(plain_on_cuda.values()) == 0, f"{what}: a plain version ran on a CUDA tensor"
     return out, launches
+
+
+def run_counted(entry, argv, n_batches, what):
+    """Drive one entry point's ``main(argv)``, counting its launches
+    (:func:`count_launches`) against :func:`expected_launches`."""
+    return count_launches(lambda: entry.main(list(argv)), expected_launches(argv, n_batches),
+                          what)
 
 
 def check_train_gram(K, n, what):
@@ -1034,8 +1081,14 @@ def check_train_gram(K, n, what):
     assert diag_err <= 1e-12, f"{what}: diagonal of K off by {diag_err}"
 
 
+SIM_SECONDS: dict = {}  # what -> r0_circ_sim of the run's profile
+TILE_SECONDS: dict = {}  # what -> kernel_mat_time of the run's profile
+
+
 def profile_line(info, smi, what):
     prof = json.loads((WORK / f"{info}.json").read_text())
+    SIM_SECONDS[what] = prof["r0_circ_sim"][0]
+    TILE_SECONDS[what] = prof["kernel_mat_time"][0]
     return (f"{what} [{smi}]: avg_fidelity {prof['avg_fidelity'][0]:.8f}, avg_max_chi "
             f"{prof['ave max chi x'][0]:.2f}, sim {prof['r0_circ_sim'][0]:.3f} s, tiles "
             f"{prof['kernel_mat_time'][0]:.3f} s, build_kernel_matrix "
@@ -1137,6 +1190,7 @@ def phase_unfused_route(smi):
     # port's own f64 run on the card at the same cap, whose blocked
     # orthonormalizations take the scanned panel step (no K3 on panels).
     preprocess_elliptic(dataset_dir=str(RAW_V2), out_csv=str(WORK / "datasets" / CSV_V2))
+    dense_grams = {}
     for chi, data, csv in (("256", "v1", CSV_V1), ("256", "tied-spectrum v2", CSV_V2),
                            ("128", "v1", CSV_V1)):
         argv = ARGV_CHI256[:-1] + [csv]
@@ -1150,6 +1204,13 @@ def phase_unfused_route(smi):
             with environ(QMLTPU_PRECISION="f64"):
                 K64, _ = run_counted(main_no_test, argv, 1, f"{what}, f64")
                 log(profile_line(info, smi, f"{what}, f64"))
+        if csv not in dense_grams:
+            dense_grams[csv] = dense_gram(str(WORK / "datasets" / csv), 16, 20, 20, 5)
+        K_dense = dense_grams[csv]
+        e32, e64 = float(np.abs(K32 - K_dense).max()), float(np.abs(K64 - K_dense).max())
+        DENSE_VERDICT[f"{what}"] = {"f32": e32, "f64": e64}
+        log(f"dense verdict, {what}: max_abs_err vs the dense statevector Gram (ops/dense, "
+            f"complex128) f32 {e32:.3e}, f64 {e64:.3e} (f32 bar 1e-5)")
         diff = np.abs(K32 - K64)
         err, at = float(diff.max()), np.unravel_index(np.argmax(diff), diff.shape)
         off = K64[~np.eye(32, dtype=bool)]
@@ -1165,6 +1226,27 @@ def phase_unfused_route(smi):
             # diagonal does not absorb; reported, not gated.
             log(f"tied-spectrum answer (not gated): f32-vs-f64 error {err:.3e} at nq 16, chi 256")
     return total
+
+
+DENSE_VERDICT: dict = {}  # run -> {"f32": err, "f64": err} against the dense Gram
+
+
+def dense_gram(csv, nq, n_illicit, n_licit, seed, reps=2, gamma=1.0, d=6):
+    """``|<psi_i|psi_j>|^2`` of the train points of a CLI draw, each state
+    built once by the port's dense statevector model (complex128, on the
+    host)."""
+    from qml_cutensornet_tpu_torch.models.entanglement import entanglement_graph
+    from qml_cutensornet_tpu_torch.ops import dense
+    from qml_cutensornet_tpu_torch.utils.data import load_and_prepare
+
+    t0 = time.perf_counter()
+    x = load_and_prepare(csv, nq, n_illicit, n_licit, seed)[0]
+    em = entanglement_graph(nq, d)
+    v = np.stack([dense.ansatz_state(xi, reps, gamma, em) for xi in x])
+    g = np.abs(v.conj() @ v.T) ** 2
+    log(f"  dense Gram of {len(x)} states of {v.shape[1]} amplitudes: "
+        f"{time.perf_counter() - t0:.3f} s on the host")
+    return g
 
 
 def phase_brick_route(smi):
@@ -1236,6 +1318,246 @@ def phase_brick_route(smi):
     return total, tracked
 
 
+def _add_all(total, launches):
+    for k, n in launches.items():
+        total[k] += n
+
+
+def phase_svd_methods(smi, golden, K_default, x_train):
+    """QMLTPU_SVD=svd and =eigh at the headline shape, one sim batch: the
+    first SVD_POINTS train points through ``cli._pipeline.build`` (the train
+    Gram of ``cli.main_no_test``): cuSOLVER factors every two-site update,
+    K2 carries every center move, K1 never runs. If eigh in f32 misses the
+    golden bar (it squares the condition number), eigh runs again in f64
+    for the bar."""
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.utils.device import environ
+
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    params = pipe.parse_argv(list(ARGV))
+    ansatz = pipe.make_ansatz(params)
+    n = SVD_POINTS
+    runs = [("svd", "f32"), ("eigh", "f32")]
+    for method, precision in runs:
+        what = f"QMLTPU_SVD={method}, {precision}, {n} points"
+        info = f"svd_method_{method}_{precision}"
+        with environ(QMLTPU_SVD=method, QMLTPU_PRECISION=precision):
+            K, launches = count_launches(
+                lambda: pipe.build(params, ansatz, X=x_train[:n], info_file=info),
+                expected_launches(ARGV, -(-n // 32)), what)
+        assert launches["split"] == 0 and launches["orth_r"] > 0, launches
+        _add_all(total, launches)
+        check_train_gram(K, n, what)
+        gold_err = float(np.abs(K[:8, :8] - golden["k"]).max())
+        route_err = float(np.abs(K - K_default[:n, :n]).max())
+        log(profile_line(info, smi, what) + f", max_abs_err vs f64 golden {gold_err:.3e} "
+            f"(tol {TOL_GOLDEN}), vs the default route's K {route_err:.3e} (tol {TOL_ROUTES})")
+        if (method, precision) == ("eigh", "f32") and (gold_err > TOL_GOLDEN
+                                                       or route_err > TOL_ROUTES):
+            # eigh squares the condition number: in f32 its kept subspace is
+            # set by rounding near the cut. Reported; f64 eigh takes the bars.
+            log(f"{what}: golden error {gold_err:.3e}, route error {route_err:.3e} above "
+                f"the bars (reported, not gated): eigh runs in f64 for the bars")
+            runs.append(("eigh", "f64"))
+            continue
+        assert gold_err <= TOL_GOLDEN, f"{what}: 8x8 block off the golden by {gold_err}"
+        assert route_err <= TOL_ROUTES, f"{what}: K off the default route's by {route_err}"
+    return total
+
+
+def phase_reference_routing(smi, golden, K_default, x_train):
+    """QMLTPU_ROUTING=reference through ``cli.main_no_test`` at the headline
+    shape (K1 + K2 on the reference stream), then the gate-list engine on
+    ``circuit_for_data`` of two points against the route's own states."""
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.cli import main_no_test
+    from qml_cutensornet_tpu_torch.models.simulate import (
+        lower_gate_list, make_chunked_simulator, simulate_gate_list)
+    from qml_cutensornet_tpu_torch.ops import mps as mps_ops
+    from qml_cutensornet_tpu_torch.utils.device import environ
+    from qml_cutensornet_tpu_torch.utils.naming import run_info
+
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    info = run_info("train", 32, 2, 1.0, 6, 64, 5, CSV_V1)
+    with environ(QMLTPU_ROUTING="reference"):
+        K, launches = run_counted(main_no_test, ARGV, 4, "reference routing")
+        params = pipe.parse_argv(list(ARGV))
+        cfg = pipe.sim_config(params)
+        ansatz = pipe.make_ansatz(params)
+    _add_all(total, launches)
+    log(profile_line(info, smi, "reference routing"))
+    check_train_gram(K, 102, "reference routing")
+    gold_err = float(np.abs(K[:8, :8] - golden["k"]).max())
+    route_err = float(np.abs(K - K_default).max())
+    s = ansatz.schedule
+    log(f"reference routing: {s.num_two_site_ops} two-site ops ({s.num_gate_ops} gates) against "
+        f"tracked 1092 (622); sim {SIM_SECONDS['reference routing']:.3f} s against tracked "
+        f"{SIM_SECONDS['default route']:.3f} s for 4 sim batches; max_abs_err vs f64 golden "
+        f"{gold_err:.3e} (tol {TOL_GOLDEN}), vs the tracked route's K {route_err:.3e} "
+        f"(tol {TOL_ROUTES})")
+    assert (s.num_two_site_ops, s.num_gate_ops) == (2803, 1982)
+    assert gold_err <= TOL_GOLDEN, f"reference routing: 8x8 off the golden by {gold_err}"
+    assert route_err <= TOL_ROUTES, f"reference routing: K off the tracked route's by {route_err}"
+
+    # The gate-list engine: each circuit op by op at chi 64 (no staging).
+    dev = torch.device("cuda", 0)
+    with environ(QMLTPU_ROUTING="reference"):
+        states, launches = count_launches(
+            lambda: make_chunked_simulator(s, cfg, dev)(x_train[:2]),
+            expected_launches(ARGV, 1), "reference routing, 2 points")
+    _add_all(total, launches)
+    for i in range(2):
+        gates = ansatz.circuit_for_data(x_train[i])
+        gkinds = lower_gate_list(gates, 32)[1]
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        add, _ = op_launches(cfg, want)
+        for kind in gkinds:
+            add(cfg.chi, int(kind))
+        what = f"simulate_gate_list, point {i} ({len(gates)} gates, {len(gkinds)} ops)"
+        st, launches = count_launches(lambda: simulate_gate_list(gates, 32, cfg), want, what)
+        _add_all(total, launches)
+        route = mps_ops.MPS(states.tensors[i:i + 1], states.fidelity[i:i + 1],
+                            states.bond_dims[i:i + 1])
+        ov = float(mps_ops.vdot(st, route).abs()[0] ** 2
+                   / (mps_ops.norm_sq(st)[0] * mps_ops.norm_sq(route)[0]))
+        log(f"{what}: |<gate list|route>|^2 normalized {ov:.9f}, 1 - it {1.0 - ov:.3e} "
+            f"(tol {TOL_ROUTES}); fidelity {float(st.fidelity[0]):.8f} against the route's "
+            f"{float(route.fidelity[0]):.8f}, max bond {int(mps_ops.max_bond(st)[0])}")
+        assert abs(1.0 - ov) <= TOL_ROUTES, f"{what}: overlap with the route's state {ov}"
+    return total
+
+
+def phase_checkpoint(smi, K_default):
+    """``QMLTPU_CHECKPOINT=1`` (tile 32) through ``cli.main_no_test`` at the
+    headline shape: the full run, then a partial checkpoint holding its first
+    tile and a resumed run. ``QMLTPU_NORMALIZE=0`` in both, so that the
+    partial checkpoint can hold the first tile's raw overlaps as the build
+    saves them; the raw Grams normalized by their diagonals are then held to
+    the default route's."""
+    from qml_cutensornet_tpu_torch.cli import main_no_test
+    from qml_cutensornet_tpu_torch.utils.device import environ
+    from qml_cutensornet_tpu_torch.utils.naming import run_info
+
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    info = run_info("train", 32, 2, 1.0, 6, 64, 5, CSV_V1)
+    ckpt = WORK / "tmp" / f"checkpoint_{info}.npy"
+    with environ(QMLTPU_CHECKPOINT="1", QMLTPU_NORMALIZE="0", QMLTPU_TILE="32"):
+        K_raw, launches = run_counted(main_no_test, ARGV, 4, "checkpointed run")
+        _add_all(total, launches)
+        log(profile_line(info, smi, "checkpointed run"))
+        assert not ckpt.exists(), "the checkpoint was not removed at the end"
+        partial = np.zeros((128, 128))
+        partial[:32, :32] = K_raw[:32, :32]
+        np.save(ckpt, partial)
+        K_res, launches = run_counted(main_no_test, ARGV, 4, "resumed run")
+        _add_all(total, launches)
+        log(profile_line(info, smi, "resumed run"))
+        assert not ckpt.exists(), "the checkpoint was not removed after the resumed run"
+
+    def normalized(k):
+        dg = np.sqrt(np.diag(k))
+        return k / np.outer(dg, dg)
+
+    diff = float(np.abs(K_res - K_raw).max())
+    err = float(np.abs(normalized(K_res) - K_default).max())
+    log(f"checkpoint: resumed Gram vs the full run's: bit-equal {np.array_equal(K_res, K_raw)}, "
+        f"max_abs_err {diff:.3e} (tol 1e-7); normalized vs the default route's K {err:.3e} "
+        f"(tol 1e-7); tiles {TILE_SECONDS['checkpointed run']:.3f} s with checkpoints against "
+        f"{TILE_SECONDS['default route']:.3f} s without, resumed "
+        f"{TILE_SECONDS['resumed run']:.3f} s")
+    assert diff <= 1e-7, f"resumed Gram off the full run's by {diff}"
+    assert err <= 1e-7, f"checkpointed Gram off the default route's by {err}"
+    return total
+
+
+def phase_auto_chi(smi):
+    """``QMLTPU_CHI=auto`` through ``cli.main`` (train Gram, test Gram, SVC
+    sweep) at the headline shape on 20 + 20 points, probes capped at chi 64
+    (``QMLTPU_AUTO_CHI_MAX``): one probe sequence on the first 8 train
+    points, shared by both Grams."""
+    import contextlib
+    import io
+    import re
+
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.cli import main
+    from qml_cutensornet_tpu_torch.ops import _build
+    from qml_cutensornet_tpu_torch.utils.device import environ
+
+    pipe._auto_chi_cache.clear()
+    buf = io.StringIO()
+    with environ(QMLTPU_CHI="auto", QMLTPU_AUTO_CHI_MAX="64"):
+        _build.reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            K_train, K_test, _, _ = main.main(list(ARGV_ONE_BATCH))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_ON_CUDA)
+    text = buf.getvalue()
+    probes = [(int(c), float(f), int(b)) for c, f, b in re.findall(
+        r"choose_chi: chi=(\d+) min_fidelity=(\S+) max_bond=(\d+)", text)]
+    chosen = [int(c) for c in re.findall(r"QMLTPU_CHI=auto selected chi=(\d+)", text)]
+    log(f"auto chi: probes (chi, min fidelity, max bond) {probes}; chosen {chosen}; "
+        f"main() {wall:.3f} s")
+    assert len(chosen) == 1, f"{len(chosen)} probe sequences in one run (want 1)"
+    assert probes and probes[-1][0] == chosen[0] and probes[0][0] == 8
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    for chi, _, _ in probes:  # one sim batch of the 8 sample points each
+        with environ(QMLTPU_CHI=str(chi), QMLTPU_OVERSAMPLE="0"):
+            _add_all(want, expected_launches(ARGV_ONE_BATCH, 1))
+    with environ(QMLTPU_CHI=str(chosen[0])):  # train 1 batch, test 1 + 1
+        _add_all(want, expected_launches(ARGV_ONE_BATCH, 3))
+    log(f"auto chi: launches {launches}, plain versions on CUDA tensors {plain}")
+    assert launches == want, f"auto chi: launches {launches} != expected {want}"
+    assert sum(plain.values()) == 0
+    check_train_gram(K_train, 32, "auto chi")
+    assert K_test.shape == (8, 32) and np.isfinite(K_test).all()
+    return launches
+
+
+def phase_track_mem(smi):
+    """``cli.main_track_mem`` at nf 100, r 2, d 6, chi 64 on one circuit
+    (the memory-evolution figure's shape): one ``MPS size`` line per op of
+    the schedule."""
+    import contextlib
+    import io
+
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.cli import main_track_mem
+    from qml_cutensornet_tpu_torch.utils.device import environ
+
+    argv = ["main_track_mem", "GPU", "100", "2", "1.0", "6", "5", "5", "5", CSV_V1, "0"]
+    out, err = io.StringIO(), io.StringIO()
+    with environ(QMLTPU_CHI="64"):
+        params = pipe.parse_argv(list(argv))
+        cfg = pipe.sim_config(params)
+        schedule = pipe.make_ansatz(params).schedule
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        add, _ = op_launches(cfg, want)
+        for seg in schedule.segments:
+            for kind in seg.gkinds:
+                add(cfg.chi, int(kind))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            _, launches = count_launches(lambda: main_track_mem.main(list(argv)), want,
+                                         "main_track_mem")
+        wall = time.perf_counter() - t0
+    log(f"main_track_mem: launches {launches}")
+    lines = [line for line in err.getvalue().splitlines() if "MPS size" in line]
+    sizes = [float(line.split("=")[1]) for line in lines]
+    final = {line.split(":")[0]: line.split(":")[1].strip()
+             for line in out.getvalue().splitlines()
+             if line.startswith(("Final fidelity:", "Max bond dimension:"))}
+    log(f"main_track_mem, nf 100, r 2, d 6, chi 64, one circuit [{smi}]: {len(lines)} MPS size "
+        f"lines for {schedule.num_two_site_ops} ops; last size {sizes[-1]} MiB, largest "
+        f"{max(sizes)} MiB; final fidelity {final['Final fidelity']}, max bond "
+        f"{final['Max bond dimension']}; wall {wall:.3f} s")
+    assert len(lines) == schedule.num_two_site_ops == 3744, len(lines)
+    assert min(sizes) > 0
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -1272,6 +1594,17 @@ def main() -> int:
     log(f"unfused routes done at {time.perf_counter() - t_start:.1f} s")
     by_path["brick"], by_path["tracked_14q_chi128"] = phase_brick_route(smi)
     log(f"brick route done at {time.perf_counter() - t_start:.1f} s")
+    by_path["svd_eigh"] = phase_svd_methods(smi, golden, K_default, x_train)
+    log(f"svd and eigh routes done at {time.perf_counter() - t_start:.1f} s")
+    by_path["reference_routing"] = phase_reference_routing(smi, golden, K_default, x_train)
+    log(f"reference routing done at {time.perf_counter() - t_start:.1f} s")
+    by_path["checkpoint"] = phase_checkpoint(smi, K_default)
+    log(f"checkpoint and resume done at {time.perf_counter() - t_start:.1f} s")
+    by_path["auto_chi"] = phase_auto_chi(smi)
+    log(f"auto chi done at {time.perf_counter() - t_start:.1f} s")
+    by_path["track_mem"] = phase_track_mem(smi)
+    log(f"main_track_mem done at {time.perf_counter() - t_start:.1f} s")
+    log(f"dense verdict (max_abs_err vs the dense statevector Gram): {json.dumps(DENSE_VERDICT)}")
 
     bounds = kernel_bounds(32, 64, 2)
     bounds["brick_split"] = brick_bound(BRICK_BN, 128, 128, 2)

@@ -13,9 +13,19 @@ names where the port supports them:
 
     QMLTPU_DEVICE          cuda | cpu (default cuda; cuda without a card
                            raises, it never falls back)
-    QMLTPU_CHI             bond cap (default min(2^(nq//2), 64))
+    QMLTPU_CHI             bond cap (default min(2^(nq//2), 64)); "auto"
+                           probes a sample of the train features with
+                           utils/autotune.choose_chi at chi 8, 16, ... until
+                           the smallest sample fidelity reaches
+                           QMLTPU_FID_TARGET (default 1-1e-9), no bond
+                           saturates, or the next probe would pass
+                           QMLTPU_AUTO_CHI_MAX (default 256); the sample is
+                           the first QMLTPU_AUTO_SAMPLE (default 8) points,
+                           and the train and test Grams of one run share the
+                           choice
     QMLTPU_PRECISION       f32 | f64 (default f32)
-    QMLTPU_SVD             subspace (the only method ported)
+    QMLTPU_SVD             subspace (default; kernels K1 to K5) | svd | eigh
+                           (torch.linalg: cuSOLVER on the card)
     QMLTPU_SUBSPACE_ITERS  power iterations (default 2)
     QMLTPU_OVERSAMPLE      subspace oversampling (default 16 at chi >= 128)
     QMLTPU_POWER_PRECISION / QMLTPU_TILE_PRECISION  inherit | highest
@@ -23,16 +33,21 @@ names where the port supports them:
     QMLTPU_FUSED_SPLIT     1 (default): split by kernel K1, center move by K2;
                            0: the unfused chain (kernel K3 + matrix products)
     QMLTPU_FUSED_GATE      1: two-site updates by kernel K4 (default 0)
-    QMLTPU_ROUTING         tracked (default) | brick (the Vidal/Hastings
-                           brick engine; with QMLTPU_FUSED_GATE=1 its pair
-                           updates run in kernel K5)
+    QMLTPU_ROUTING         tracked (default) | reference (the original gate
+                           order: SWAP chain in, gate, chain back) | brick
+                           (the Vidal/Hastings brick engine; with
+                           QMLTPU_FUSED_GATE=1 its pair updates run in
+                           kernel K5)
+    QMLTPU_CHECKPOINT      1: per-tile checkpoint and resume of each Gram in
+                           tmp/checkpoint_<run name>.npy
+    QMLTPU_CKPT_INTERVAL   least seconds between checkpoint saves (default 0:
+                           after every tile)
     QMLTPU_SIM_BATCH       circuits per batch (default 32)
     QMLTPU_TILE            Gram tile side (default 32)
     QMLTPU_STAGED, QMLTPU_CHUNK_LEN, QMLTPU_NORMALIZE  as in the reference
 
-Knobs of features not ported yet raise: QMLTPU_ROUTING=reference,
-QMLTPU_MESH > 1, QMLTPU_MGS_PAIR=1, QMLTPU_SHARD_MPS, QMLTPU_BRICK_CAPS=1,
-QMLTPU_CHECKPOINT=1 and QMLTPU_CHI=auto.
+Knobs of features not ported yet raise: QMLTPU_MESH > 1, QMLTPU_MGS_PAIR=1,
+QMLTPU_SHARD_MPS and QMLTPU_BRICK_CAPS=1.
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ from qml_cutensornet_tpu_torch.config import SimConfig
 from qml_cutensornet_tpu_torch.models.ansatz import KernelStateAnsatz
 from qml_cutensornet_tpu_torch.models.entanglement import entanglement_graph
 from qml_cutensornet_tpu_torch.models.gram import build_kernel_matrix
+from qml_cutensornet_tpu_torch.utils.autotune import choose_chi
 from qml_cutensornet_tpu_torch.utils.data import load_and_prepare
 from qml_cutensornet_tpu_torch.utils.naming import run_info
 
@@ -59,6 +75,10 @@ INPUT_ERROR_MSG = (
 
 # The truncation error assigned to the simulation (reference main.py:73).
 TRUNCATION_ERROR = 1e-16
+
+# QMLTPU_CHI=auto choices, so that the train and test Grams of one run share
+# one probe sequence.
+_auto_chi_cache: dict = {}
 
 
 @dataclasses.dataclass
@@ -84,19 +104,14 @@ def _env_flag(name: str, default: str = "0") -> bool:
 
 def check_unported_knobs() -> None:
     """Raise on environment knobs whose features the port does not have."""
-    routing = os.environ.get("QMLTPU_ROUTING", "tracked")
-    if routing not in ("tracked", "brick"):
-        raise NotImplementedError(f"QMLTPU_ROUTING={routing} is not ported (tracked or brick)")
     mesh = os.environ.get("QMLTPU_MESH")
     if mesh is not None and int(mesh) > 1:
         raise NotImplementedError("QMLTPU_MESH > 1 (multi-device Gram) is not ported")
     if os.environ.get("QMLTPU_SHARD_MPS", "0") != "0":
         raise NotImplementedError("QMLTPU_SHARD_MPS is not ported")
-    for knob in ("QMLTPU_MGS_PAIR", "QMLTPU_BRICK_CAPS", "QMLTPU_CHECKPOINT"):
+    for knob in ("QMLTPU_MGS_PAIR", "QMLTPU_BRICK_CAPS"):
         if _env_flag(knob):
             raise NotImplementedError(f"{knob}=1 is not ported")
-    if os.environ.get("QMLTPU_CHI") == "auto":
-        raise NotImplementedError("QMLTPU_CHI=auto is not ported")
 
 
 def parse_argv(argv=None) -> RunParams:
@@ -124,33 +139,67 @@ def default_chi(num_features: int) -> int:
     return int(min(2 ** (num_features // 2), 64))
 
 
-def sim_config(params: RunParams) -> SimConfig:
-    chi_env = os.environ.get("QMLTPU_CHI")
-    chi = int(chi_env) if chi_env is not None else default_chi(params.num_features)
-    over_env = os.environ.get("QMLTPU_OVERSAMPLE")
-    oversample = int(over_env) if over_env is not None else (16 if chi >= 128 else 0)
+def sim_config(params: RunParams, sample_features=None) -> SimConfig:
+    """The engine config from the environment. ``QMLTPU_CHI=auto`` needs
+    ``sample_features`` (the train features; :func:`build` passes them) and
+    probes the cap on its first ``QMLTPU_AUTO_SAMPLE`` rows with the
+    configuration's other knobs (oversampling as set, else 0)."""
     tb_env = os.environ.get("QMLTPU_TILE_BLOCK")
-    tile_block = int(tb_env) if tb_env is not None else (2 if chi <= 128 else 1)
-    return SimConfig(
-        chi=chi,
+    base = SimConfig(
+        chi=1,
         truncation_error=TRUNCATION_ERROR,
         criterion="cutoff" if params.backend == "CPU" else "fidelity",
         precision=os.environ.get("QMLTPU_PRECISION", "f32"),
         svd_method=os.environ.get("QMLTPU_SVD", "subspace"),
         subspace_iters=int(os.environ.get("QMLTPU_SUBSPACE_ITERS", 2)),
-        oversample=oversample,
+        oversample=int(os.environ.get("QMLTPU_OVERSAMPLE", 0)),
         power_precision=os.environ.get("QMLTPU_POWER_PRECISION", "inherit"),
         tile_precision=os.environ.get("QMLTPU_TILE_PRECISION", "inherit"),
         fused_split=_env_flag("QMLTPU_FUSED_SPLIT", "1"),
         fused_gate=_env_flag("QMLTPU_FUSED_GATE"),
-        tile_block=tile_block,
+        tile_block=int(tb_env) if tb_env is not None else 2,
     )
+    chi_env = os.environ.get("QMLTPU_CHI")
+    if chi_env == "auto":
+        chi = _auto_chi(params, base, sample_features)
+    elif chi_env is not None:
+        chi = int(chi_env)
+    else:
+        chi = default_chi(params.num_features)
+    over_env = os.environ.get("QMLTPU_OVERSAMPLE")
+    oversample = int(over_env) if over_env is not None else (16 if chi >= 128 else 0)
+    tile_block = int(tb_env) if tb_env is not None else (2 if chi <= 128 else 1)
+    return dataclasses.replace(base, chi=chi, oversample=oversample, tile_block=tile_block)
+
+
+def _auto_chi(params: RunParams, base: SimConfig, sample_features) -> int:
+    """The QMLTPU_CHI=auto choice, probed once per run configuration."""
+    if sample_features is None:
+        raise ValueError("QMLTPU_CHI=auto needs sample features (call via build()).")
+    target = float(os.environ.get("QMLTPU_FID_TARGET", 1.0 - 1e-9))
+    sample = np.asarray(sample_features)[: int(os.environ.get("QMLTPU_AUTO_SAMPLE", 8))]
+    memo_key = (dataclasses.astuple(params), base, target, sample.shape)
+    chi = _auto_chi_cache.get(memo_key)
+    if chi is None:
+        chi = choose_chi(
+            make_ansatz(params).schedule,
+            sample,
+            dataclasses.replace(base, chi=8),
+            fidelity_target=target,
+            chi_max=int(os.environ.get("QMLTPU_AUTO_CHI_MAX", 256)),
+            verbose=True,
+            device=os.environ.get("QMLTPU_DEVICE", "cuda"),
+        )
+        _auto_chi_cache[memo_key] = chi
+        print(f"QMLTPU_CHI=auto selected chi={chi}")
+    return chi
 
 
 def engine_kwargs() -> dict:
     return dict(
         sim_batch=int(os.environ.get("QMLTPU_SIM_BATCH", 32)),
         tile=int(os.environ.get("QMLTPU_TILE", 32)),
+        checkpoint=os.environ.get("QMLTPU_CHECKPOINT", "0") == "1",
         device=os.environ.get("QMLTPU_DEVICE", "cuda"),
     )
 
@@ -220,7 +269,7 @@ def build(params: RunParams, ansatz, X, Y=None, info_file=None):
         Y=None if Y is None else np.asarray(Y),
         info_file=info_file,
         truncation_error=TRUNCATION_ERROR,
-        cfg=sim_config(params),
+        cfg=sim_config(params, sample_features=X),
         loglevel=20,
         **engine_kwargs(),
     )

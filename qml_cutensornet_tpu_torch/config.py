@@ -7,18 +7,18 @@ complex64, "f64" -> complex128).
 
 Fields whose behaviour the port does not implement yet raise on a
 non-default value instead of being ignored: ``mgs_pair``,
-``brick_struct_caps``, any ``svd_method`` other than "subspace", and
-``power_precision`` / ``tile_precision`` other than "inherit" / "highest".
-Because "subspace" is the only factorization ported, it is also the
-default here (the reference's dataclass default is "svd"; its CLI and bench
-default is "subspace"). ``fused_split`` and ``fused_gate`` mean what they
-mean in the reference: ``fused_split`` routes the split through kernel K1
-and the center move through K2 (off: kernel K3 and matrix products, the
-reference's unfused chain), and ``fused_gate`` on top of it routes the
-two-site update through K4. As in the reference the dataclass default of
-both is off and the CLI turns ``fused_split`` on. ``fused_interpret``
-(Pallas interpret mode) has no counterpart and is dropped;
-:meth:`SimConfig.from_reference` discards it.
+``brick_struct_caps``, and ``power_precision`` / ``tile_precision`` other
+than "inherit" / "highest". All three ``svd_method`` values run, with the
+reference's dataclass default "svd" (the CLI's default is "subspace", in
+both packages): "subspace" through the kernels below, "svd" and "eigh"
+through ``torch.linalg`` (cuSOLVER on the card). ``fused_split`` and
+``fused_gate`` mean what they mean in the reference: ``fused_split`` routes
+the subspace split through kernel K1 and the center move through K2 (off:
+kernel K3 and matrix products, the reference's unfused chain), and
+``fused_gate`` on top of it routes the subspace two-site update through K4.
+As in the reference the dataclass default of both is off and the CLI turns
+``fused_split`` on. ``fused_interpret`` (Pallas interpret mode) has no
+counterpart and is dropped; :meth:`SimConfig.from_reference` discards it.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ class SimConfig:
     criterion: str = "fidelity"
     value_of_zero: float = 0.0
     precision: str = "f32"
-    svd_method: str = "subspace"
+    svd_method: str = "svd"
     renormalize: bool = False
     subspace_iters: int = 2
     oversample: int = 0
@@ -79,9 +79,6 @@ class SimConfig:
         if not 1 <= self.tile_block <= 8:
             raise ValueError("tile_block must be in 1..8")
         # Reference options the port does not implement yet.
-        if self.svd_method != "subspace":
-            raise NotImplementedError(
-                f"svd_method={self.svd_method!r} is not ported; use 'subspace'")
         for name in ("mgs_pair", "brick_struct_caps"):
             if getattr(self, name):
                 raise NotImplementedError(f"{name}=True is not ported")

@@ -9,14 +9,18 @@ every datapoint, so it is compiled once into a :class:`GateSchedule` of
 integer arrays (site, gate kind, canonical-center direction, feature
 indices); the angles are computed from the features at run time.
 
-Two routings are ported. ``routing="tracked"`` (permutation-tracked, the
-reference's default) compiles a :class:`GateSchedule`: swap-back chains are
-dropped, the engine keeps a map from features to sites, and gates within a
-rep (all XXPhase terms commute) run in a position-sorted sweep.
-``routing="brick"`` compiles a :class:`BrickSchedule` of brick layers of
-disjoint two-site ops (a banded swap network, :func:`_raw_brick`) for the
-Vidal/Hastings engine (``ops/vidal.py``). Gram entries are invariant under
-the common final permutation. ``"reference"`` raises.
+All three routings of the reference are ported. ``routing="tracked"``
+(permutation-tracked, the reference's default) compiles a
+:class:`GateSchedule`: swap-back chains are dropped, the engine keeps a map
+from features to sites, and gates within a rep (all XXPhase terms commute)
+run in a position-sorted sweep. ``routing="reference"`` compiles the
+original paper's gate order into a :class:`GateSchedule` of the same form:
+for each non-adjacent XXPhase a SWAP chain in, the gate, and the chain back
+(:func:`_raw_reference`); it is the baseline tracked routing is judged
+against. ``routing="brick"`` compiles a :class:`BrickSchedule` of brick
+layers of disjoint two-site ops (a banded swap network, :func:`_raw_brick`)
+for the Vidal/Hastings engine (``ops/vidal.py``). Gram entries are invariant
+under the common final permutation.
 
 Canonical-form lowering: the compiler tracks the orthogonality center,
 inserts identity center moves (``GATE_I``) when the next gate is not
@@ -78,6 +82,21 @@ class GateSchedule:
     @property
     def num_gate_ops(self) -> int:
         return int(sum(np.sum(s.gkinds != GATE_I) for s in self.segments))
+
+
+def _raw_reference(num_qubits, reps, entanglement_map):
+    """Reference SWAP routing: for each pair, a SWAP chain in, the gate, and
+    the chain back; one identical raw stream per rep, sites never permuted."""
+    stream = []
+    for (a, b) in entanglement_map:
+        q0, q1 = min(a, b), max(a, b)
+        for q in range(q0, q1 - 1):
+            stream.append((q, GATE_SWAP, 0, 0))
+        stream.append((q1 - 1, GATE_XX, a, b))
+        for q in reversed(range(q0, q1 - 1)):
+            stream.append((q, GATE_SWAP, 0, 0))
+    pos_maps = [np.arange(num_qubits, dtype=np.int32)] * reps
+    return [stream] * reps, pos_maps, np.arange(num_qubits, dtype=np.int32)
 
 
 def _raw_tracked(num_qubits, reps, entanglement_map):
@@ -311,8 +330,6 @@ def build_schedule(
     hadamard_init: bool = True,
     routing: str = "tracked",
 ) -> GateSchedule | BrickSchedule:
-    if routing == "reference":
-        raise NotImplementedError("routing='reference' is not ported; use 'tracked' or 'brick'")
     if routing == "brick":
         bricks, final_pos = _raw_brick(num_qubits, reps, entanglement_map)
         n_p = num_qubits + (3 if num_qubits % 2 == 0 else 2)
@@ -326,10 +343,13 @@ def build_schedule(
             num_sites_padded=n_p,
             pairs_per_layer=(n_p - 1) // 2,
         )
-    if routing != "tracked":
+    if routing == "reference":
+        streams, pos_maps, final_pos = _raw_reference(num_qubits, reps, entanglement_map)
+    elif routing == "tracked":
+        streams, pos_maps, final_pos = _raw_tracked(num_qubits, reps, entanglement_map)
+        streams = [_fuse_stream(s) for s in streams]
+    else:
         raise ValueError(f"Unknown routing mode: {routing}")
-    streams, pos_maps, final_pos = _raw_tracked(num_qubits, reps, entanglement_map)
-    streams = [_fuse_stream(s) for s in streams]
     segments = _canonical_lower(streams, pos_maps, num_qubits)
     return GateSchedule(
         num_qubits=num_qubits,
@@ -344,7 +364,10 @@ def build_schedule(
 
 class KernelStateAnsatz:
     """API-parity ansatz class: stores the compiled :class:`GateSchedule` or
-    :class:`BrickSchedule`."""
+    :class:`BrickSchedule`. :meth:`circuit_for_data` gives one datapoint's
+    bound circuit as a gate list, for ``models/simulate.simulate_gate_list``
+    and for cross-checks; the engine itself never builds per-datapoint
+    circuits."""
 
     def __init__(
         self,
@@ -363,3 +386,28 @@ class KernelStateAnsatz:
         self.schedule = build_schedule(
             num_qubits, reps, gamma, self.entanglement_map, hadamard_init, routing
         )
+
+    def circuit_for_data(self, feature_values):
+        """Lowered gate list with bound parameters, ``[(name, qubits,
+        params), ...]``, in the reference CPU backend's tuple format and
+        pytket half-turn exponents, with the REFERENCE routing whatever the
+        schedule's."""
+        x = np.asarray(feature_values, dtype=np.float64)
+        if len(x) != self.num_qubits:
+            raise RuntimeError("The number of values must match the number of symbols.")
+        gates: list[tuple[str, list[int], list[float]]] = []
+        if self.hadamard_init:
+            for q in range(self.num_qubits):
+                gates.append(("H", [q], []))
+        for _ in range(self.reps):
+            for q in range(self.num_qubits):
+                gates.append(("Rz", [q], [float((2 / np.pi) * self.gamma * x[q])]))
+            for (a, b) in self.entanglement_map:
+                q0, q1 = min(a, b), max(a, b)
+                exponent = float(self.gamma**2 * (1 - x[a]) * (1 - x[b]))
+                for q in range(q0, q1 - 1):
+                    gates.append(("SWAP", [q, q + 1], []))
+                gates.append(("XXPhase", [q1 - 1, q1], [exponent]))
+                for q in reversed(range(q0, q1 - 1)):
+                    gates.append(("SWAP", [q, q + 1], []))
+        return gates

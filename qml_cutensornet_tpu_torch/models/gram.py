@@ -7,14 +7,20 @@ psi(X_j)>|^2`` with the reference's contract: ``Y=None`` means ``Y == X``
 and only the lower block-triangle of tiles is computed (the rest mirrored);
 the symmetric result is normalized by the tile path's own diagonal; a
 profiling JSON with the reference's keys goes to ``{info_file}.json``.
-States stay resident on the compute device. Not ported yet: the mesh
-(multi-device) build and per-tile checkpoints, which raise.
+States stay resident on the compute device. With ``checkpoint`` (and an
+``info_file``) the tile loop saves the padded Gram to
+``{checkpoint_dir}/checkpoint_{name of info_file}.npy`` after each tile (at
+most every ``QMLTPU_CKPT_INTERVAL`` seconds), atomically, and resumes from
+it: the reference's file and format, so a checkpoint either package wrote
+resumes in the other. Not ported yet: the mesh (multi-device) build, which
+raises.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pathlib
 import time
 from statistics import mean, median
 
@@ -134,9 +140,6 @@ def build_kernel_matrix(
     ``device`` ("cuda" or "cpu"; no fallback)."""
     if mesh is not None:
         raise NotImplementedError("the mesh (multi-device) Gram build is not ported yet")
-    if checkpoint:
-        raise NotImplementedError("per-tile checkpoints are not ported yet")
-    del checkpoint_dir
     dev = resolve_device(device)
     X = np.asarray(X, dtype=np.float64)
     if Y is not None and len(X) < len(np.asarray(Y)):
@@ -214,6 +217,25 @@ def build_kernel_matrix(
     ay = pad_states(ay, len_y_pad)
     ax = pad_states(ax, len_x_pad)
     kernel_mat = np.zeros((len_y_pad, len_x_pad))
+    ckpt_file = None
+    ckpt_interval = float(os.environ.get("QMLTPU_CKPT_INTERVAL", "0"))
+    last_ckpt = -float("inf")  # the first finished tile always saves
+    if checkpoint and info_file is not None:
+        pathlib.Path(checkpoint_dir).mkdir(exist_ok=True)
+        ckpt_file = (pathlib.Path(checkpoint_dir)
+                     / f"checkpoint_{pathlib.Path(info_file).name}.npy")
+        if ckpt_file.is_file():
+            loaded = np.load(ckpt_file)
+            if loaded.shape == kernel_mat.shape:
+                kernel_mat = loaded
+                if verbose:
+                    print("Recovered from checkpoint!")
+            elif verbose:
+                # Another tile size: other tile boundaries, so the corner
+                # test below could take a half-covered tile for a finished
+                # one. Discarded and recomputed.
+                print(f"Checkpoint shape {loaded.shape} != {kernel_mat.shape} (tile size "
+                      "changed); discarding it and recomputing.")
     vdot_time: list[float] = []
     tile_pairs: list[int] = []
     symmetric = Y is None
@@ -221,6 +243,8 @@ def build_kernel_matrix(
         for (x0, x1) in _tile_ranges(len_x_pad, tile):
             if symmetric and x0 > y0:
                 continue  # upper block-triangle comes from the mirror
+            if ckpt_file is not None and kernel_mat[y0, x0] != 0:
+                continue  # the tile is in the checkpoint
             t0 = time.perf_counter()
             ay_blk = ay[y0:y1]
             ax_blk = ay_blk if (symmetric and x0 == y0) else ax[x0:x1]
@@ -231,6 +255,14 @@ def build_kernel_matrix(
             kernel_mat[y0:y1, x0:x1] = block
             if symmetric and x0 < y0:
                 kernel_mat[x0:x1, y0:y1] = block.T
+            if ckpt_file is not None and time.perf_counter() - last_ckpt >= ckpt_interval:
+                # Atomic: a crash mid-save leaves the previous checkpoint.
+                tmp = ckpt_file.with_suffix(".tmp.npy")
+                np.save(tmp, kernel_mat)
+                tmp.replace(ckpt_file)
+                last_ckpt = time.perf_counter()
+    if ckpt_file is not None:
+        ckpt_file.unlink(missing_ok=True)
     kernel_mat = kernel_mat[:len_y, :len_x]
 
     # Normalize out the states' norm deficits. Symmetric case: by the tile

@@ -1,9 +1,13 @@
-"""Batched circuit simulation over the tracked op stream and over the brick
-layers, and the Gram-tile overlaps (port of
+"""Batched circuit simulation over the op stream and over the brick layers,
+the gate-list engine, and the Gram-tile overlaps (port of
 ``qml_cutensornet_tpu/models/simulate.py``: ``apply_schedule_op``,
 ``stream_chunk_plan``, the chunked stream simulator, ``brick_stage_plan``,
 ``brick_chunk_plan``, ``drive_brick_schedule``, ``make_brick_simulator``,
+``_GATE_LIST_KINDS``, ``lower_gate_list``, ``simulate_gate_list``,
 ``state_norms_sq``, ``_combine_sites``, ``tile_overlaps_sq``).
+
+A :class:`GateSchedule` of either routing ("tracked" or "reference") runs on
+the same chunked stream simulator.
 
 The op stream is shared by every datapoint of a batch, so the batch is a
 leading tensor dimension and the stream is a Python loop: each op is one
@@ -17,6 +21,12 @@ A :class:`BrickSchedule` runs on the brick engine (``ops/vidal.py``)
 instead: its layers are cut into same-stage chunks of 16, padded with
 inactive layers as the reference pads them, so that the same pair updates
 run at the same staged bond caps.
+
+The gate-list engine (:func:`simulate_gate_list`) takes one bound circuit in
+the reference's tuple format (H/Rx/Rz/XXPhase/ZZPhase/SWAP on adjacent
+sites, ``KernelStateAnsatz.circuit_for_data``), lowers it with the ansatz
+compiler's center tracking (:func:`lower_gate_list`) and runs it op by op
+through :func:`apply_schedule_op` at the configuration's bond cap.
 """
 
 from __future__ import annotations
@@ -29,9 +39,13 @@ import torch
 
 from qml_cutensornet_tpu_torch.config import SimConfig
 from qml_cutensornet_tpu_torch.models.ansatz import (
+    DIR_L,
+    DIR_R,
+    GATE_H1,
     GATE_I,
     GATE_RX,
     GATE_RZ1,
+    GATE_SWAP,
     GATE_XX,
     GATE_XXSW,
     GATE_ZZ,
@@ -40,6 +54,7 @@ from qml_cutensornet_tpu_torch.models.ansatz import (
 )
 from qml_cutensornet_tpu_torch.ops import gates, mps as mps_ops, vidal
 from qml_cutensornet_tpu_torch.ops.mps import MPS
+from qml_cutensornet_tpu_torch.utils.device import resolve_device
 
 
 def apply_schedule_op(state: MPS, site: int, gkind: int, direction: int,
@@ -344,6 +359,89 @@ def make_brick_simulator(schedule: BrickSchedule, cfg: SimConfig, device: torch.
                                     device, final_chi)
 
     return simulate
+
+
+_GATE_LIST_KINDS = {
+    "SWAP": GATE_SWAP,
+    "XXPhase": GATE_XX,
+    "ZZPhase": GATE_ZZ,
+    "Rx": GATE_RX,
+    "Rz": GATE_RZ1,
+    "H": GATE_H1,
+}
+
+
+def lower_gate_list(gate_list, num_qubits: int):
+    """Lower a bound circuit ``[(name, qubits, params), ...]`` (pytket
+    half-turn exponents) to op-stream arrays ``(sites, gkinds, dirs,
+    thetas)`` for :func:`apply_schedule_op`, as the reference does: the full
+    gate set H/Rx/Rz/XXPhase/ZZPhase/SWAP, ``RuntimeError`` on any other
+    gate and on a two-qubit gate on non-adjacent qubits; canonical-center
+    moves inserted as in ``models/ansatz._canonical_lower``, each two-site
+    op's direction by lookahead to the next two-site op; single-site gates
+    neither need nor move the center."""
+    raw = []  # (site, kind, theta, is_two_site)
+    for name, qubits, params in gate_list:
+        kind = _GATE_LIST_KINDS.get(name)
+        if kind is None:
+            raise RuntimeError(f"Gate {name} not supported.")
+        alpha = float(params[0]) if params else 0.0
+        theta = 0.5 * np.pi * alpha  # half-turns -> true angle
+        if kind >= GATE_RX:
+            (q,) = qubits
+            raw.append((int(q), kind, theta, False))
+        else:
+            q0, q1 = sorted(int(q) for q in qubits)
+            if q1 != q0 + 1:
+                raise RuntimeError(
+                    f"Two-qubit gate {name} on non-adjacent qubits ({q0},{q1});"
+                    " route the circuit first.")
+            raw.append((q0, kind, theta, True))
+
+    nxt2 = [None] * len(raw)  # site of the NEXT two-site op
+    nxt = None
+    for i in range(len(raw) - 1, -1, -1):
+        nxt2[i] = nxt
+        if raw[i][3]:
+            nxt = raw[i][0]
+
+    ops = []  # (site, kind, dir, theta)
+    center = None
+    for i, (site, kind, theta, is2q) in enumerate(raw):
+        if not is2q:
+            ops.append((site, kind, DIR_R, theta))
+            continue
+        if center is None:
+            center = site
+        while center < site:
+            ops.append((center, GATE_I, DIR_R, 0.0))
+            center += 1
+        while center > site + 1:
+            ops.append((center - 1, GATE_I, DIR_L, 0.0))
+            center -= 1
+        nxt = nxt2[i] if nxt2[i] is not None else site
+        d = DIR_L if nxt < site else DIR_R
+        ops.append((site, kind, d, theta))
+        center = site if d == DIR_L else site + 1
+
+    arr = np.asarray([(s, k, d) for (s, k, d, _) in ops], dtype=np.int32).reshape(-1, 3)
+    thetas = np.asarray([t for (_, _, _, t) in ops], dtype=np.float64)
+    return arr[:, 0], arr[:, 1], arr[:, 2], thetas
+
+
+def simulate_gate_list(gate_list, num_qubits: int, cfg: SimConfig,
+                       device: str = "cuda") -> MPS:
+    """Simulate ONE bound circuit in the reference's tuple format on
+    ``device`` ("cuda" or "cpu"; no fallback), op by op at ``cfg.chi``.
+    Returns the final :class:`MPS` (a batch of one state)."""
+    dev = resolve_device(device)
+    sites, gkinds, dirs, thetas = lower_gate_list(gate_list, num_qubits)
+    th = torch.as_tensor(thetas, dtype=cfg.real_dtype, device=dev)
+    state = mps_ops.zero_state(1, num_qubits, cfg, dev)
+    for i in range(len(sites)):
+        state = apply_schedule_op(state, int(sites[i]), int(gkinds[i]), int(dirs[i]),
+                                  th[i:i + 1], cfg)
+    return state
 
 
 def state_norms_sq(a: torch.Tensor) -> torch.Tensor:

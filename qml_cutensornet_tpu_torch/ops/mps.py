@@ -4,9 +4,10 @@
 An :class:`MPS` holds a BATCH of padded states: ``tensors [B, n, chi, 2,
 chi]`` (batch, site, left bond, physical, right bond), ``fidelity [B]``
 (product of per-update kept fractions) and ``bond_dims [B, n-1]`` (true bond
-dimensions). Truncated and padded entries are exact zeros, so contractions
-over the padded dimensions equal the true ones. The op stream is the same
-for every state of a batch, so sites and directions are Python ints.
+dimensions; :func:`actual_nbytes` gives the unpadded bytes from them).
+Truncated and padded entries are exact zeros, so contractions over the
+padded dimensions equal the true ones. The op stream is the same for every
+state of a batch, so sites and directions are Python ints.
 
 The update functions write the changed site tensors into ``tensors`` and
 ``bond_dims`` IN PLACE (one full-state copy per op saved) and return an
@@ -160,6 +161,16 @@ def norm_sq(a: MPS) -> torch.Tensor:
 
 def max_bond(mps: MPS) -> torch.Tensor:
     return mps.bond_dims.max(dim=1).values
+
+
+def actual_nbytes(mps: MPS, itemsize: int) -> torch.Tensor:
+    """Bytes of each UNPADDED state, ``[B]``: the sum over sites of left
+    bond x 2 x right bond x ``itemsize`` (the bytes of one complex entry),
+    the reference's stand-in for the unpadded tensors' ``nbytes``."""
+    ones = torch.ones_like(mps.bond_dims[:, :1])
+    left = torch.cat([ones, mps.bond_dims], 1).to(torch.int64)
+    right = torch.cat([mps.bond_dims, ones], 1).to(torch.int64)
+    return (left * 2 * right).sum(1) * itemsize
 
 
 def to_dense(tensors: np.ndarray, n: int) -> np.ndarray:

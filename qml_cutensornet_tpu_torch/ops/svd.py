@@ -1,16 +1,32 @@
-"""Truncated factorization of the two-site update, subspace method (port of
+"""Truncated factorization of the two-site update (port of
 ``qml_cutensornet_tpu/ops/svd.py``: ``_subspace_start``, ``_split_subspace``,
-``_finish_subspace``, ``_mask_from_s2``, ``truncated_svd``,
-``gate_split_eligible``, ``truncated_svd_gate``, ``truncated_split_right``,
-``brick_split_eligible``, ``fused_brick_update``).
+``_finish_subspace``, ``_mask_from_s2``, ``_tail_weights``,
+``_truncation_mask``, ``_left_vectors_svd`` and ``_left_vectors_eigh`` (as
+``_left_vectors``), ``truncated_svd``, ``gate_split_eligible``,
+``truncated_svd_gate``, ``truncated_split_right``, ``brick_split_eligible``,
+``fused_brick_update``).
 
 ``truncated_svd(theta [B, m, k], cfg, keep)`` returns ``(left [B, m, keep],
 right [B, keep, k], kept_fraction [B], rank [B])`` with ``left`` a masked
 isometry spanning (an approximation of) the kept left singular subspace and
-``right = left^H theta``. The subspace comes from ``iters`` rounds of
-``w = orth(theta^H v)``, ``v = orth(theta w)``, started from the same fixed
-numpy block as the reference so port and reference iterate from the same
-v0. Three routes run that chain:
+``right = left^H theta``. ``cfg.svd_method`` picks how the subspace is found.
+
+"svd" and "eigh" decompose theta itself: ``torch.linalg.svd(theta)``, or
+``torch.linalg.eigh(theta theta^H)`` with its ascending eigenvalues reversed
+and clipped at 0 (cuSOLVER on the card; no kernel of this package). The
+reference decomposes the real embedding ``[[Re, -Im], [Im, Re]]`` and picks a
+complex basis from the lifted real vectors by a greedy scan; torch's complex
+dtypes give that basis directly. The semantics are the reference's: the
+trailing weights of the whole spectrum (:func:`_tail_weights`), the
+truncation rule of :func:`_truncation_mask` (bond cap, ``truncation_error``
+times the total weight, the ``value_of_zero`` floor, index 0 always kept),
+exact zeros past the mask, and ``rank`` counting the kept non-zero singular
+values. Within a degenerate cluster any basis is as good as another, so
+only the kept subspace is defined.
+
+"subspace" runs ``iters`` rounds of ``w = orth(theta^H v)``, ``v = orth(theta
+w)``, started from the same fixed numpy block as the reference so port and
+reference iterate from the same v0. Three routes run that chain:
 
 - fused split (``cfg.fused_split`` and a shape kernel K1 takes: nc <= 128,
   m, k <= 256): one launch of K1 (``ops/split.py``);
@@ -28,12 +44,13 @@ v0. Three routes run that chain:
 The brick engine (``ops/vidal.py``) factors from the right:
 :func:`truncated_split_right` is :func:`truncated_svd` of ``theta^H``, and
 :func:`fused_brick_update` runs the whole Hastings pair update through kernel
-K5 where :func:`brick_split_eligible`.
+K5 where :func:`brick_split_eligible`. The kernels of the subspace method
+serve only full-precision configurations, as in the reference.
 
-Per-direction squared singular values are the row norms of ``r``; the
-truncation mask is the reference's sorted-threshold eps rule plus the
-sv-ratio floor and ``value_of_zero``. Discarded directions are exact zeros
-(the padding invariant).
+On the subspace routes the per-direction squared singular values are the row
+norms of ``r``; the truncation mask is the reference's sorted-threshold eps
+rule plus the sv-ratio floor and ``value_of_zero``. Discarded directions are
+exact zeros (the padding invariant).
 """
 
 from __future__ import annotations
@@ -77,12 +94,20 @@ def fused_split_supported(m: int, k: int, nc: int) -> bool:
     return nc <= split.MAX_NC and m <= split.MAX_MK and k <= split.MAX_MK
 
 
+def _kernel_precision(cfg: SimConfig) -> bool:
+    """The reference runs its fused kernels only in full-precision
+    configurations (their products are pinned at full f32), so a lowered
+    ambient or power precision keeps a configuration off them."""
+    return (cfg.matmul_precision in ("highest", "float32")
+            and cfg.power_precision == "inherit")
+
+
 def _split_subspace(theta: torch.Tensor, cfg: SimConfig, keep: int):
     B, m, k = theta.shape
     nc = keep + max(0, cfg.oversample)
     v0 = start_block(m, nc, theta.dtype, theta.device)
     iters = max(1, cfg.subspace_iters)
-    if cfg.fused_split and fused_split_supported(m, k, nc):
+    if cfg.fused_split and _kernel_precision(cfg) and fused_split_supported(m, k, nc):
         q, r = split.subspace_factor(theta, v0, iters)
     else:
         v = v0.expand(B, m, nc)
@@ -137,12 +162,101 @@ def _mask_from_s2(s2, total, cfg: SimConfig, keep: int):
     return mask, kept_fraction
 
 
+def _tail_weights(p_desc: torch.Tensor):
+    """Trailing weights ``tail[:, i] = sum_{j >= i} p_desc[:, j]`` of a
+    descending squared spectrum ``p_desc [B, r]``, by a reverse cumulative
+    sum, and the total weight ``[B]``. Cancellation-free: ``eps = 1e-16``
+    sits below f64 rounding, so a total-minus-cumsum form would put the
+    comparison inside rounding noise. The reference's halved reverse cumsum
+    of its doubled real spectrum, at even ranks, is this sum."""
+    tail = torch.flip(torch.cumsum(torch.flip(p_desc, [1]), 1), [1])
+    return tail, p_desc.sum(1)
+
+
+def _truncation_mask(s, tail, total, cfg: SimConfig, keep: int):
+    """Mask over the descending kept singular values ``s [B, keep]``: keep
+    index ``i`` iff ``tail[:, i] > truncation_error * total`` and (with
+    ``value_of_zero > 0``) ``s > value_of_zero``; index 0 is never dropped.
+    Returns ``(mask [B, keep] bool, kept_fraction [B])``."""
+    mask = tail > cfg.truncation_error * total[:, None]
+    if cfg.value_of_zero > 0.0:
+        mask = mask & (s > cfg.value_of_zero)
+    mask[:, 0] = True
+    kept = torch.where(mask, s * s, torch.zeros_like(s)).sum(1)
+    safe_total = torch.where(total > 0, total, torch.ones_like(total))
+    kept_fraction = torch.clamp(
+        torch.where(total > 0, kept / safe_total, torch.ones_like(total)), max=1.0)
+    return mask, kept_fraction
+
+
+_ROTATION_CACHE: dict = {}
+
+
+def _rotation(m: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A fixed random unitary ``[m, m]`` (the QR factor of a complex
+    Gaussian from numpy ``default_rng(0xE16)``), cached like the start
+    block."""
+    key = (m, dtype, device)
+    q = _ROTATION_CACHE.get(key)
+    if q is None:
+        rng = np.random.default_rng(0xE16)
+        q = np.linalg.qr(rng.standard_normal((m, m)) + 1j * rng.standard_normal((m, m)))[0]
+        q = torch.from_numpy(q).to(dtype).to(device)
+        _ROTATION_CACHE[key] = q
+    return q
+
+
+def _left_vectors(theta: torch.Tensor, method: str, keep: int):
+    """Leading left singular vectors ``u [B, m, keep]``, their singular
+    values ``s [B, keep]`` and trailing weights ``tail [B, keep]`` (both
+    computed over the whole spectrum), and the total weight ``[B]``, by
+    ``torch.linalg.svd(theta)`` ("svd") or ``torch.linalg.eigh(theta
+    theta^H)`` ("eigh": ascending, so reversed, and clipped at 0). Past the
+    spectrum's length (``keep > min(m, k)`` for "svd") the columns, values
+    and weights are zeros.
+
+    "svd" takes cuSOLVER's QR-iteration driver ("gesvd") on the card: on
+    an H100 at the headline shape its default Jacobi driver ("gesvdj") took
+    2.2x longer a circuit and left the f32 Gram 4.9e-6 off the f64 golden,
+    gesvd 3.0e-8 (PERF.md). "eigh" decomposes ``(Q theta)(Q theta)^H`` for a
+    fixed random unitary ``Q`` and maps the vectors back by ``Q^H``: the
+    same eigenpairs, but dense. On theta theta^H itself, whose bond padding
+    leaves exactly-zero rows and a many-fold null block, the libraries'
+    eigensolvers fail (cuSOLVER: no convergence; MKL: NaN vectors)."""
+    if method == "eigh":
+        q = _rotation(theta.shape[1], theta.dtype, theta.device)
+        t = q @ theta
+        w, vecs = torch.linalg.eigh(t @ t.mH)
+        p = torch.clamp(torch.flip(w, [1]), min=0.0)
+        u, s = q.mH @ torch.flip(vecs, [2]), torch.sqrt(p)
+    else:
+        driver = "gesvd" if theta.is_cuda else None
+        u, s, _ = torch.linalg.svd(theta, full_matrices=False, driver=driver)
+        p = s * s
+    tail, total = _tail_weights(p)
+    r = s.shape[1]
+    if r >= keep:
+        return u[:, :, :keep], s[:, :keep], tail[:, :keep], total
+    pad = keep - r
+    return (torch.nn.functional.pad(u, (0, pad)), torch.nn.functional.pad(s, (0, pad)),
+            torch.nn.functional.pad(tail, (0, pad)), total)
+
+
 def truncated_svd(theta: torch.Tensor, cfg: SimConfig, keep: int):
     """Factor ``theta [B, m, k] ~= left [B, m, keep] @ right [B, keep, k]``.
     Returns ``(left, right, kept_fraction [B], rank [B])``."""
-    if cfg.svd_method != "subspace":
-        raise NotImplementedError(f"svd_method={cfg.svd_method!r} is not ported")
-    return _split_subspace(theta, cfg, keep)
+    if cfg.svd_method == "subspace":
+        return _split_subspace(theta, cfg, keep)
+    u, s, tail, total = _left_vectors(theta, cfg.svd_method, keep)
+    mask, kept_fraction = _truncation_mask(s, tail, total, cfg, keep)
+    left = u * mask.to(s.dtype)[:, None, :]
+    right = left.mH @ theta
+    if cfg.renormalize:
+        inv = torch.rsqrt(torch.where(kept_fraction > 0, kept_fraction,
+                                      torch.ones_like(kept_fraction)))
+        right = right * inv[:, None, None]
+    rank = (mask & (s > 0)).sum(1, dtype=torch.int32)
+    return left, right, kept_fraction, rank
 
 
 def gate_split_eligible(cfg: SimConfig, chi: int) -> bool:
@@ -152,8 +266,12 @@ def gate_split_eligible(cfg: SimConfig, chi: int) -> bool:
     multiple of 16 and at most 128, chi at most 128. So on the staged ramp
     the chi-8 stage (nc = 8) stays on the fused or unfused split and the
     stages from chi 16 go to K4, as in the reference. Unlike the reference
-    the port also takes f64 (the kernel's double instantiation)."""
-    if not (cfg.fused_split and cfg.fused_gate):
+    the port also takes f64 (the kernel's double instantiation). Only the
+    subspace method in a full-precision configuration takes it, as in the
+    reference."""
+    if cfg.svd_method != "subspace" or not (cfg.fused_split and cfg.fused_gate):
+        return False
+    if not _kernel_precision(cfg):
         return False
     nc = chi + max(0, cfg.oversample)
     return chi % 8 == 0 and nc % 16 == 0 and fused_split_supported(2 * chi, 2 * chi, nc)
@@ -211,9 +329,10 @@ def truncated_split_right(theta: torch.Tensor, cfg: SimConfig, keep: int):
 
 def brick_split_eligible(cfg: SimConfig, cl: int, cm: int, cr: int) -> bool:
     """Whether a brick pair update with bonds ``(cl, cm, cr)`` takes kernel
-    K5: square pair tensors, renormalize off, and the fused-gate shape rule
-    of :func:`gate_split_eligible` at ``cm``, so that both packages send each
-    stage to the same route."""
+    K5: square pair tensors, renormalize off, and the fused-gate rule of
+    :func:`gate_split_eligible` at ``cm`` (the subspace method, full
+    precision, its shape rule), so that both packages send each stage to the
+    same route."""
     if cl != cm or cm != cr or cfg.renormalize:
         return False
     return gate_split_eligible(cfg, cm)

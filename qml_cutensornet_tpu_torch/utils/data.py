@@ -16,10 +16,15 @@ features, so this module reproduces the reference pipeline value for value
 - :func:`scale_features`: QuantileTransformer(output_distribution="normal")
   -> StandardScaler -> MinMaxScaler((0, 2)), each fit on train only, with
   sklearn's formulas and operation order.
+- :func:`make_synthetic_elliptic`: the reference's synthetic raw CSVs with
+  the Kaggle Elliptic schema (generator version 2), the same numpy draws in
+  the same order, written without pandas; they parse to the reference's
+  arrays for the same arguments.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import pathlib
 
@@ -218,3 +223,95 @@ def load_and_prepare(data_csv: str, num_features: int, n_illicit: int, n_licit: 
     x_train, y_train, x_test, y_test = draw_sample(table, n_illicit, n_licit, 0.2, data_seed)
     x_train, x_test = scale_features(x_train, x_test)
     return x_train[:, :num_features], y_train, x_test[:, :num_features], y_test
+
+
+def make_synthetic_elliptic(
+    dataset_dir: str = "datasets/elliptic_bitcoin_dataset",
+    n_labeled: int = 2000,
+    n_unknown: int = 500,
+    illicit_frac: float = 0.25,
+    seed: int = 0,
+    force: bool = False,
+    n_clusters: int = 32,
+    n_levels: int = 9,
+    sparsity: float = 0.6,
+    tilt: float = 1.2,
+    jitter_p: float = 0.02,
+    flip: float = 0.095,
+) -> None:
+    """Write ``elliptic_txs_features.csv`` and ``elliptic_txs_classes.csv``
+    with the Kaggle Elliptic schema into ``dataset_dir``: the reference's
+    generator version 2 (class-owned cluster prototypes on a discrete level
+    grid, zero-inflated at ``sparsity`` and tilted by class; each sample
+    moves one level on a ``jitter_p`` fraction of features; ``flip`` of the
+    labeled rows change class).
+
+    The committed golden is pinned to the committed raw CSVs, so a
+    ``.provenance.json`` records the generation parameters: a call matching
+    it does nothing, and a mismatched one raises unless ``force=True``."""
+    params = {
+        "version": 2,
+        "n_labeled": n_labeled,
+        "n_unknown": n_unknown,
+        "illicit_frac": illicit_frac,
+        "seed": seed,
+        "n_clusters": n_clusters,
+        "n_levels": n_levels,
+        "sparsity": sparsity,
+        "tilt": tilt,
+        "jitter_p": jitter_p,
+        "flip": flip,
+    }
+    prov = pathlib.Path(dataset_dir) / ".provenance.json"
+    raw = pathlib.Path(dataset_dir) / "elliptic_txs_features.csv"
+    if raw.is_file() and not force:
+        existing = json.loads(prov.read_text()) if prov.is_file() else None
+        if existing == params:
+            return  # identical dataset already on disk
+        raise RuntimeError(
+            f"datasets at {dataset_dir} exist (provenance: {existing}); "
+            f"refusing to overwrite with {params}: the committed golden is "
+            "pinned to them. Pass force=True to regenerate anyway.")
+    rng = np.random.default_rng(seed)
+    n = n_labeled + n_unknown
+    # Indices into arange(10_000_000, 99_999_999), drawn as the reference
+    # draws them, without materialising that range.
+    node_ids = rng.choice(99_999_999 - 10_000_000, size=n, replace=False) + 10_000_000
+    times = rng.integers(1, 50, size=n)
+
+    labels = np.full(n, "unknown", dtype=object)
+    n_illicit = int(n_labeled * illicit_frac)
+    labeled_idx = rng.permutation(n)[:n_labeled]
+    labels[labeled_idx[:n_illicit]] = "1"
+    labels[labeled_idx[n_illicit:]] = "2"
+    y = np.where(labels == "1", 0, np.where(labels == "2", 1, rng.integers(0, 2, n)))
+
+    half = n_clusters // 2
+    occupied = rng.uniform(size=(n_clusters, N_FEATURES_RAW)) > sparsity
+    base_lvl = rng.integers(1, n_levels, size=(n_clusters, N_FEATURES_RAW))
+    cls_tilt = np.where(np.arange(n_clusters) < half, tilt, -tilt)[:, None]
+    lvl = np.clip(
+        np.round(base_lvl + cls_tilt * rng.uniform(size=(n_clusters, N_FEATURES_RAW))),
+        0, n_levels)
+    protos = np.where(occupied, lvl, 0.0)
+
+    cl = np.where(y == 0, rng.integers(0, half, n), rng.integers(half, n_clusters, n))
+    feats = protos[cl].astype(float)
+    jit = rng.uniform(size=(n, N_FEATURES_RAW)) < jitter_p
+    step = rng.choice([-1.0, 1.0], size=(n, N_FEATURES_RAW))
+    feats = np.clip(feats + jit * step, 0, n_levels)
+
+    labeled_mask = labels != "unknown"
+    for i in np.where(labeled_mask & (rng.uniform(size=n) < flip))[0]:
+        labels[i] = "2" if labels[i] == "1" else "1"
+
+    pathlib.Path(dataset_dir).mkdir(parents=True, exist_ok=True)
+    feats = np.round(feats, 6)
+    with open(raw, "w", encoding="utf-8") as fh:
+        for node, t, row in zip(node_ids, times, feats):
+            fh.write(f"{int(node)},{int(t)}," + ",".join(repr(float(v)) for v in row) + "\n")
+    with open(pathlib.Path(dataset_dir) / "elliptic_txs_classes.csv", "w",
+              encoding="utf-8") as fh:
+        for node, label in zip(node_ids, labels):
+            fh.write(f"{int(node)},{label}\n")
+    prov.write_text(json.dumps(params))

@@ -53,11 +53,13 @@ def test_headline_schedule_counts():
 
 
 def test_untracked_routing_raises():
-    """Reference routing is not ported; brick routing is (its schedule is
-    held to the reference in test_torch_brick_schedule.py); an unknown name
-    is refused as in the reference."""
-    with pytest.raises(NotImplementedError):
-        ansatz.build_schedule(4, 1, 1.0, [(0, 1)], routing="reference")
+    """Reference routing builds a GateSchedule (its arrays are held to the
+    reference in test_torch_reference_routing.py) and brick routing a
+    BrickSchedule (test_torch_brick_schedule.py); an unknown name is refused
+    as in the reference."""
+    ref = ansatz.build_schedule(4, 1, 1.0, [(0, 2)], routing="reference")
+    assert isinstance(ref, ansatz.GateSchedule) and ref.routing == "reference"
+    assert (ref.num_two_site_ops, ref.num_gate_ops) == (3, 3)  # swap in, XX, swap back
     with pytest.raises(ValueError):
         ansatz.build_schedule(4, 1, 1.0, [(0, 1)], routing="bricks")
     assert isinstance(ansatz.build_schedule(4, 1, 1.0, [(0, 1)], routing="brick"),
@@ -83,11 +85,14 @@ def test_config_from_reference_and_unported_fields():
             ref = RefConfig(svd_method="subspace", fused_split=fs, fused_gate=fg)
             port = SimConfig.from_reference(dataclasses.asdict(ref))
             assert (port.fused_split, port.fused_gate) == (fs, fg)
-    with pytest.raises(NotImplementedError):
-        SimConfig.from_reference(dataclasses.asdict(RefConfig()))  # svd_method="svd"
+    # The dataclass defaults agree, svd_method="svd" included; every method runs.
+    assert SimConfig.from_reference(dataclasses.asdict(RefConfig())) == SimConfig()
+    assert SimConfig().svd_method == RefConfig().svd_method == "svd"
+    for method in ("svd", "eigh", "subspace"):
+        assert SimConfig(svd_method=method).svd_method == method
     for bad in (dict(mgs_pair=True), dict(brick_struct_caps=True),
-                dict(svd_method="eigh"), dict(power_precision="high"),
-                dict(tile_precision="bfloat16")):
+                dict(power_precision="high"), dict(tile_precision="bfloat16"),
+                dict(matmul_precision="bfloat16")):
         with pytest.raises(NotImplementedError):
             SimConfig(**bad)
     with pytest.raises(ValueError):

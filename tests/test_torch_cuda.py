@@ -15,6 +15,8 @@ Tolerances (f32): kernel and plain version run the same algorithm with
 different summation orders; 2e-5 is the reference's own fused-vs-unfused
 bar on q/r (tests/test_pallas_split.py) and Gram (3e-5). In f64, 1e-12."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -213,7 +215,7 @@ def test_slice_on_card_matches_cpu(dev, monkeypatch, route, cfg_kw, used, unused
     nq = 8
     X = np.random.default_rng(2).uniform(0.0, 2.0, size=(6, nq))
     ans = KernelStateAnsatz(nq, 1, 1.0, entanglement_graph(nq, 2))
-    cfg = SimConfig(chi=16, tile_block=2, **cfg_kw)
+    cfg = SimConfig(chi=16, tile_block=2, svd_method="subspace", **cfg_kw)
     _build.reset_counters()
     K_gpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cuda")
     for name in used:
@@ -300,7 +302,8 @@ def test_update_pairs_on_card_matches_cpu(dev):
         d = torch.device("cpu") if where == "cpu" else dev
         args = [torch.from_numpy(x).to(d) for x in (a, b, lam, th)]
         _build.reset_counters()
-        na, nb, s, kf, rank = update_pairs(*args, 1.0, Cfg(chi=chi, fused_split=True,
+        na, nb, s, kf, rank = update_pairs(*args, 1.0, Cfg(chi=chi, svd_method="subspace",
+                                                           fused_split=True,
                                                            fused_gate=fused_gate))
         if where == "cuda":
             name = "brick_split" if fused_gate else "split"
@@ -319,7 +322,8 @@ def test_brick_slice_on_card_matches_cpu(dev, monkeypatch, fused_gate):
     nq = 8
     X = np.random.default_rng(2).uniform(0.0, 2.0, size=(6, nq))
     ans = KernelStateAnsatz(nq, 1, 1.0, entanglement_graph(nq, 2), routing="brick")
-    cfg = SimConfig(chi=16, tile_block=2, fused_split=True, fused_gate=fused_gate)
+    cfg = SimConfig(chi=16, tile_block=2, svd_method="subspace", fused_split=True,
+                    fused_gate=fused_gate)
     _build.reset_counters()
     K_gpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cuda")
     used = "brick_split" if fused_gate else "split"
@@ -582,3 +586,134 @@ def test_refused_orth_launch_raises_and_is_not_counted(dev):
     q = orth.orth_cuda(v)  # the next launch is clean
     torch.cuda.synchronize()
     assert q.abs().max().item() == 0.0
+
+
+# ---------------------------------------------------------------- options
+# The single-card options on the card at small sizes, each against the same
+# call on CPU copies (f32 3e-5 on Grams; projectors 1e-5 in f32, 1e-10 in f64).
+
+@pytest.mark.parametrize("method", ["svd", "eigh"])
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_svd_methods_on_card_match_cpu(dev, method, dtype):
+    """``truncated_svd`` with "svd" and "eigh" on a CUDA tensor runs
+    cuSOLVER on the card, no kernel and no plain version, and agrees with
+    the same call on the CPU copy."""
+    from qml_cutensornet_tpu_torch.ops import svd
+
+    rng = np.random.default_rng(3)
+    B, m, keep = 6, 32, 12
+    u, _ = np.linalg.qr(rng.standard_normal((B, m, m)) + 1j * rng.standard_normal((B, m, m)))
+    w, _ = np.linalg.qr(rng.standard_normal((B, m, m)) + 1j * rng.standard_normal((B, m, m)))
+    sv = np.concatenate([np.geomspace(1.0, 0.3, keep), np.geomspace(0.03, 0.003, m - keep)])
+    theta = torch.from_numpy(((u * sv) @ w.conj().transpose(0, 2, 1)).astype(dtype))
+    prec = "f32" if dtype == np.complex64 else "f64"
+    cfg = SimConfig(chi=keep, svd_method=method, precision=prec)
+    _build.reset_counters()
+    lg, rg, kfg, rkg = svd.truncated_svd(theta.to(dev), cfg, keep)
+    torch.cuda.synchronize()
+    assert sum(_build.LAUNCHES.values()) == 0 and sum(_build.PLAIN_ON_CUDA.values()) == 0
+    assert lg.is_cuda and rg.is_cuda
+    lc, rc, kfc, rkc = svd.truncated_svd(theta, cfg, keep)
+    tol = 1e-5 if prec == "f32" else 1e-10
+    lg, rg = lg.cpu(), rg.cpu()
+    assert (lg @ lg.mH - lc @ lc.mH).abs().max().item() <= tol
+    assert (lg @ rg - lc @ rc).abs().max().item() <= tol
+    assert (kfg.cpu() - kfc).abs().max().item() <= tol
+    assert torch.equal(rkg.cpu(), rkc)
+
+
+@pytest.mark.parametrize("route,cfg_kw,routing,used,unused", [
+    ("svd", dict(svd_method="svd", fused_split=True), "tracked", ("orth_r",),
+     ("split", "orth", "gate_split")),
+    ("eigh", dict(svd_method="eigh", fused_split=True, fused_gate=True), "tracked", ("orth_r",),
+     ("split", "orth", "gate_split")),
+    ("reference", dict(svd_method="subspace", fused_split=True), "reference",
+     ("split", "orth_r"), ("orth", "gate_split")),
+])
+def test_option_routes_on_card_match_cpu(dev, monkeypatch, route, cfg_kw, routing, used,
+                                         unused):
+    """The svd and eigh routes (cuSOLVER and K2; K1 and K4 never, even with
+    the fused-gate flag) and reference routing (K1 + K2) on 8 qubits."""
+    monkeypatch.setenv("QMLTPU_STAGED", "1")
+    nq = 8
+    X = np.random.default_rng(2).uniform(0.0, 2.0, size=(6, nq))
+    ans = KernelStateAnsatz(nq, 1, 1.0, entanglement_graph(nq, 2), routing=routing)
+    cfg = SimConfig(chi=16, tile_block=2, **cfg_kw)
+    _build.reset_counters()
+    K_gpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cuda")
+    for name in used:
+        assert _build.LAUNCHES[name] > 0, (route, name)
+    for name in unused:
+        assert _build.LAUNCHES[name] == 0, (route, name)
+    assert sum(_build.PLAIN_ON_CUDA.values()) == 0
+    K_cpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cpu")
+    np.testing.assert_allclose(K_gpu, K_cpu, atol=3e-5)
+
+
+def test_gate_list_on_card_matches_cpu(dev):
+    """``simulate_gate_list`` of ``circuit_for_data`` on the card: one K1
+    launch per two-site op and one K2 launch per center move."""
+    from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX
+    from qml_cutensornet_tpu_torch.models.simulate import lower_gate_list, simulate_gate_list
+    from qml_cutensornet_tpu_torch.ops import mps
+
+    nq = 8
+    ans = KernelStateAnsatz(nq, 2, 1.0, entanglement_graph(nq, 3))
+    gates = ans.circuit_for_data(np.random.default_rng(4).uniform(0.0, 2.0, size=nq))
+    kinds = lower_gate_list(gates, nq)[1]
+    cfg = SimConfig(chi=16, svd_method="subspace", fused_split=True)
+    _build.reset_counters()
+    st = simulate_gate_list(gates, nq, cfg, device="cuda")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["split"] == int(np.sum((kinds != GATE_I) & (kinds < GATE_RX)))
+    assert _build.LAUNCHES["orth_r"] == int(np.sum(kinds == GATE_I))
+    assert sum(_build.PLAIN_ON_CUDA.values()) == 0
+    ref = simulate_gate_list(gates, nq, cfg, device="cpu")
+    a = mps.to_dense(mps.mps_to_numpy(st)[0][0], nq)
+    b = mps.to_dense(mps.mps_to_numpy(ref)[0][0], nq)
+    assert abs(abs(np.vdot(a, b)) ** 2 / (np.vdot(a, a) * np.vdot(b, b)).real - 1.0) <= 3e-5
+
+
+def test_checkpoint_resume_on_card(dev, tmp_path):
+    """Per-tile checkpoint on the card (the reference's own case, f64 so
+    that the normalized first tile stands for the raw one the build saves):
+    removed at the end; a partial one holding the first tile resumes to the
+    full Gram."""
+    nq = 6
+    X = np.random.default_rng(0).uniform(0, 2, size=(10, nq))
+    ans = KernelStateAnsatz(nq, 1, 0.8, entanglement_graph(nq, 2))
+    cfg = SimConfig(chi=8, precision="f64", svd_method="subspace", fused_split=True)
+    kw = dict(cfg=cfg, sim_batch=4, tile=4, checkpoint=True, checkpoint_dir=str(tmp_path),
+              device="cuda")
+    K_full = build_kernel_matrix(ans, X, info_file=str(tmp_path / "run"), **kw)
+    assert not list(tmp_path.glob("checkpoint_*.npy"))
+    partial = np.zeros((12, 12))
+    partial[:4, :4] = K_full[:4, :4]
+    np.save(tmp_path / "checkpoint_run.npy", partial)
+    K_res = build_kernel_matrix(ans, X, info_file=str(tmp_path / "run"), **kw)
+    np.testing.assert_allclose(K_res, K_full, atol=1e-12)
+    assert not list(tmp_path.glob("checkpoint_*.npy"))
+
+
+def test_choose_chi_and_mem_log_on_card_match_cpu(dev):
+    """``choose_chi`` picks the CPU's chi on the card; the op-by-op memory
+    log of ``cli.main_track_mem`` has the CPU's lines."""
+    import io
+
+    from qml_cutensornet_tpu_torch.cli.main_track_mem import simulate_with_mem_log
+    from qml_cutensornet_tpu_torch.utils.autotune import choose_chi
+
+    nq = 8
+    ans = KernelStateAnsatz(nq, 2, 1.0, entanglement_graph(nq, 3))
+    X = np.random.default_rng(1).uniform(0, 2, size=(3, nq))
+    cfg = SimConfig(precision="f64", svd_method="subspace", fused_split=True)
+    chis = [choose_chi(ans.schedule, X, cfg, chi_start=2, chi_max=16, device=d)
+            for d in ("cuda", "cpu")]
+    assert chis[0] == chis[1]
+    logs = [io.StringIO(), io.StringIO()]
+    for log, d in zip(logs, ("cuda", "cpu")):
+        simulate_with_mem_log(ans.schedule, X[0], dataclasses.replace(cfg, chi=16), device=d,
+                              log=log)
+    sizes = [[float(line.split("=")[1]) for line in log.getvalue().splitlines()] for log in logs]
+    assert len(sizes[0]) == len(sizes[1]) == ans.schedule.num_two_site_ops
+    np.testing.assert_allclose(sizes[0], sizes[1], atol=1e-12)

@@ -186,8 +186,9 @@ def test_eligibility_follows_the_reference():
                                  fused_interpret=True, oversample=over)
                 cfg = SimConfig.from_reference(dataclasses.asdict(rcfg))
                 assert svd.gate_split_eligible(cfg, chi) == jsvd.gate_split_eligible(rcfg, chi)
-    assert not svd.gate_split_eligible(SimConfig(chi=8, fused_split=True, fused_gate=True), 8)
-    assert svd.gate_split_eligible(SimConfig(chi=16, fused_split=True, fused_gate=True), 16)
+    sub = dict(svd_method="subspace", fused_split=True, fused_gate=True)
+    assert not svd.gate_split_eligible(SimConfig(chi=8, **sub), 8)
+    assert svd.gate_split_eligible(SimConfig(chi=16, **sub), 16)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -119,7 +119,8 @@ def test_rectangular_gram_matches_dense_f64(fused_split, fused_gate):
     rng = np.random.default_rng(3)
     X, Y = rng.uniform(0.0, 2.0, size=(5, nq)), rng.uniform(0.0, 2.0, size=(3, nq))
     em = entanglement_graph(nq, d)
-    cfg = SimConfig(chi=16, precision="f64", fused_split=fused_split, fused_gate=fused_gate)
+    cfg = SimConfig(chi=16, precision="f64", svd_method="subspace", fused_split=fused_split,
+                    fused_gate=fused_gate)
     K = build_kernel_matrix(KernelStateAnsatz(nq, reps, 1.0, em), X, Y=Y, cfg=cfg,
                             sim_batch=4, tile=4, device="cpu")
     want = np.array([[dense.kernel_entry(y, x, reps, 1.0, em) for x in X] for y in Y])

@@ -86,7 +86,7 @@ def test_apply_2site_matches_reference_and_dense(direction):
         state = mps.mps_from_reference(t.real, t.imag, fid.astype(np.float32), bd)
         out = apply_schedule_op(state, SITE, kind, direction,
                                 torch.tensor([theta], dtype=torch.float32),
-                                SimConfig(chi=CHI))
+                                SimConfig(chi=CHI, svd_method="subspace"))
         ot, ofid, obd = mps.mps_to_numpy(out)
         ref = jmps.apply_2site(_ref_state(t, 0), SITE, _ref_gate(kind, theta), rcfg, direction)
         rt = jcpx.to_np(ref.tensors)
@@ -105,7 +105,7 @@ def test_move_center_matches_reference(direction):
     rng = np.random.default_rng(10 + direction)
     t, fid, bd = _random_state(rng, 2, np.complex64)
     out = mps.move_center(mps.mps_from_reference(t.real, t.imag, fid.astype(np.float32), bd),
-                          SITE, direction, SimConfig(chi=CHI))
+                          SITE, direction, SimConfig(chi=CHI, svd_method="subspace"))
     ot = mps.mps_to_numpy(out)[0]
     rcfg = RefConfig(chi=CHI, svd_method="subspace")
     for b in range(2):
@@ -128,7 +128,7 @@ def test_f64_updates_match_dense_to_roundoff():
     rng = np.random.default_rng(3)
     t, fid, bd = _random_state(rng, 2, np.complex128)
     state = mps.mps_from_reference(t.real, t.imag, fid, bd)
-    cfg = SimConfig(chi=CHI, precision="f64")
+    cfg = SimConfig(chi=CHI, precision="f64", svd_method="subspace")
     thetas = torch.tensor([0.3, 1.1], dtype=torch.float64)
     state = apply_schedule_op(state, SITE, GATE_XXSW, 1, thetas, cfg)
     state = mps.move_center(state, SITE - 1, 1, cfg)

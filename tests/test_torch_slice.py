@@ -3,7 +3,8 @@
 roundoff of an untruncated chi-16 run) and against the JAX reference in
 f32 with staged chi on (3e-5: the reference's own fused-vs-unfused Gram
 bar, tests/test_pallas_split.py), the port CLI ``main_no_test`` on
-``QMLTPU_DEVICE=cpu``, and the knobs and devices that must raise."""
+``QMLTPU_DEVICE=cpu``, the knobs that reach the engine, and the knobs and
+devices that must raise."""
 
 import dataclasses
 import json
@@ -42,7 +43,7 @@ def test_f64_gram_matches_dense():
     X = _points(0)
     em = entanglement_graph(NQ, D)
     K = build_kernel_matrix(KernelStateAnsatz(NQ, REPS, 1.0, em), X,
-                            cfg=SimConfig(chi=CHI, precision="f64"),
+                            cfg=SimConfig(chi=CHI, precision="f64", svd_method="subspace"),
                             sim_batch=4, tile=4, device="cpu")
     np.testing.assert_allclose(K, _dense_kernel(X, REPS, em), atol=1e-10)
 
@@ -84,9 +85,8 @@ def test_cli_main_no_test_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("QMLTPU_ROUTING", "reference"), ("QMLTPU_MESH", "2"),
-    ("QMLTPU_MGS_PAIR", "1"), ("QMLTPU_SHARD_MPS", "all"), ("QMLTPU_CHI", "auto"),
-    ("QMLTPU_CHECKPOINT", "1"),
+    ("QMLTPU_MESH", "2"), ("QMLTPU_MGS_PAIR", "1"), ("QMLTPU_SHARD_MPS", "all"),
+    ("QMLTPU_BRICK_CAPS", "1"),
 ])
 def test_unported_knobs_raise(monkeypatch, knob, value):
     monkeypatch.setenv(knob, value)
@@ -97,15 +97,36 @@ def test_unported_knobs_raise(monkeypatch, knob, value):
 @pytest.mark.parametrize("knob,value,field,expected", [
     ("QMLTPU_FUSED_GATE", "1", "fused_gate", True),
     ("QMLTPU_FUSED_SPLIT", "0", "fused_split", False),
+    ("QMLTPU_SVD", "svd", "svd_method", "svd"),
+    ("QMLTPU_SVD", "eigh", "svd_method", "eigh"),
+    ("QMLTPU_ROUTING", "reference", "routing", "reference"),
+    ("QMLTPU_CHECKPOINT", "1", "checkpoint", True),
+    ("QMLTPU_CHI", "auto", "chi", 8),
 ])
 def test_route_knobs_reach_the_config(monkeypatch, knob, value, field, expected):
-    """The knobs of the fused-gate and unfused routes set the config fields
-    the engine routes on; unset, the CLI runs fused_split on, fused_gate off."""
+    """Each knob reaches what the engine reads: the config fields it routes
+    on, the schedule's routing, the Gram build's checkpoint flag, and the
+    cap QMLTPU_CHI=auto probes (here at most 8: one probe on the CPU). Unset,
+    the CLI runs the subspace method, fused_split on, fused_gate off,
+    tracked routing and no checkpoint."""
+    monkeypatch.setenv("QMLTPU_DEVICE", "cpu")
+    monkeypatch.setenv("QMLTPU_AUTO_CHI_MAX", "8")
     argv = ["m", "GPU", "6", "1", "1.0", "1", "5", "5", "1", "v1.csv"]
-    default = _pipeline.sim_config(_pipeline.parse_argv(argv))
-    assert (default.fused_split, default.fused_gate) == (True, False)
+    sample = np.random.default_rng(0).uniform(0.0, 2.0, size=(8, 6))
+
+    def read():
+        params = _pipeline.parse_argv(argv)
+        seen = dataclasses.asdict(_pipeline.sim_config(params, sample_features=sample))
+        seen["routing"] = _pipeline.make_ansatz(params).schedule.routing
+        seen["checkpoint"] = _pipeline.engine_kwargs()["checkpoint"]
+        return seen
+
+    default = read()
+    assert (default["svd_method"], default["fused_split"], default["fused_gate"],
+            default["routing"], default["checkpoint"]) == ("subspace", True, False, "tracked",
+                                                           False)
     monkeypatch.setenv(knob, value)
-    assert getattr(_pipeline.sim_config(_pipeline.parse_argv(argv)), field) is expected
+    assert read()[field] == expected
 
 
 def test_cuda_device_without_card_raises(monkeypatch):

@@ -37,7 +37,7 @@ def _data(seed):
 def _quantum_kernels(seed=0):
     x_tr, y_tr, x_te, y_te = _data(seed)
     ans = KernelStateAnsatz(NQ, 1, 1.0, entanglement_graph(NQ, 1))
-    cfg = SimConfig(chi=8, fused_split=True)
+    cfg = SimConfig(chi=8, svd_method="subspace", fused_split=True)
     k_tr = build_kernel_matrix(ans, x_tr, cfg=cfg, sim_batch=20, tile=20, device="cpu")
     k_te = build_kernel_matrix(ans, x_tr, Y=x_te, cfg=cfg, sim_batch=20, tile=20, device="cpu")
     return k_tr, y_tr, k_te, y_te
