@@ -5,10 +5,12 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: torch sees a card; print ``nvidia-smi`` name and power limit.
-2. build: compile ``qml_cutensornet_tpu_torch/csrc`` with nvcc (one process
-   per source, all at once; timed), print the ptxas resource lines, and check
-   that a launch asking for more dynamic shared memory than the card allows
-   raises (negative control).
+2. build: compile ``qml_cutensornet_tpu_torch/csrc`` with nvcc (two
+   libraries per source, the single-column one and the pair one, one
+   process each, all ten at once; timed; where ``build/parent`` holds the
+   parent commit's sources, their five build alone first, timed), print the
+   ptxas resource lines, and check that a launch asking for more dynamic
+   shared memory than the card allows raises (negative control).
 3. kernels: each of the five kernels against its plain PyTorch version on
    the card at the main paths' shapes (chi 8..64, batch 32 and 100, 1 and 2
    power iterations; full-rank, rank-deficient, zero-padded and graded
@@ -37,6 +39,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    memory or global scratch, each in-panel group), complex64 and
    complex128, two launches bit-equal, and its times at every shape of its
    routes (m 64 to 2048, k 16 to 80) beside the parent's K3.
+3b. pair kernels: the block-2 in-panel variant of K1 to K5 (``pair``, built
+   as a second library per source with ``-DQK_PAIR``) against the plain pair
+   versions, complex64, on every launch plan the wrappers choose (K1 and K4
+   at chi 8 to 128, nc 13 to 128; K2 at m 16 to 256; K3 on its nine plans;
+   K5 at chi 16 to 128), full-rank, rank-deficient, zero-padded and graded
+   inputs and panels of odd width, two launches bit-equal on each plan; K1
+   single-column and pair at the brick caps' rectangular shapes (m, k, nc)
+   = (2 cr, 2 cl, cm); in complex128 ``pair`` changes no output bit; then
+   the pair kernels' times beside the single-column ones (CUDA events,
+   turns single, pair, pair, single).
 4. default route: the port's ``cli.main_no_test`` at the repo's headline
    shape (32 qubits, r=2, d=6, chi 64, f32, 102 train points of the pinned v1
    data): kernels K1 and K2 carry it; K symmetric with unit diagonal, its
@@ -75,6 +87,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    launches); (c) the same with ``QMLTPU_FUSED_GATE=0``, K1 on every pair
    update, held to (b) within 1e-4; (e) (b) in f64; fidelity, chi, sim and
    tile seconds of each run beside the card's name and power limit.
+7b. (k) the pair step (``QMLTPU_MGS_PAIR=1``): ``cli.main_no_test`` at the
+   headline shape (K1 and K2 pair) against the golden (1e-6) and the default
+   route's Gram (3e-5), sim seconds beside the default route's; one sim
+   batch each of the fused-gate route (K4 pair), the unfused route (K3
+   pair) and the nf-100 brick route through K5 (pair), each held to its
+   single-column run at that route's tolerance.
+7c. (l) the brick caps (``QMLTPU_BRICK_CAPS=1``, fused gate, chi 128,
+   oversampling 0): 14 qubits against the tracked route and the uncapped
+   run (3e-5); nf 100, one sim batch of 8, through K5 (the square buckets)
+   and K1 (the rectangles), against the uncapped run (1e-4), sim seconds
+   and launches by kernel beside the uncapped run's.
 8. svd and eigh routes: ``QMLTPU_SVD=svd`` and ``=eigh`` at the headline
    shape on one sim batch of 8 circuits (the golden's 8 train points,
    through ``cli._pipeline.build``, the train-Gram call of
@@ -101,8 +124,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``MPS size`` line per op of the schedule (3744), all positive.
 
 On every route the launch counters must equal the counts worked out from
-the op stream (the brick layers' chunk plan on the brick route) and the
-routing rules, and no plain version may have run on a CUDA tensor. The last three lines of stdout are the card's name and power
+the op stream (the brick layers' chunk plan on the brick route, its caps
+buckets under ``QMLTPU_BRICK_CAPS``) and the routing rules, every launch must
+come from the pair libraries exactly when the pair step is on (f32), and no
+plain version may have run on a CUDA tensor. The last three lines of stdout are the card's name and power
 limit, the kernels summary JSON and the result JSON ``{"ok": true,
 "device": {...}}``.
 """
@@ -304,18 +329,18 @@ def compare(qk, rk, qp, rp, x, what, with_s2, surplus=False):
     return max(proj, prod)
 
 
-def compare_orth(orth_mod, v, what):
+def compare_orth(orth_mod, v, what, pair=False):
     """Kernel K3 against its plain version on ``v`` (r = q^H v on both sides)."""
-    qk, qp = orth_mod.orth_cuda(v), orth_mod.orth_plain(v)
+    qk, qp = orth_mod.orth_cuda(v, pair), orth_mod.orth_plain(v, pair)
     torch.cuda.synchronize()
     return compare(qk, qk.mH @ v, qp, qp.mH @ v, v, what, False)
 
 
-def compare_gate(split_mod, A, Bm, g, v0, iters, what, surplus=False):
+def compare_gate(split_mod, A, Bm, g, v0, iters, what, surplus=False, pair=False):
     """Kernel K4 against its plain version: the factorization of theta and
     ``tot = ||theta||^2`` (``surplus`` as in :func:`compare`)."""
-    qk, rk, totk = split_mod.gate_subspace_factor_cuda(A, Bm, g, v0, iters)
-    qp, rp, totp = split_mod.gate_subspace_factor_plain(A, Bm, g, v0, iters)
+    qk, rk, totk = split_mod.gate_subspace_factor_cuda(A, Bm, g, v0, iters, pair)
+    qp, rp, totp = split_mod.gate_subspace_factor_plain(A, Bm, g, v0, iters, pair)
     torch.cuda.synchronize()
     theta = split_mod.gate_theta(A, Bm, g)
     tot_err = max(((totk - totp).abs() / totp).max().item(),
@@ -324,7 +349,7 @@ def compare_gate(split_mod, A, Bm, g, v0, iters, what, surplus=False):
     return max(compare(qk, rk, qp, rp, theta, what, True, surplus), tot_err)
 
 
-def compare_brick(split_mod, A, Bm, g, lam, v0, iters, what):
+def compare_brick(split_mod, A, Bm, g, lam, v0, iters, what, pair=False):
     """Kernel K5 against its plain version, on quantities that do not depend
     on the basis: the projected pair ``theta_t V^H V`` (from na0 and q2,
     relative to max |theta_t|), the sorted s2 (relative to the largest),
@@ -334,8 +359,8 @@ def compare_brick(split_mod, A, Bm, g, lam, v0, iters, what):
     surplus row can survive the dependent-column cutoff by rounding in
     either version, as in K1's comparison (it adds nothing to the projected
     pair: theta_t has no rows where the weights are zero)."""
-    q2, na0, s2, tot = split_mod.brick_gate_split_cuda(A, Bm, g, lam, v0, iters)
-    pq2, pna0, ps2, ptot = split_mod.brick_gate_split_plain(A, Bm, g, lam, v0, iters)
+    q2, na0, s2, tot = split_mod.brick_gate_split_cuda(A, Bm, g, lam, v0, iters, pair)
+    pq2, pna0, ps2, ptot = split_mod.brick_gate_split_plain(A, Bm, g, lam, v0, iters, pair)
     torch.cuda.synchronize()
     theta_t = split_mod.gate_theta(A, Bm, g)
     proj = lambda na, q: na.mT @ q.conj()
@@ -394,7 +419,7 @@ PARENT_LIBS = ROOT / "build" / "parent_kernels"
 def parent_build_start():
     """Start building the parent commit's K1 to K5 from
     ``build/parent`` (the parent unpacked there by ``git archive``), one
-    ``nvcc`` each, in the background; None where that directory is absent."""
+    ``nvcc`` each, all at once; None where that directory is absent."""
     import subprocess
 
     from qml_cutensornet_tpu_torch.ops import _build
@@ -411,23 +436,19 @@ def parent_build_start():
     return procs
 
 
-def parent_kernels(dev, procs):
-    """The parent commit's K1 to K5, once ``procs``
-    (:func:`parent_build_start`) have built them, called through their own C
-    interfaces (K1, K2, K4 and K5 with the current plans; K3 on
-    ``bcgs2.cuh``'s 256-thread chain with the parent wrapper's placement
-    rule), or None where there is no parent. Timing only: each is checked
-    once against the current kernel on a basis-invariant quantity."""
+def parent_kernels(dev, built):
+    """The parent commit's K1 to K5 (single-column), once
+    :func:`phase_build` has ``built`` them, called through their own C
+    interfaces with the current launch plans, or None where there is no
+    parent. Timing only: each is checked once against the current kernel on
+    a basis-invariant quantity."""
     import ctypes
     import types
 
     from qml_cutensornet_tpu_torch.ops import _build
 
-    if procs is None:
+    if built is None:
         return None
-    for src, proc in procs.items():
-        log_text = proc.communicate()[0]
-        assert proc.returncode == 0, f"parent {src}.cu did not build:\n{log_text}"
     out, srcs = PARENT_LIBS, PARENT_SOURCES
     ks, kr, kg, kb, ko = (ctypes.CDLL(str(out / f"lib{src}.so")) for src in srcs)
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -439,15 +460,13 @@ def parent_kernels(dev, procs):
     kg.qk_gate_split_launch.restype = i
     kb.qk_brick_split_launch.argtypes = [vp] * 10 + [i] * 8 + [ll, vp]
     kb.qk_brick_split_launch.restype = i
-    ko.qk_orth_smem.argtypes, ko.qk_orth_smem.restype = [i] * 4, ll
-    ko.qk_orth_scratch.argtypes, ko.qk_orth_scratch.restype = [i] * 3, ll
-    ko.qk_orth_launch.argtypes, ko.qk_orth_launch.restype = [vp] * 3 + [i] * 5 + [ll, vp], i
+    ko.qk_orth_launch.argtypes, ko.qk_orth_launch.restype = [vp] * 3 + [i] * 7 + [ll, vp], i
     optin = _build.smem_optin(dev.index)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
 
-    # K1, K2, K4 and K5 of the parent take the current C interfaces and
-    # launch plans (ops/split.split_plan, gate_split_plan, brick_split_plan,
-    # ops/orth.orth_r_plan).
+    # The parent's K1 to K5 take the current C interfaces and launch plans
+    # (ops/split.split_plan, gate_split_plan, brick_split_plan,
+    # ops/orth.orth_r_plan, orth_plan).
     from qml_cutensornet_tpu_torch.ops import orth as orth_mod
     from qml_cutensornet_tpu_torch.ops import split as split_mod
 
@@ -511,15 +530,13 @@ def parent_kernels(dev, procs):
         return q2, na0, s2, tot
 
     def orth(v):
-        """The parent's K3: finished vectors and working panel in shared
-        memory while they fit (``place`` 2, 1), else in global scratch."""
         B, m, k = v.shape
-        dbl = int(v.dtype == torch.complex128)
-        place = next((p for p in (2, 1) if ko.qk_orth_smem(m, k, dbl, p) <= optin), 0)
+        plan = orth_mod.orth_plan(B, m, k, v.dtype, optin)
         q = torch.empty_like(v)
-        scratch = torch.empty((B, ko.qk_orth_scratch(m, k, place)), dtype=v.dtype, device=dev)
-        rc = ko.qk_orth_launch(v.data_ptr(), q.data_ptr(), scratch.data_ptr(), B, m, k, dbl,
-                               place, ko.qk_orth_smem(m, k, dbl, place), stream())
+        scratch = torch.empty((B, plan.scratch_cx), dtype=v.dtype, device=dev)
+        rc = ko.qk_orth_launch(v.data_ptr(), q.data_ptr(), scratch.data_ptr(), B, m, k,
+                               int(v.dtype == torch.complex128), int(plan.rows_smem),
+                               plan.group_warps, plan.group_epl, plan.smem_bytes, stream())
         assert rc == 0, f"parent orth launch: CUDA error {rc}"
         return q
 
@@ -580,8 +597,21 @@ def kernel_bounds(B, chi, iters):
 # ----------------------------------------------------------------- phases
 
 def phase_build(dev):
+    """Build the kernels (timed), after the parent commit's where its
+    sources were unpacked into ``build/parent`` (timed alone first, on the
+    same machine: the build before and after this tree's change). Returns
+    ``{source: nvcc output}`` of the parent's build, or None."""
     from qml_cutensornet_tpu_torch.ops import _build, orth
 
+    parent_procs, parent_built = parent_build_start(), None
+    if parent_procs is not None:
+        t0 = time.perf_counter()
+        parent_built = {}
+        for src, proc in parent_procs.items():
+            parent_built[src] = proc.communicate()[0]
+            assert proc.returncode == 0, f"parent {src}.cu did not build:\n{parent_built[src]}"
+        log(f"build of the parent's {len(parent_procs)} sources alone (one nvcc each, all at "
+            f"once): {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
@@ -602,14 +632,13 @@ def phase_build(dev):
         raise AssertionError("a launch over the shared-memory limit did not raise")
     assert _build.LAUNCHES == before, "a refused launch was counted"
     torch.cuda.synchronize()
-    return build_s
+    return parent_built
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, parent_built):
     from qml_cutensornet_tpu_torch.ops import _build, orth, split
     from qml_cutensornet_tpu_torch.ops.svd import gate_feeds, start_block
 
-    parent_procs = parent_build_start()  # built while the checks below run
     rng = np.random.default_rng(20261016)
     kinds = ("full", "rankdef", "padded", "graded")
     err = dict.fromkeys(KERNEL_NAMES, 0.0)
@@ -847,7 +876,7 @@ def phase_kernels(dev):
         log(f"  time {name} B={B} chi={chi}: kernel {k1:.4f} / {k2:.4f} ms, "
             f"plain {p1:.4f} / {p2:.4f} ms, library call "
             f"{'none' if lib is None else f'{lib:.4f} ms (torch.linalg.qr)'}")
-    parent = parent_kernels(dev, parent_procs)
+    parent = parent_kernels(dev, parent_built)
     stage_ms = {"split": {}, "orth_r": {}, "gate_split": {}}
     for chi, (vs, ths, v0s) in stage.items():
         m = 2 * chi
@@ -943,6 +972,190 @@ def phase_kernels(dev):
     return err, times, stage_ms
 
 
+# The caps buckets' K1 shapes at nf 100, chi 128, oversampling 0: (m, k, nc)
+# = (2 cr, 2 cl, cm) of (64, 128, 128), (128, 64, 32), (4, 8, 16), (16, 32,
+# 64), (32, 16, 8), (4, 4, 4) and (8, 4, 4); the (128, 128, 128) bucket is
+# K5's.
+CAPS_K1_SHAPES = ((256, 128, 128), (64, 256, 64), (32, 8, 8), (128, 32, 32), (16, 64, 16),
+                  (8, 8, 4), (8, 16, 4))
+
+
+def phase_pair_kernels(dev):
+    """The block-2 in-panel variant (``pair``, the pair libraries) of K1 to
+    K5 against the plain pair versions, complex64, on every launch plan
+    their wrappers choose, full-rank, rank-deficient, zero-padded and graded
+    inputs and panels of odd width, two launches bit-equal on each plan; K1
+    single-column and pair at the brick caps' rectangular shapes; complex128
+    unchanged by ``pair``; then the pair kernels' times beside the
+    single-column ones (turns single, pair, pair, single). Returns the worst
+    errors and ``{kernel: {shape: {"ms", "pair_ms"}}}``."""
+    from qml_cutensornet_tpu_torch.ops import _build, orth, split
+    from qml_cutensornet_tpu_torch.ops.svd import gate_feeds, start_block
+
+    rng = np.random.default_rng(20261017)
+    kinds = ("full", "rankdef", "padded", "graded")
+    err = dict.fromkeys(KERNEL_NAMES, 0.0)
+    optin = _build.smem_optin(dev.index)
+    c64, c128 = torch.complex64, torch.complex128
+    plans = {name: set() for name in KERNEL_NAMES}
+
+    def worst(name, value):
+        err[name] = max(err[name], value)
+
+    def bit_equal(name, fn, what):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        first = first if isinstance(first, tuple) else (first,)
+        second = second if isinstance(second, tuple) else (second,)
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), (
+            f"pair {name} {what}: two launches differ")
+
+    pair_before = dict(_build.PAIR_LAUNCHES)
+    # K1 and K4 (iters 1 and 2), K2 and K3 at chi 8 to 64, B 32: theta and
+    # rows in shared memory up to chi 32, one row buffer at chi 64; K2 and
+    # K3 with Q (and v) in shared memory. nc 13 at chi 16: a panel of odd
+    # width.
+    for chi, nc in ((8, 8), (16, 16), (16, 13), (32, 32), (64, 64), (64, 80)):
+        m = 2 * chi
+        v0 = start_block(m, nc, c64, dev)
+        for kind in (kinds if nc == chi else ("full", "graded")):
+            th = torch.from_numpy(make_input(rng, kind, 32, m, m, chi)).to(dev)
+            a, b, g = make_pair(rng, kind, 32, chi, dev)
+            feeds = gate_feeds(a, b, g, False)
+            sur = nc > chi and kind in ("rankdef", "padded")
+            for iters in ((1, 2) if nc == chi else (2,)):
+                what = f"B=32 chi={chi} nc={nc} iters={iters} {kind}"
+                qk, rk = split.subspace_factor_cuda(th, v0, iters, True)
+                qp, rp = split.subspace_factor_plain(th, v0, iters, True)
+                torch.cuda.synchronize()
+                worst("split", compare(qk, rk, qp, rp, th, f"pair split {what}", True, sur))
+                worst("gate_split", compare_gate(split, *feeds, v0, iters,
+                                                 f"pair gate_split {what}", sur, True))
+            bit_equal("split", lambda: split.subspace_factor_cuda(th, v0, 2, True), what)
+            bit_equal("gate_split", lambda: split.gate_subspace_factor_cuda(*feeds, v0, 2, True),
+                      what)
+        plans["split"].add(plan_text(split.split_plan(32, m, m, nc, c64, optin, True)))
+        plans["gate_split"].add(plan_text(split.gate_split_plan(32, chi, nc, c64, optin, True)))
+    for m, k in ((16, 8), (32, 16), (64, 32), (128, 64), (64, 13), (128, 45), (256, 128)):
+        for kind in kinds:
+            v = torch.from_numpy(make_input(rng, kind, 32, m, k, m // 2)).to(dev)
+            qk, rk = orth.orth_r_cuda(v, True)
+            qp, rp = orth.orth_r_plain(v, True)
+            torch.cuda.synchronize()
+            what = f"B=32 m={m} k={k} {kind}"
+            worst("orth_r", compare(qk, rk, qp, rp, v, f"pair orth_r {what}", False))
+        bit_equal("orth_r", lambda: orth.orth_r_cuda(v, True), f"m={m} k={k}")
+        plans["orth_r"].add(plan_text(orth.orth_r_plan(32, m, k, c64, optin, True)))
+    # K3 on every complex64 plan (rows in shared memory or global scratch,
+    # each in-panel group; the whole block on the panel in memory at 2048),
+    # and on odd panel widths.
+    for m, k in ((128, 32), (256, 32), (256, 16), (512, 32), (512, 16), (2048, 32), (64, 48),
+                 (128, 80), (1024, 16), (1024, 32), (2048, 8), (256, 128), (512, 64),
+                 (128, 13), (512, 45), (2048, 21)):
+        for kind in kinds:
+            v = torch.from_numpy(make_input(rng, kind, 32, m, k, m // 2)).to(dev)
+            worst("orth", compare_orth(orth, v, f"pair orth B=32 m={m} k={k} {kind}", True))
+        bit_equal("orth", lambda: orth.orth_cuda(v, True), f"m={m} k={k}")
+        plan = orth.orth_plan(32, m, k, c64, optin, True)
+        plans["orth"].add((plan.rows_smem, plan.group_warps, plan.group_epl))
+    assert len(plans["orth"]) == 9, plans["orth"]
+    # K1 with everything in global memory (the brick route's [408, 256, 256],
+    # nc 128) and K4 at chi 128.
+    v0 = start_block(256, 128, c64, dev)
+    for kind in ("full", "padded"):
+        th = torch.from_numpy(make_input(rng, kind, 408, 256, 256, 128)).to(dev)
+        qk, rk = split.subspace_factor_cuda(th, v0, 2, True)
+        qp, rp = split.subspace_factor_plain(th, v0, 2, True)
+        torch.cuda.synchronize()
+        worst("split", compare(qk, rk, qp, rp, th, f"pair split B=408 chi=128 {kind}", True))
+        a, b, g = make_pair(rng, kind, 8, 128, dev)
+        feeds = gate_feeds(a, b, g, False)
+        worst("gate_split", compare_gate(split, *feeds, v0, 2,
+                                         f"pair gate_split B=8 chi=128 {kind}", pair=True))
+    bit_equal("split", lambda: split.subspace_factor_cuda(th, v0, 2, True), "B=408 chi=128")
+    bit_equal("gate_split", lambda: split.gate_subspace_factor_cuda(*feeds, v0, 2, True),
+              "B=8 chi=128")
+    plans["split"].add(plan_text(split.split_plan(408, 256, 256, 128, c64, optin, True)))
+    plans["gate_split"].add(plan_text(split.gate_split_plan(8, 128, 128, c64, optin, True)))
+    # K5 at chi 16 to 128 (6 pairs; the full width's 408 at chi 128), nc 13
+    # at chi 16.
+    for chi, Bn, nc in ((16, 6, 16), (16, 6, 13), (32, 6, 32), (64, 6, 64), (128, 408, 128)):
+        v0 = start_block(2 * chi, nc, c64, dev)
+        for kind in ("full", "padded"):
+            brick = make_brick(rng, kind, Bn, chi, float(kind == "full"), dev)
+            worst("brick_split", compare_brick(
+                split, *brick, v0, 2, f"pair brick_split Bn={Bn} chi={chi} nc={nc} {kind}",
+                pair=True))
+        bit_equal("brick_split", lambda: split.brick_gate_split_cuda(*brick, v0, 2, True),
+                  f"Bn={Bn} chi={chi} nc={nc}")
+        plans["brick_split"].add(plan_text(split.brick_split_plan(Bn, chi, nc, c64, optin, True)))
+    for name in ("split", "orth_r", "gate_split", "brick_split"):
+        log(f"  pair {name} plans checked, two launches bit-equal on each: {sorted(plans[name])}")
+    log(f"  pair orth plans (rows_smem, group warps, elements a lane): {plans['orth']}")
+
+    # K1 single-column and pair at the caps buckets' rectangular shapes.
+    for m, k, nc in CAPS_K1_SHAPES:
+        v0 = start_block(m, nc, c64, dev)
+        for kind in ("full", "padded"):
+            th = torch.from_numpy(make_input(rng, kind, 16, m, k, max(1, min(m, k) // 2))).to(dev)
+            for pair in (False, True):
+                qk, rk = split.subspace_factor_cuda(th, v0, 2, pair)
+                qp, rp = split.subspace_factor_plain(th, v0, 2, pair)
+                torch.cuda.synchronize()
+                worst("split", compare(qk, rk, qp, rp, th,
+                                       f"{'pair' if pair else 'single'} split caps m={m} k={k} "
+                                       f"nc={nc} {kind}", True, surplus=kind == "padded"))
+    diff = {name: _build.PAIR_LAUNCHES[name] - pair_before[name] for name in KERNEL_NAMES}
+    assert all(diff.values()), f"a pair kernel never launched: {diff}"
+
+    # complex128: pair changes no output bit and launches no pair kernel.
+    before = dict(_build.PAIR_LAUNCHES)
+    v = torch.from_numpy(make_input(rng, "graded", 8, 128, 64, 64)).to(dev, c128)
+    th = torch.from_numpy(make_input(rng, "graded", 8, 128, 128, 64)).to(dev, c128)
+    v0 = start_block(128, 64, c128, dev)
+    feeds = tuple(t.to(c128) for t in gate_feeds(*make_pair(rng, "full", 8, 64, dev), False))
+    brick = make_brick(rng, "full", 6, 64, 1.0, dev)
+    brick = tuple(t.to(c128) for t in brick[:3]) + (brick[3].double(),)
+    for name, fn in (("split", lambda p: split.subspace_factor_cuda(th, v0, 2, p)),
+                     ("orth_r", lambda p: orth.orth_r_cuda(v, p)),
+                     ("orth", lambda p: orth.orth_cuda(v, p)),
+                     ("gate_split", lambda p: split.gate_subspace_factor_cuda(*feeds, v0, 2, p)),
+                     ("brick_split", lambda p: split.brick_gate_split_cuda(*brick, v0, 2, p))):
+        a, b = fn(True), fn(False)
+        torch.cuda.synchronize()
+        a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), f"complex128 {name}: pair changed it"
+    assert _build.PAIR_LAUNCHES == before, "a complex128 launch went to a pair library"
+    log("  complex128: pair changes no output bit of K1 to K5 and launches no pair kernel")
+
+    # Times, CUDA events, turns single, pair, pair, single: K1, K2 and K4 at
+    # B 32, chi 64, iters 2; K3 at [32,128,64] and the [32,512,32] panel; K5
+    # at chi 128, 408 pairs.
+    v = torch.from_numpy(make_input(rng, "full", 32, 128, 64, 64)).to(dev)
+    th = torch.from_numpy(make_input(rng, "full", 32, 128, 128, 64)).to(dev)
+    panel = torch.from_numpy(make_input(rng, "full", 32, 512, 32, 256)).to(dev)
+    v0 = start_block(128, 64, c64, dev)
+    feeds = gate_feeds(*make_pair(rng, "full", 32, 64, dev), False)
+    brick = make_brick(rng, "full", BRICK_BN, 128, 1.0, dev)
+    v0b = start_block(256, 128, c64, dev)
+    pair_ms = {}
+    for name, shape, fn, reps in (
+        ("split", "B32_chi64", lambda p: split.subspace_factor_cuda(th, v0, 2, p), 20),
+        ("orth_r", "B32_chi64", lambda p: orth.orth_r_cuda(v, p), 20),
+        ("orth", "m128_k64", lambda p: orth.orth_cuda(v, p), 20),
+        ("orth", "m512_k32", lambda p: orth.orth_cuda(panel, p), 20),
+        ("gate_split", "B32_chi64", lambda p: split.gate_subspace_factor_cuda(*feeds, v0, 2, p),
+         20),
+        ("brick_split", f"Bn{BRICK_BN}_chi128",
+         lambda p: split.brick_gate_split_cuda(*brick, v0b, 2, p), 5),
+    ):
+        s1, p1, p2, s2 = (time_ms(lambda: fn(p), reps) for p in (False, True, True, False))
+        pair_ms.setdefault(name, {})[shape] = {"ms": (s1 + s2) / 2, "pair_ms": (p1 + p2) / 2}
+        log(f"  time {name} {shape}: single-column {s1:.4f} / {s2:.4f} ms, pair {p1:.4f} / "
+            f"{p2:.4f} ms (turns single, pair, pair, single)")
+    return err, pair_ms
+
+
 def op_launches(cfg, count):
     """``add(chi, kind)``: add to ``count`` the kernel launches of one op of
     a stream at stage ``chi`` under ``cfg``: per two-site gate one K4 launch
@@ -953,8 +1166,9 @@ def op_launches(cfg, count):
     orthonormalization by K3. An orthonormalization of more columns than that
     is one K3 launch per panel of ``blocked_qr.PANEL`` on the fused split in
     complex64 and none otherwise (the scanned panel step). Also returns
-    ``split(chi)``, the launches of one truncating split off the gate
-    kernels."""
+    ``split(chi, m, k)``, the launches of one truncating split off the gate
+    kernels, keeping ``chi`` columns of a ``[m, k]`` theta (``2 chi``
+    square by default)."""
     from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX
     from qml_cutensornet_tpu_torch.ops import blocked_qr, orth, svd
 
@@ -967,11 +1181,12 @@ def op_launches(cfg, count):
             return -(-k // blocked_qr.PANEL)
         return 0
 
-    def split(chi):
+    def split(chi, m=None, k=None):
         if cfg.svd_method != "subspace":
             return
         nc = chi + max(0, cfg.oversample)
-        if cfg.fused_split and svd.fused_split_supported(2 * chi, 2 * chi, nc):
+        m, k = m or 2 * chi, k or 2 * chi
+        if cfg.fused_split and svd.fused_split_supported(m, k, nc):
             count["split"] += 1
         else:
             count["orth"] += 2 * iters * panels(nc)
@@ -997,7 +1212,10 @@ def expected_launches(argv, n_batches):
     under the current environment, from the op stream's chunk plan and the
     routing rules (:func:`op_launches`). On the brick route, per chunk of the
     layer plan and per layer, one update per pair chunk: one K5 launch where
-    the stage is brick-split eligible, else the split's K1 or K3 launches."""
+    the stage is brick-split eligible, else the split's K1 or K3 launches;
+    with ``QMLTPU_BRICK_CAPS=1`` the pair chunks of each caps bucket
+    (``ops/vidal.cap_buckets``), K5 where the bucket's ``(cl, cm, cr)`` is
+    eligible, else the split of ``[2 cr, 2 cl]`` keeping ``cm``."""
     from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
     from qml_cutensornet_tpu_torch.models import simulate
     from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX, BrickSchedule
@@ -1023,11 +1241,15 @@ def expected_launches(argv, n_batches):
         for (_, _, _, stage) in chunks2:
             cur = max(cur, stage)  # the simulator's bond cap only grows
             by_stage[cur] = by_stage.get(cur, 0) + 1
-            for _ in range(layers * -(-K // vidal._pair_chunk(K, cur, batch))):
-                if svd.brick_split_eligible(dataclasses.replace(cfg, chi=cur), cur, cur, cur):
-                    count["brick_split"] += 1
-                else:
-                    split_launches(cur)
+            buckets = (vidal.cap_buckets(schedule.num_qubits, K, cur) if cfg.brick_struct_caps
+                       else [(0, K, (cur, cur, cur))])
+            for k0, k1, (cl, cm, cr) in buckets:
+                chunks = -(-(k1 - k0) // vidal._pair_chunk(k1 - k0, max(cl, cm, cr), batch))
+                for _ in range(layers * chunks):
+                    if svd.brick_split_eligible(dataclasses.replace(cfg, chi=cur), cl, cm, cr):
+                        count["brick_split"] += 1
+                    else:
+                        split_launches(cm, 2 * cr, 2 * cl)
         log(f"  brick plan per sim batch of {batch}: {len(chunks2)} chunks of {layers} layers, "
             f"{K} pairs a layer; stage chi -> chunks {by_stage}")
         return {k: n * n_batches for k, n in count.items()}
@@ -1047,8 +1269,10 @@ def expected_launches(argv, n_batches):
 
 def count_launches(run, want, what):
     """Call ``run()`` with the counters set to 0 just before and read just
-    after; the launches must equal ``want`` and no plain version may have
-    run on a CUDA tensor."""
+    after; the launches must equal ``want``, no plain version may have run on
+    a CUDA tensor, and every launch is a pair library's under
+    ``QMLTPU_MGS_PAIR=1`` in f32 and none otherwise. The pair launches go
+    to ``PAIR_BY_RUN[what]``."""
     from qml_cutensornet_tpu_torch.ops import _build
 
     _build.reset_counters()
@@ -1057,11 +1281,20 @@ def count_launches(run, want, what):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_on_cuda = dict(_build.LAUNCHES), dict(_build.PLAIN_ON_CUDA)
-    log(f"{what}: launches {launches}, plain versions on CUDA tensors {plain_on_cuda}, "
-        f"{wall:.3f} s")
+    pair = dict(_build.PAIR_LAUNCHES)
+    log(f"{what}: launches {launches}, of them by the pair libraries {pair}, plain versions "
+        f"on CUDA tensors {plain_on_cuda}, {wall:.3f} s")
     assert launches == want, f"{what}: launches {launches} != expected {want}"
     assert sum(plain_on_cuda.values()) == 0, f"{what}: a plain version ran on a CUDA tensor"
+    pair_mode = (os.environ.get("QMLTPU_MGS_PAIR", "0") != "0"
+                 and os.environ.get("QMLTPU_PRECISION", "f32") == "f32")
+    assert pair == (launches if pair_mode else dict.fromkeys(launches, 0)), (
+        f"{what}: pair launches {pair} (pair step {'on' if pair_mode else 'off'})")
+    PAIR_BY_RUN[what] = pair
     return out, launches
+
+
+PAIR_BY_RUN: dict = {}  # what -> the pair libraries' launches of the run
 
 
 def run_counted(entry, argv, n_batches, what):
@@ -1175,6 +1408,7 @@ def phase_unfused_route(smi):
     check_train_gram(K, 32, "unfused route")
     log(profile_line(info, smi, "unfused route, one sim batch"))
     K_fused, _ = run_counted(main_no_test, ARGV_ONE_BATCH, 1, "default route, same points")
+    GRAMS["unfused, one batch"], GRAMS["default, one batch"] = K, K_fused
     log(profile_line(info, smi, "default route, same points"))
     err = float(np.abs(K - K_fused).max())
     log(f"unfused route vs default route on the same 32 points: max_abs_err {err:.3e} "
@@ -1229,6 +1463,7 @@ def phase_unfused_route(smi):
 
 
 DENSE_VERDICT: dict = {}  # run -> {"f32": err, "f64": err} against the dense Gram
+GRAMS: dict = {}  # Grams that later phases hold their runs to
 
 
 def dense_gram(csv, nq, n_illicit, n_licit, seed, reps=2, gamma=1.0, d=6):
@@ -1278,6 +1513,7 @@ def phase_brick_route(smi):
         K_tracked, tracked = run_counted(main_no_test, ARGV_BRICK14, 1,
                                          "tracked default route, 14 qubits")
         log(profile_line(info, smi, "tracked default route, 14 qubits, chi 128"))
+    GRAMS["brick 14 qubits"], GRAMS["tracked 14 qubits"] = K_brick, K_tracked
     check_train_gram(K_brick, 32, "brick route, 14 qubits")
     check_train_gram(K_tracked, 32, "tracked route, 14 qubits")
     err = float(np.abs(K_brick - K_tracked).max())
@@ -1299,7 +1535,7 @@ def phase_brick_route(smi):
         assert launches["split"] > 0 and launches["orth_r"] == launches["orth"] == 0, launches
         assert (launches["brick_split"] > 0) == (gate == "1"), launches
         add(launches)
-        grams[kern] = K
+        grams[kern] = GRAMS[f"brick nf 100 {kern}"] = K
     err = float(np.abs(grams["K5"] - grams["K1"]).max())
     off = np.abs(grams["K5"][~np.eye(8, dtype=bool)])
     log(f"brick route at nf 100, chi 128, K5 vs K1: max_abs_err {err:.3e} "
@@ -1316,6 +1552,105 @@ def phase_brick_route(smi):
     assert launches["brick_split"] > 0, launches
     add(launches)
     return total, tracked
+
+
+def phase_pair_routes(smi, golden, K_default):
+    """(k) ``QMLTPU_MGS_PAIR=1``: ``cli.main_no_test`` at the headline shape
+    (K1 and K2 from the pair libraries) against the golden and the default
+    route's Gram; then one sim batch each of the fused-gate route (K4), the
+    unfused route (K3) and the nf-100 brick route through K5, each held to
+    its single-column run on the same points at that route's tolerance.
+    Returns ``{path: launches}``, every launch a pair library's."""
+    from qml_cutensornet_tpu_torch.cli import main_no_test
+    from qml_cutensornet_tpu_torch.utils.device import environ
+    from qml_cutensornet_tpu_torch.utils.naming import run_info
+
+    paths = {}
+    with environ(QMLTPU_MGS_PAIR="1"):
+        K, paths["mgs_pair_default"] = run_counted(main_no_test, ARGV, 4, "pair, default route")
+    check_train_gram(K, 102, "pair, default route")
+    gold_err = float(np.abs(K[:8, :8] - golden["k"]).max())
+    route_err = float(np.abs(K - K_default).max())
+    what = "pair, default route"
+    log(profile_line(run_info("train", 32, 2, 1.0, 6, 64, 5, CSV_V1), smi, what)
+        + f", max_abs_err vs f64 golden {gold_err:.3e} (tol {TOL_GOLDEN}), vs the default "
+        f"route's K {route_err:.3e} (tol {TOL_ROUTES}); sim {SIM_SECONDS[what]:.3f} s against "
+        f"the single-column default route's {SIM_SECONDS['default route']:.3f} s")
+    assert gold_err <= TOL_GOLDEN, f"pair 8x8 block off the golden by {gold_err}"
+    assert route_err <= TOL_ROUTES, f"pair K off the default route's by {route_err}"
+
+    one = run_info("train", 32, 2, 1.0, 6, 20, 5, CSV_V1)
+    nf100 = run_info("train", 100, 2, 1.0, 6, 5, 5, CSV_V1)
+    for path, knobs, argv, info, single, tol, single_what in (
+        ("mgs_pair_fused_gate", {"QMLTPU_FUSED_GATE": "1"}, ARGV_ONE_BATCH, one, None,
+         TOL_ROUTES, "fused-gate route, one batch"),
+        ("mgs_pair_unfused", {"QMLTPU_FUSED_SPLIT": "0"}, ARGV_ONE_BATCH, one,
+         "unfused, one batch", TOL_ROUTES, "unfused route, one sim batch"),
+        ("mgs_pair_brick_nf100", dict(**BRICK_KNOBS, QMLTPU_ROUTING="brick",
+                                      QMLTPU_FUSED_GATE="1", QMLTPU_SIM_BATCH="8"),
+         ARGV_BRICK100, nf100, "brick nf 100 K5", TOL_BRICK_ROUTES,
+         "brick route, nf 100, chi 128, K5"),
+    ):
+        with environ(**knobs):
+            if single is None:
+                K_single, _ = run_counted(main_no_test, argv, 1, single_what)
+                log(profile_line(info, smi, single_what))
+            else:
+                K_single = GRAMS[single]
+            with environ(QMLTPU_MGS_PAIR="1"):
+                what = f"pair, {single_what}"
+                K, paths[path] = run_counted(main_no_test, argv, 1, what)
+        log(profile_line(info, smi, what))
+        err = float(np.abs(K - K_single).max())
+        log(f"{what}: max_abs_err vs the single-column run {err:.3e} (tol {tol}); sim "
+            f"{SIM_SECONDS[what]:.3f} s against {SIM_SECONDS[single_what]:.3f} s")
+        assert err <= tol, f"{what}: K off the single-column run's by {err}"
+    for path, name in (("mgs_pair_default", "split"), ("mgs_pair_default", "orth_r"),
+                       ("mgs_pair_fused_gate", "gate_split"), ("mgs_pair_unfused", "orth"),
+                       ("mgs_pair_brick_nf100", "brick_split")):
+        assert paths[path][name] > 0, (path, name, paths[path])
+    return paths
+
+
+def phase_caps_routes(smi):
+    """(l) ``QMLTPU_BRICK_CAPS=1`` on the brick route at chi 128,
+    oversampling 0, with the fused gate: 14 qubits against the tracked route
+    and the uncapped brick run; then nf 100, one sim batch of 8, through K5
+    (the square buckets) and K1 (the rectangles and small squares), against
+    the uncapped run. Returns ``{path: launches}``."""
+    from qml_cutensornet_tpu_torch.cli import main_no_test
+    from qml_cutensornet_tpu_torch.utils.device import environ
+    from qml_cutensornet_tpu_torch.utils.naming import run_info
+
+    paths = {}
+    knobs = dict(**BRICK_KNOBS, QMLTPU_ROUTING="brick", QMLTPU_FUSED_GATE="1",
+                 QMLTPU_BRICK_CAPS="1")
+    what = "caps, brick route, 14 qubits"
+    with environ(**knobs):
+        K, paths["brick_caps_14q"] = run_counted(main_no_test, ARGV_BRICK14, 1, what)
+    log(profile_line(run_info("train", 14, 2, 1.0, 6, 20, 5, CSV_V1), smi, what))
+    check_train_gram(K, 32, what)
+    e_tracked = float(np.abs(K - GRAMS["tracked 14 qubits"]).max())
+    e_uncapped = float(np.abs(K - GRAMS["brick 14 qubits"]).max())
+    log(f"{what}: max_abs_err vs the tracked route {e_tracked:.3e} (tol {TOL_ROUTES}), vs the "
+        f"uncapped brick run {e_uncapped:.3e} (tol {TOL_ROUTES}); sim {SIM_SECONDS[what]:.3f} s "
+        f"against uncapped {SIM_SECONDS['brick route, 14 qubits, chi 128, K5']:.3f} s")
+    assert e_tracked <= TOL_ROUTES and e_uncapped <= TOL_ROUTES, (e_tracked, e_uncapped)
+
+    what = "caps, brick route, nf 100, chi 128"
+    with environ(**knobs, QMLTPU_SIM_BATCH="8"):
+        K, paths["brick_caps_nf100"] = run_counted(main_no_test, ARGV_BRICK100, 1, what)
+    log(profile_line(run_info("train", 100, 2, 1.0, 6, 5, 5, CSV_V1), smi, what))
+    check_train_gram(K, 8, what)
+    err = float(np.abs(K - GRAMS["brick nf 100 K5"]).max())
+    uncapped = "brick route, nf 100, chi 128, K5"
+    log(f"{what}: launches by kernel {paths['brick_caps_nf100']}; max_abs_err vs the uncapped "
+        f"run {err:.3e} (tol {TOL_BRICK_ROUTES}); sim {SIM_SECONDS[what]:.3f} s against "
+        f"uncapped {SIM_SECONDS[uncapped]:.3f} s, tiles {TILE_SECONDS[what]:.3f} s against "
+        f"{TILE_SECONDS[uncapped]:.3f} s")
+    assert paths["brick_caps_nf100"]["brick_split"] > 0 and paths["brick_caps_nf100"]["split"] > 0
+    assert err <= TOL_BRICK_ROUTES, f"{what}: K off the uncapped run's by {err}"
+    return paths
 
 
 def _add_all(total, launches):
@@ -1571,9 +1906,11 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | python {sys.version.split()[0]}")
-    phase_build(dev)
-    err, times, stage_ms = phase_kernels(dev)
+    parent_built = phase_build(dev)
+    err, times, stage_ms = phase_kernels(dev, parent_built)
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f} s")
+    pair_err, pair_ms = phase_pair_kernels(dev)
+    log(f"pair kernels phase done at {time.perf_counter() - t_start:.1f} s")
 
     (WORK / "datasets").mkdir(parents=True, exist_ok=True)
     csv = WORK / "datasets" / CSV_V1
@@ -1594,6 +1931,11 @@ def main() -> int:
     log(f"unfused routes done at {time.perf_counter() - t_start:.1f} s")
     by_path["brick"], by_path["tracked_14q_chi128"] = phase_brick_route(smi)
     log(f"brick route done at {time.perf_counter() - t_start:.1f} s")
+    pair_paths = phase_pair_routes(smi, golden, K_default)
+    by_path.update(pair_paths)
+    log(f"pair routes done at {time.perf_counter() - t_start:.1f} s")
+    by_path.update(phase_caps_routes(smi))
+    log(f"caps routes done at {time.perf_counter() - t_start:.1f} s")
     by_path["svd_eigh"] = phase_svd_methods(smi, golden, K_default, x_train)
     log(f"svd and eigh routes done at {time.perf_counter() - t_start:.1f} s")
     by_path["reference_routing"] = phase_reference_routing(smi, golden, K_default, x_train)
@@ -1608,14 +1950,21 @@ def main() -> int:
 
     bounds = kernel_bounds(32, 64, 2)
     bounds["brick_split"] = brick_bound(BRICK_BN, 128, 128, 2)
+    main_shape = {"split": "B32_chi64", "orth_r": "B32_chi64", "orth": "m128_k64",
+                  "gate_split": "B32_chi64", "brick_split": f"Bn{BRICK_BN}_chi128"}
     kernels = []
     for name, source, replaces in KERNEL_TABLE:
         launches = sum(p[name] for p in by_path.values())
         assert launches > 0, f"kernel {name} never launched on any main path"
+        pair_launches = sum(p[name] for p in pair_paths.values())
+        assert pair_launches > 0, f"kernel {name}'s pair variant never launched on a path"
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "launches_by_path": {path: p[name] for path, p in by_path.items()},
+            "pair_launches": pair_launches,
+            "pair_ms": pair_ms[name][main_shape[name]]["pair_ms"],
+            "pair_ms_by_shape": pair_ms[name], "pair_max_abs_err": pair_err[name],
             "max_abs_err": err[name], "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "library_ms": times[name][2],

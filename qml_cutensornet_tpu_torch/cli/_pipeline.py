@@ -44,10 +44,16 @@ names where the port supports them:
                            after every tile)
     QMLTPU_SIM_BATCH       circuits per batch (default 32)
     QMLTPU_TILE            Gram tile side (default 32)
+    QMLTPU_MGS_PAIR        1: the block-2 in-panel step in kernels K1 to K5
+                           (SimConfig.mgs_pair; default 0, as in the
+                           reference)
+    QMLTPU_BRICK_CAPS      1: the brick engine's structural bond caps (each
+                           layer's pairs updated at their caps' sliced
+                           shapes; SimConfig.brick_struct_caps; default 0)
     QMLTPU_STAGED, QMLTPU_CHUNK_LEN, QMLTPU_NORMALIZE  as in the reference
 
-Knobs of features not ported yet raise: QMLTPU_MESH > 1, QMLTPU_MGS_PAIR=1,
-QMLTPU_SHARD_MPS and QMLTPU_BRICK_CAPS=1.
+Knobs of features not ported yet raise: QMLTPU_MESH > 1 and
+QMLTPU_SHARD_MPS.
 """
 
 from __future__ import annotations
@@ -109,9 +115,6 @@ def check_unported_knobs() -> None:
         raise NotImplementedError("QMLTPU_MESH > 1 (multi-device Gram) is not ported")
     if os.environ.get("QMLTPU_SHARD_MPS", "0") != "0":
         raise NotImplementedError("QMLTPU_SHARD_MPS is not ported")
-    for knob in ("QMLTPU_MGS_PAIR", "QMLTPU_BRICK_CAPS"):
-        if _env_flag(knob):
-            raise NotImplementedError(f"{knob}=1 is not ported")
 
 
 def parse_argv(argv=None) -> RunParams:
@@ -157,6 +160,8 @@ def sim_config(params: RunParams, sample_features=None) -> SimConfig:
         tile_precision=os.environ.get("QMLTPU_TILE_PRECISION", "inherit"),
         fused_split=_env_flag("QMLTPU_FUSED_SPLIT", "1"),
         fused_gate=_env_flag("QMLTPU_FUSED_GATE"),
+        mgs_pair=_env_flag("QMLTPU_MGS_PAIR"),
+        brick_struct_caps=_env_flag("QMLTPU_BRICK_CAPS"),
         tile_block=int(tb_env) if tb_env is not None else 2,
     )
     chi_env = os.environ.get("QMLTPU_CHI")

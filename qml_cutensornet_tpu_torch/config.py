@@ -5,10 +5,13 @@ with torch dtypes in place of the JAX real dtypes. The port runs native
 complex tensors: ``precision`` names the real dtype under them ("f32" ->
 complex64, "f64" -> complex128).
 
-Fields whose behaviour the port does not implement yet raise on a
-non-default value instead of being ignored: ``mgs_pair``,
-``brick_struct_caps``, and ``power_precision`` / ``tile_precision`` other
-than "inherit" / "highest". All three ``svd_method`` values run, with the
+Fields whose behaviour the port does not implement raise on a non-default
+value instead of being ignored: the reduced precisions
+(``power_precision`` / ``tile_precision`` other than "inherit" / "highest",
+``matmul_precision`` other than "highest" / "float32"). ``mgs_pair`` (the
+block-2 in-panel step of kernels K1 to K5) and ``brick_struct_caps`` (the
+brick engine's structural bond caps) run, off by default as in the
+reference. All three ``svd_method`` values run, with the
 reference's dataclass default "svd" (the CLI's default is "subspace", in
 both packages): "subspace" through the kernels below, "svd" and "eigh"
 through ``torch.linalg`` (cuSOLVER on the card). ``fused_split`` and
@@ -78,10 +81,7 @@ class SimConfig:
             raise ValueError("oversample must be >= 0")
         if not 1 <= self.tile_block <= 8:
             raise ValueError("tile_block must be in 1..8")
-        # Reference options the port does not implement yet.
-        for name in ("mgs_pair", "brick_struct_caps"):
-            if getattr(self, name):
-                raise NotImplementedError(f"{name}=True is not ported")
+        # The reduced precisions, which the port does not implement.
         for name in ("power_precision", "tile_precision"):
             if getattr(self, name) not in _FULL_PRECISION:
                 raise NotImplementedError(

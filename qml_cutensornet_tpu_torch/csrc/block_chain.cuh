@@ -52,6 +52,15 @@
 //   butterfly, one named barrier of the group and the group's warp partials
 //   added in a fixed order; no block-wide barrier.
 //
+// The block-2 in-panel variant (the reference's pair=True, mgs_pair): a
+// source built with -DQK_PAIR is the pair library, whose complex64 kernels
+// take the in-panel step two columns at a time (mgs_pairs below: both columns
+// of a pair projected twice against the panel's finished prefix in the same
+// rounds, then the second projected twice against the first); it has no
+// complex128 kernels, because the reference's f64 path never reaches a kernel
+// and so never reads the flag (the wrappers send complex128 to the
+// single-column library).
+//
 // Arithmetic: full-precision complex FMAs on CUDA cores, no TF32, no tensor
 // cores. Every sum is taken in a fixed order, with no atomics: two launches on
 // the same input give bit-equal outputs.
@@ -102,8 +111,32 @@ extern "C" int qk_read_stamps(long long* t, int* id, int cap) {
   } while (0)
 #endif
 
+// QK_DOUBLE(launch) is the complex128 launch in the single-column library and
+// a refusal in the pair library, whose kernels are complex64 only.
+#ifdef QK_PAIR
+#define QK_DOUBLE(...) ((int)cudaErrorInvalidValue)
+#else
+#define QK_DOUBLE(...) (__VA_ARGS__)
+#endif
+
+// 1 in the pair library, 0 in the single-column one (each library that
+// includes this header has its own).
+extern "C" int qk_pair_step() {
+#ifdef QK_PAIR
+  return 1;
+#else
+  return 0;
+#endif
+}
+
 namespace qk {
 namespace blk {
+
+#ifdef QK_PAIR
+constexpr bool LIB_PAIR = true;
+#else
+constexpr bool LIB_PAIR = false;
+#endif
 
 // Phase ids of the stamps.
 enum Stamp {
@@ -260,8 +293,9 @@ __device__ __forceinline__ T warp_reduce_scatter(T (&v)[N]) {
 
 // Scratch of bcgs2_rows in dynamic shared memory: CGS coefficients (nvec x
 // PANEL complex) and the panel's norms^2 before projection (PANEL). The
-// in-panel group's reduction slots are mgs_panel's static shared memory
-// (static_smem_bytes: both element counts of one dtype).
+// in-panel group's reduction slots are mgs_panel's (or mgs_panel_pair's)
+// static shared memory (static_smem_bytes, pair_static_smem_bytes: both
+// element counts of one dtype).
 template <typename T>
 struct OrthWork {
   Cx<T>* coef;
@@ -276,6 +310,12 @@ __host__ __device__ inline size_t orth_work_bytes(int nvec) {
 template <typename T>
 __host__ __device__ inline size_t static_smem_bytes() {
   return 2 * (size_t)(2 * GW * 32) * sizeof(T);
+}
+
+// The same for the pair step (mgs_panel_pair): 2 x GW x 64 values a set.
+template <typename T>
+__host__ __device__ inline size_t pair_static_smem_bytes() {
+  return 2 * (size_t)(2 * GW * 64) * sizeof(T);
 }
 
 template <typename T>
@@ -334,18 +374,18 @@ __host__ __device__ constexpr int pow2_at_least(int n) {
   return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
 }
 
-// v[2s], v[2s + 1] = this thread's part of conj(x_s) . x_TT for s < TT,
+// v[2s], v[2s + 1] = this thread's part of conj(x_s) . x_TGT for s < NS,
 // zeros above.
-template <typename T, int EPL, int TT, int N>
+template <typename T, int EPL, int NS, int TGT, int N>
 __device__ __forceinline__ void dots(const Cx<T> (&x)[PANEL][EPL], T (&v)[N]) {
 #pragma unroll
   for (int s = 0; s < N / 2; ++s) {
     T re = 0, im = 0;
-    if (s < TT) {
+    if (s < NS) {
 #pragma unroll
       for (int u = 0; u < EPL; ++u) {
-        re += x[s][u].re * x[TT][u].re + x[s][u].im * x[TT][u].im;
-        im += x[s][u].re * x[TT][u].im - x[s][u].im * x[TT][u].re;
+        re += x[s][u].re * x[TGT][u].re + x[s][u].im * x[TGT][u].im;
+        im += x[s][u].re * x[TGT][u].im - x[s][u].im * x[TGT][u].re;
       }
     }
     v[2 * s] = re;
@@ -353,19 +393,19 @@ __device__ __forceinline__ void dots(const Cx<T> (&x)[PANEL][EPL], T (&v)[N]) {
   }
 }
 
-// x[TT] -= sum_{s < TT} x[s] c[s], the coefficients c[s] taken from lanes
-// 2s, 2s + 1 of ``tot`` (column TT - 1's coefficient times ``last``), in two
+// x[TGT] -= sum_{s < NS} x[s] c[s], the coefficients c[s] taken from lanes
+// 2s, 2s + 1 of ``tot`` (column NS - 1's coefficient times ``last``), in two
 // interleaved chains.
-template <typename T, int EPL, int TT>
+template <typename T, int EPL, int NS, int TGT>
 __device__ __forceinline__ void project_out(Cx<T> (&x)[PANEL][EPL], T tot, T last) {
   T sr[2][EPL], si[2][EPL];
 #pragma unroll
   for (int u = 0; u < EPL; ++u) sr[0][u] = sr[1][u] = si[0][u] = si[1][u] = T(0);
 #pragma unroll
-  for (int s = 0; s < TT; ++s) {
+  for (int s = 0; s < NS; ++s) {
     T cr = __shfl_sync(0xffffffffu, tot, 2 * s);
     T ci = __shfl_sync(0xffffffffu, tot, 2 * s + 1);
-    if (s == TT - 1) {
+    if (s == NS - 1) {
       cr *= last;
       ci *= last;
     }
@@ -377,8 +417,8 @@ __device__ __forceinline__ void project_out(Cx<T> (&x)[PANEL][EPL], T tot, T las
   }
 #pragma unroll
   for (int u = 0; u < EPL; ++u) {
-    x[TT][u].re -= sr[0][u] + sr[1][u];
-    x[TT][u].im -= si[0][u] + si[1][u];
+    x[TGT][u].re -= sr[0][u] + sr[1][u];
+    x[TGT][u].im -= si[0][u] + si[1][u];
   }
 }
 
@@ -409,16 +449,16 @@ __device__ __forceinline__ void mgs_columns(Cx<T> (&x)[PANEL][EPL], int pw, T* p
     }
     constexpr int N = pow2_at_least(2 * TT + 1);
     T v[N];
-    dots<T, EPL, TT, N>(x, v);
+    dots<T, EPL, TT, TT, N>(x, v);
     v[2 * TT] = norm2<T, EPL>(x[TT - 1]);
     T tot = group_sum<N, GWN>(v, part, buf);
     const T inv = finish_column<T, EPL>(x[TT - 1], __shfl_sync(0xffffffffu, tot, 2 * TT),
                                         n2o[TT - 1], dep_tol2);
-    project_out<T, EPL, TT>(x, tot, inv);
+    project_out<T, EPL, TT, TT>(x, tot, inv);
     T w[N];
-    dots<T, EPL, TT, N>(x, w);
+    dots<T, EPL, TT, TT, N>(x, w);
     tot = group_sum<N, GWN>(w, part, buf);
-    project_out<T, EPL, TT>(x, tot, T(1));
+    project_out<T, EPL, TT, TT>(x, tot, T(1));
     mgs_columns<T, EPL, TT + 1, GWN>(x, pw, part, buf, n2o, dep_tol2);
   }
 }
@@ -554,6 +594,315 @@ __device__ __noinline__ void mgs_panel_mem(Cx<T>* P, int ld, int pw, int len, co
   mgs_columns_mem<T, 0>(P, ld, pw, len, part, buf, n2o, dep_tol2);
 }
 
+// ------------------------------------- the block-2 in-panel step (pair)
+//
+// The reference's pair=True branch of orth_rows_body (pallas_qr.py:162-208).
+// For each pair of columns (t, t + 1): two CGS passes of both columns against
+// the panel's finished prefix [0, t); column t finished (norm^2 against
+// dep_tol2 times its norm^2 before projection, then zeroed or scaled by
+// rsqrt(n2 + TINY)); column t + 1 projected twice against the new q_t; column
+// t + 1 finished. Merged rounds, as the single-column step merges them: the
+// first prefix pass shares its round with column t - 1's norm (the previous
+// pair's second column), whose coefficients are scaled by the factor that
+// finishes it; column t's norm and conj(x_t) . x_{t+1} share one round, the
+// coefficient scaled like the column. A pair's prefix round sums 2 x t
+// complex coefficients and a norm, up to 57 values at t = 14, past the 32 of
+// one butterfly: each column's coefficients take a butterfly of their own,
+// and both go through one named barrier (group_sums). The last column of a
+// panel of odd width has no partner: it takes the prefix passes and its norm
+// alone (the single-column step). Four rounds a pair, as the single-column
+// step's two a column.
+
+// One reduction round of a group of GWN warps over A (1 or 2) sets of N
+// values: every thread gives v[a][0..N-1] and gets, in lane l, the group-wide
+// sum of v[a][l % N] in tot[a] (a butterfly per set, one named barrier, the
+// warp partials added in warp order). ``part`` holds two buffers of GWN x 64
+// values (a 32-value slot per set and warp), used in turn.
+template <int N, int A, int GWN, typename T>
+__device__ __forceinline__ void group_sums(T (&v)[A][N], T (&tot)[A], T* part, int& buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* pb = part + buf * (GWN * 64);
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const T s = warp_reduce_scatter<N>(v[a]);
+    if (lane < N) pb[(2 * warp + a) * 32 + lane] = s;
+  }
+  group_bar<GWN>();
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    T t = 0;
+#pragma unroll
+    for (int w = 0; w < GWN; ++w) t += pb[(2 * w + a) * 32 + (lane % N)];
+    tot[a] = t;
+  }
+  buf ^= 1;
+  QK_STAMP(ST_ROUND);
+}
+
+// This thread's part of conj(x_C) . x_{C+1}.
+template <typename T, int EPL, int C>
+__device__ __forceinline__ void pair_dot(const Cx<T> (&x)[PANEL][EPL], T& re, T& im) {
+  re = im = T(0);
+#pragma unroll
+  for (int u = 0; u < EPL; ++u) {
+    re += x[C][u].re * x[C + 1][u].re + x[C][u].im * x[C + 1][u].im;
+    im += x[C][u].re * x[C + 1][u].im - x[C][u].im * x[C + 1][u].re;
+  }
+}
+
+// x_{C+1} -= x_C (cr + i ci).
+template <typename T, int EPL, int C>
+__device__ __forceinline__ void pair_project(Cx<T> (&x)[PANEL][EPL], T cr, T ci) {
+#pragma unroll
+  for (int u = 0; u < EPL; ++u) {
+    x[C + 1][u].re -= x[C][u].re * cr - x[C][u].im * ci;
+    x[C + 1][u].im -= x[C][u].re * ci + x[C][u].im * cr;
+  }
+}
+
+// The last round of a column that waits only for its norm: finish it.
+template <typename T, int EPL, int C, int GWN>
+__device__ __forceinline__ void pair_norm_round(Cx<T> (&x)[PANEL][EPL], T* part, int& buf,
+                                                const T* n2o, T dep_tol2) {
+  T v[1][1] = {{norm2<T, EPL>(x[C])}};
+  T tot[1];
+  group_sums<1, 1, GWN>(v, tot, part, buf);
+  finish_column<T, EPL>(x[C], tot[0], n2o[C], dep_tol2);
+}
+
+// The in-panel block-2 MGS2 from the pair (TT, TT + 1) on (TT even), on the
+// group's registers (layout as mgs_columns): columns before TT - 1 are
+// finished and column TT - 1 waits for its norm. Unrolled over the pairs.
+template <typename T, int EPL, int TT, int GWN>
+__device__ __forceinline__ void mgs_pairs(Cx<T> (&x)[PANEL][EPL], int pw, T* part, int& buf,
+                                          const T* n2o, T dep_tol2) {
+  if constexpr (TT == PANEL) {
+    pair_norm_round<T, EPL, PANEL - 1, GWN>(x, part, buf, n2o, dep_tol2);
+  } else {
+    if (TT >= pw) {
+      if constexpr (TT > 0) pair_norm_round<T, EPL, TT - 1, GWN>(x, part, buf, n2o, dep_tol2);
+      return;
+    }
+    if constexpr (TT > 0) {
+      // Two passes of both columns against [0, TT); column TT + 1 is zeros
+      // past the panel's width, and stays so.
+      constexpr int N = pow2_at_least(2 * TT + 1);
+      T v[2][N], tot[2];
+      dots<T, EPL, TT, TT, N>(x, v[0]);
+      dots<T, EPL, TT, TT + 1, N>(x, v[1]);
+      v[0][2 * TT] = norm2<T, EPL>(x[TT - 1]);
+      group_sums<N, 2, GWN>(v, tot, part, buf);
+      const T inv = finish_column<T, EPL>(x[TT - 1], __shfl_sync(0xffffffffu, tot[0], 2 * TT),
+                                          n2o[TT - 1], dep_tol2);
+      project_out<T, EPL, TT, TT>(x, tot[0], inv);
+      project_out<T, EPL, TT, TT + 1>(x, tot[1], inv);
+      dots<T, EPL, TT, TT, N>(x, v[0]);
+      dots<T, EPL, TT, TT + 1, N>(x, v[1]);
+      group_sums<N, 2, GWN>(v, tot, part, buf);
+      project_out<T, EPL, TT, TT>(x, tot[0], T(1));
+      project_out<T, EPL, TT, TT + 1>(x, tot[1], T(1));
+    }
+    if (TT + 1 == pw) {  // the odd panel's last column: no partner
+      pair_norm_round<T, EPL, TT, GWN>(x, part, buf, n2o, dep_tol2);
+      return;
+    }
+    // Column TT's norm and conj(x_TT) . x_{TT+1} in one round: column TT
+    // finished, x_{TT+1} projected on q_TT (the coefficient scaled like the
+    // column); then the second pass against q_TT.
+    T u[1][4] = {{norm2<T, EPL>(x[TT]), T(0), T(0), T(0)}};
+    pair_dot<T, EPL, TT>(x, u[0][1], u[0][2]);
+    T tot[1];
+    group_sums<4, 1, GWN>(u, tot, part, buf);
+    const T inv = finish_column<T, EPL>(x[TT], __shfl_sync(0xffffffffu, tot[0], 0), n2o[TT],
+                                        dep_tol2);
+    pair_project<T, EPL, TT>(x, __shfl_sync(0xffffffffu, tot[0], 1) * inv,
+                             __shfl_sync(0xffffffffu, tot[0], 2) * inv);
+    T d[1][2];
+    pair_dot<T, EPL, TT>(x, d[0][0], d[0][1]);
+    group_sums<2, 1, GWN>(d, tot, part, buf);
+    pair_project<T, EPL, TT>(x, __shfl_sync(0xffffffffu, tot[0], 0),
+                             __shfl_sync(0xffffffffu, tot[0], 1));
+    mgs_pairs<T, EPL, TT + 2, GWN>(x, pw, part, buf, n2o, dep_tol2);
+  }
+}
+
+// mgs_panel with the block-2 step; its reduction slots are 2 x GWN x 64
+// values of static shared memory (pair_static_smem_bytes).
+template <typename T, int EPL, int GWN = GW>
+__device__ __noinline__ void mgs_panel_pair(Cx<T>* P, int ld, int pw, int len, const T* n2o,
+                                            T dep_tol2) {
+  __shared__ T part[2 * GWN * 64];
+  int buf = 0;
+  Cx<T> x[PANEL][EPL];
+#pragma unroll
+  for (int t = 0; t < PANEL; ++t)
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) {
+      const int e = threadIdx.x + u * GWN * 32;
+      x[t][u] = (t < pw && e < len) ? P[(size_t)t * ld + e] : Cx<T>{T(0), T(0)};
+    }
+  mgs_pairs<T, EPL, 0, GWN>(x, pw, part, buf, n2o, dep_tol2);
+#pragma unroll
+  for (int t = 0; t < PANEL; ++t)
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) {
+      const int e = threadIdx.x + u * GWN * 32;
+      if (t < pw && e < len) P[(size_t)t * ld + e] = x[t][u];
+    }
+}
+
+// The block-2 step on the panel left in memory, the whole block as the group
+// (as mgs_columns_mem: each thread owns the elements threadIdx.x + u * NT of
+// every column). Row TT + 1 is read only when it lies inside the panel.
+template <typename T, int TT>
+__device__ __forceinline__ void mgs_pairs_mem(Cx<T>* P, int ld, int pw, int len, T* part,
+                                              int& buf, const T* n2o, T dep_tol2) {
+  const int tid = threadIdx.x;
+  auto finish = [&](int c, T n2) {
+    const T keep = (n2 > dep_tol2 * n2o[c]) ? T(1) : T(0);
+    const T inv = rsqrt_(n2 + T(TINY)) * keep;
+    for (int e = tid; e < len; e += NT) {
+      Cx<T>& x = P[(size_t)c * ld + e];
+      x.re *= inv;
+      x.im *= inv;
+    }
+    QK_STAMP(ST_COLUMN);
+    return inv;
+  };
+  auto norm_round = [&](int c) {
+    T v[1][1] = {{T(0)}};
+    for (int e = tid; e < len; e += NT) {
+      const Cx<T> x = P[(size_t)c * ld + e];
+      v[0][0] += x.re * x.re + x.im * x.im;
+    }
+    T tot[1];
+    group_sums<1, 1, NW>(v, tot, part, buf);
+    return finish(c, tot[0]);
+  };
+  if constexpr (TT == PANEL) {
+    norm_round(PANEL - 1);
+  } else {
+    if (TT >= pw) {
+      if constexpr (TT > 0) norm_round(TT - 1);
+      return;
+    }
+    const bool two = TT + 1 < pw;
+    Cx<T>* x0 = P + (size_t)TT * ld;
+    Cx<T>* x1 = P + (size_t)(TT + 1) * ld;
+    if constexpr (TT > 0) {
+      constexpr int N = pow2_at_least(2 * TT + 1);
+      // v[a][2s], v[a][2s + 1] = this thread's part of conj(x_s) . x_{TT+a}
+      auto dots2 = [&](T (&v)[2][N]) {
+#pragma unroll
+        for (int a = 0; a < N; ++a) v[0][a] = v[1][a] = T(0);
+        for (int e = tid; e < len; e += NT) {
+          const Cx<T> b0 = x0[e];
+          const Cx<T> b1 = two ? x1[e] : Cx<T>{T(0), T(0)};
+#pragma unroll
+          for (int s = 0; s < TT; ++s) {
+            const Cx<T> a = P[(size_t)s * ld + e];
+            v[0][2 * s] += a.re * b0.re + a.im * b0.im;
+            v[0][2 * s + 1] += a.re * b0.im - a.im * b0.re;
+            v[1][2 * s] += a.re * b1.re + a.im * b1.im;
+            v[1][2 * s + 1] += a.re * b1.im - a.im * b1.re;
+          }
+        }
+      };
+      // x_{TT+a} -= sum_s x_s c_s, c_s from lanes 2s, 2s + 1 of tot[a]
+      // (column TT - 1's times ``last``).
+      auto project2 = [&](const T (&tot)[2], T last) {
+        T cr[2][TT], ci[2][TT];
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int s = 0; s < TT; ++s) {
+            cr[a][s] = __shfl_sync(0xffffffffu, tot[a], 2 * s);
+            ci[a][s] = __shfl_sync(0xffffffffu, tot[a], 2 * s + 1);
+          }
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          cr[a][TT - 1] *= last;
+          ci[a][TT - 1] *= last;
+        }
+        for (int e = tid; e < len; e += NT) {
+          T sr[2][2] = {{T(0), T(0)}, {T(0), T(0)}}, si[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
+#pragma unroll
+          for (int s = 0; s < TT; ++s) {
+            const Cx<T> a = P[(size_t)s * ld + e];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              sr[c][s & 1] += a.re * cr[c][s] - a.im * ci[c][s];
+              si[c][s & 1] += a.re * ci[c][s] + a.im * cr[c][s];
+            }
+          }
+          x0[e].re -= sr[0][0] + sr[0][1];
+          x0[e].im -= si[0][0] + si[0][1];
+          if (two) {
+            x1[e].re -= sr[1][0] + sr[1][1];
+            x1[e].im -= si[1][0] + si[1][1];
+          }
+        }
+      };
+      T v[2][N], tot[2];
+      dots2(v);
+      for (int e = tid; e < len; e += NT) {
+        const Cx<T> x = P[(size_t)(TT - 1) * ld + e];
+        v[0][2 * TT] += x.re * x.re + x.im * x.im;
+      }
+      group_sums<N, 2, NW>(v, tot, part, buf);
+      const T inv = finish(TT - 1, __shfl_sync(0xffffffffu, tot[0], 2 * TT));
+      project2(tot, inv);
+      dots2(v);
+      group_sums<N, 2, NW>(v, tot, part, buf);
+      project2(tot, T(1));
+    }
+    if (!two) {  // the odd panel's last column: no partner
+      norm_round(TT);
+      return;
+    }
+    // conj(x_TT) . x_{TT+1} (this thread's part)
+    auto pair_dot_mem = [&](T& re, T& im) {
+      re = im = T(0);
+      for (int e = tid; e < len; e += NT) {
+        const Cx<T> a = x0[e], b = x1[e];
+        re += a.re * b.re + a.im * b.im;
+        im += a.re * b.im - a.im * b.re;
+      }
+    };
+    auto pair_project_mem = [&](T cr, T ci) {
+      for (int e = tid; e < len; e += NT) {
+        const Cx<T> a = x0[e];
+        x1[e].re -= a.re * cr - a.im * ci;
+        x1[e].im -= a.re * ci + a.im * cr;
+      }
+    };
+    T u[1][4] = {{T(0), T(0), T(0), T(0)}};
+    for (int e = tid; e < len; e += NT) {
+      const Cx<T> x = x0[e];
+      u[0][0] += x.re * x.re + x.im * x.im;
+    }
+    pair_dot_mem(u[0][1], u[0][2]);
+    T tot[1];
+    group_sums<4, 1, NW>(u, tot, part, buf);
+    const T inv = finish(TT, __shfl_sync(0xffffffffu, tot[0], 0));
+    pair_project_mem(__shfl_sync(0xffffffffu, tot[0], 1) * inv,
+                     __shfl_sync(0xffffffffu, tot[0], 2) * inv);
+    T d[1][2];
+    pair_dot_mem(d[0][0], d[0][1]);
+    group_sums<2, 1, NW>(d, tot, part, buf);
+    pair_project_mem(__shfl_sync(0xffffffffu, tot[0], 0), __shfl_sync(0xffffffffu, tot[0], 1));
+    mgs_pairs_mem<T, TT + 2>(P, ld, pw, len, part, buf, n2o, dep_tol2);
+  }
+}
+
+template <typename T>
+__device__ __noinline__ void mgs_panel_pair_mem(Cx<T>* P, int ld, int pw, int len, const T* n2o,
+                                                T dep_tol2) {
+  __shared__ T part[2 * NT * 2];
+  int buf = 0;
+  mgs_pairs_mem<T, 0>(P, ld, pw, len, part, buf, n2o, dep_tol2);
+}
+
 // coef[i][t] = sum_e conj(X[i][e]) P[t][e] for i < p0, t < pw: each warp
 // takes 4 x 4 tiles of coefficients, its lanes split the vector's elements,
 // and one butterfly (warp_reduce_scatter) leaves one of the tile's 32 real
@@ -604,12 +953,13 @@ constexpr int EPL_MEM = -1;
 
 // Orthonormalize, in place, the ``nvec`` vectors of length ``len`` held as
 // the rows of X (row j at X + j * ld), the in-panel steps on the group
-// (GWN, EPL) names; with the default group len is at most 2 * GT. Must be
-// entered by the whole block after a barrier that makes X visible; ends
-// with a barrier.
-template <typename T, int GWN = GW, int EPL = EPL_AUTO>
+// (GWN, EPL) names, one column at a time or, with PAIR, two (mgs_pairs); with
+// the default group len is at most 2 * GT. Must be entered by the whole block
+// after a barrier that makes X visible; ends with a barrier.
+template <typename T, int GWN = GW, int EPL = EPL_AUTO, bool PAIR = false>
 __device__ __forceinline__ void bcgs2_rows(Cx<T>* X, int ld, int nvec, int len, const OrthWork<T>& w) {
   static_assert(EPL != EPL_MEM || GWN == NW, "the memory step takes the whole block");
+  static_assert(!PAIR || sizeof(T) == sizeof(float), "the pair step is complex64 only");
   const T dep_tol2 = sizeof(T) == sizeof(double) ? T(DEP_TOL2_F64) : T(DEP_TOL2);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int p0 = 0; p0 < nvec; p0 += PANEL) {
@@ -642,7 +992,17 @@ __device__ __forceinline__ void bcgs2_rows(Cx<T>* X, int ld, int nvec, int len, 
 
     // MGS2 inside the panel, column by column, on the group.
     if (tid < GWN * 32) {
-      if constexpr (EPL == EPL_MEM) {
+      if constexpr (PAIR) {
+        if constexpr (EPL == EPL_MEM) {
+          mgs_panel_pair_mem<T>(P, ld, pw, len, w.n2o, dep_tol2);
+        } else if constexpr (EPL > 0) {
+          mgs_panel_pair<T, EPL, GWN>(P, ld, pw, len, w.n2o, dep_tol2);
+        } else if (len <= GT) {
+          mgs_panel_pair<T, 1>(P, ld, pw, len, w.n2o, dep_tol2);
+        } else {
+          mgs_panel_pair<T, 2>(P, ld, pw, len, w.n2o, dep_tol2);
+        }
+      } else if constexpr (EPL == EPL_MEM) {
         mgs_panel_mem<T>(P, ld, pw, len, w.n2o, dep_tol2);
       } else if constexpr (EPL > 0) {
         mgs_panel<T, EPL, GWN>(P, ld, pw, len, w.n2o, dep_tol2);
@@ -877,7 +1237,7 @@ __device__ __forceinline__ Rows<T> rows_carve(Cx<T>*& p, Cx<T>* rows_scratch, in
 //   V = W theta^T        -> orth(V)
 // Entered by the whole block after a barrier that makes theta visible;
 // returns, after a barrier, with the basis as the rows of x.V.
-template <typename T, bool INPLACE, bool STAGED = false>
+template <typename T, bool INPLACE, bool STAGED = false, bool PAIR = false>
 __device__ __forceinline__ void split_chain(const Cx<T>* th, int ldt, const Cx<T>* v0,
                                             const Rows<T>& x, const OrthWork<T>& ow, int m,
                                             int k, int nc, int iters, Cx<T>* slab = nullptr) {
@@ -896,7 +1256,7 @@ __device__ __forceinline__ void split_chain(const Cx<T>* th, int ldt, const Cx<T
     }
     __syncthreads();
     QK_STAMP(ST_PRODUCT);
-    bcgs2_rows<T>(x.W, x.ldw, nc, k, ow);
+    bcgs2_rows<T, GW, EPL_AUTO, PAIR>(x.W, x.ldw, nc, k, ow);
     // V[j][mm] = sum_kk W[j][kk] theta[mm, kk]
     if constexpr (STAGED) {
       gemm_staged<T, false, false>(x.W, x.ldw, 1, th, 1, ldt, x.V, x.ldv, 1, nc, m, k, slab);
@@ -905,7 +1265,7 @@ __device__ __forceinline__ void split_chain(const Cx<T>* th, int ldt, const Cx<T
     }
     __syncthreads();
     QK_STAMP(ST_PRODUCT);
-    bcgs2_rows<T>(x.V, x.ldv, nc, m, ow);
+    bcgs2_rows<T, GW, EPL_AUTO, PAIR>(x.V, x.ldv, nc, m, ow);
   }
 }
 

@@ -51,6 +51,11 @@
 // a thread fills an SM's register file: 408 elements run in 4 waves on 132
 // SMs. Complex FMAs on CUDA cores only (no TF32, no tensor cores).
 //
+// Built a second time with -DQK_PAIR (ops/_build.py), the same kernels form the
+// pair library: complex64 only, every orthonormalization with the block-2
+// in-panel step (block_chain.cuh mgs_pairs), the reference's
+// _make_brick_split_kernel(iters, chi, pair=True).
+//
 // C interface (ctypes): every entry point returns a cudaError_t as int.
 #include <cuda_runtime.h>
 
@@ -107,7 +112,8 @@ brick_split_kernel(const Cx<T>* __restrict__ A, const Cx<T>* __restrict__ Bm,
   if (threadIdx.x == 0) tot[b] = total;
 
   Cx<T>* slab = p;  // gemm_staged's slabs where the rows are in global memory
-  blk::split_chain<T, INPLACE, !ROWS_SMEM>(thH, ldh, v0, x, ow, m, m, nc, iters, slab);
+  blk::split_chain<T, INPLACE, !ROWS_SMEM, blk::LIB_PAIR>(thH, ldh, v0, x, ow,
+                                                          m, m, nc, iters, slab);
 
   Cx<T>* q2b = q2 + (size_t)b * nc * m;
   Cx<T>* nab = na0 + (size_t)b * nc * m;
@@ -203,8 +209,9 @@ int qk_brick_split_launch(const void* A, const void* Bm, const void* g, const vo
                           int rows_in_smem, int inplace, long long smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const qk::blk::SplitPlan p{theta_in_smem, rows_in_smem, inplace};
-  return dbl ? qk::brick_split_launch<double>(A, Bm, g, lam, v0, q2, na0, s2, tot, scratch, B,
-                                              chi, nc, iters, p, smem_bytes, s)
+  return dbl ? QK_DOUBLE(qk::brick_split_launch<double>(A, Bm, g, lam, v0, q2, na0, s2, tot,
+                                                        scratch, B, chi, nc, iters, p,
+                                                        smem_bytes, s))
              : qk::brick_split_launch<float>(A, Bm, g, lam, v0, q2, na0, s2, tot, scratch, B,
                                              chi, nc, iters, p, smem_bytes, s);
 }

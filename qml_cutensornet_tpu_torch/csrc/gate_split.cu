@@ -41,6 +41,11 @@
 // of the unfused update, and their traffic. Complex FMAs on CUDA cores only
 // (no TF32, no tensor cores).
 //
+// Built a second time with -DQK_PAIR (ops/_build.py), the same kernels form the
+// pair library: complex64 only, every orthonormalization with the block-2
+// in-panel step (block_chain.cuh mgs_pairs), the reference's
+// _make_gate_split_kernel(iters, chi, pair=True).
+//
 // C interface (ctypes): every entry point returns a cudaError_t as int.
 #include <cuda_runtime.h>
 
@@ -89,7 +94,8 @@ gate_split_kernel(const Cx<T>* __restrict__ A, const Cx<T>* __restrict__ Bm,
   if (threadIdx.x == 0) tot[b] = total;
 
   Cx<T>* slab = p;  // gemm_staged's slabs where the rows are in global memory
-  blk::split_chain<T, INPLACE, !ROWS_SMEM>(th, ldt, v0, x, ow, m, m, nc, iters, slab);
+  blk::split_chain<T, INPLACE, !ROWS_SMEM, blk::LIB_PAIR>(th, ldt, v0, x, ow,
+                                                          m, m, nc, iters, slab);
   blk::split_outputs<T, !ROWS_SMEM>(th, ldt, x, q + (size_t)b * m * nc, r + (size_t)b * nc * m,
                                     m, m, nc, slab);
   QK_STAMP(blk::ST_END);
@@ -151,8 +157,8 @@ int qk_gate_split_launch(const void* A, const void* Bm, const void* g, const voi
                          long long smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const qk::blk::SplitPlan p{theta_in_smem, rows_in_smem, inplace};
-  return dbl ? qk::gate_split_launch<double>(A, Bm, g, v0, q, r, tot, scratch, B, chi, nc,
-                                             iters, p, smem_bytes, s)
+  return dbl ? QK_DOUBLE(qk::gate_split_launch<double>(A, Bm, g, v0, q, r, tot, scratch, B,
+                                                       chi, nc, iters, p, smem_bytes, s))
              : qk::gate_split_launch<float>(A, Bm, g, v0, q, r, tot, scratch, B, chi, nc, iters,
                                             p, smem_bytes, s);
 }

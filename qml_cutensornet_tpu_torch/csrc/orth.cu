@@ -47,6 +47,11 @@
 // shared-memory plan also takes the groups that were measured against the
 // chosen ones: 4 warps at two and four elements a lane, 8 warps at two.
 //
+// Built a second time with -DQK_PAIR (ops/_build.py), the same kernels form the
+// pair library: complex64 only, every orthonormalization with the block-2
+// in-panel step (block_chain.cuh mgs_pairs), the reference's
+// _make_orth_kernel(pair=True).
+//
 // C interface (ctypes): every entry point returns a cudaError_t as int.
 #include <cuda_runtime.h>
 
@@ -91,7 +96,7 @@ orth_kernel(const Cx<T>* __restrict__ v, Cx<T>* __restrict__ q, Cx<T>* scratch, 
   QK_STAMP(blk::ST_START);
   __syncthreads();
   QK_STAMP(blk::ST_LOAD);
-  blk::bcgs2_rows<T, GWN, EPL>(Q, ldq, k, m, ow);
+  blk::bcgs2_rows<T, GWN, EPL, blk::LIB_PAIR>(Q, ldq, k, m, ow);
 
   Cx<T>* qb = q + (size_t)b * m * k;
   for (int idx = threadIdx.x; idx < m * k; idx += blk::NT) {
@@ -168,7 +173,8 @@ long long qk_orth_smem(int m, int k, int dbl, int rows_smem) {
 int qk_orth_launch(const void* v, void* q, void* scratch, int B, int m, int k, int dbl,
                    int rows_smem, int gwn, int epl, long long smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dbl ? qk::orth_launch<double>(v, q, scratch, B, m, k, rows_smem, gwn, epl, smem_bytes, s)
+  return dbl ? QK_DOUBLE(qk::orth_launch<double>(v, q, scratch, B, m, k, rows_smem, gwn, epl,
+                                                 smem_bytes, s))
              : qk::orth_launch<float>(v, q, scratch, B, m, k, rows_smem, gwn, epl, smem_bytes, s);
 }
 

@@ -22,6 +22,11 @@
 // the wrapper, ops/orth.py orth_r_plan; the launch refuses a shared-memory
 // size below what the plan needs. Complex FMAs on CUDA cores only (no TF32).
 //
+// Built a second time with -DQK_PAIR (ops/_build.py), the same kernels form the
+// pair library: complex64 only, every orthonormalization with the block-2
+// in-panel step (block_chain.cuh mgs_pairs), the reference's
+// _make_orth_r_kernel(pair=True).
+//
 // C interface (ctypes): every entry point returns a cudaError_t as int.
 #include <cuda_runtime.h>
 
@@ -63,7 +68,7 @@ orth_r_kernel(const Cx<T>* __restrict__ v, Cx<T>* __restrict__ q, Cx<T>* __restr
   QK_STAMP(blk::ST_START);
   __syncthreads();
   QK_STAMP(blk::ST_LOAD);
-  blk::bcgs2_rows<T>(Q, ldq, k, m, ow);
+  blk::bcgs2_rows<T, blk::GW, blk::EPL_AUTO, blk::LIB_PAIR>(Q, ldq, k, m, ow);
 
   Cx<T>* qb = q + (size_t)b * m * k;
   for (int idx = threadIdx.x; idx < m * k; idx += blk::NT) {
@@ -125,7 +130,7 @@ int qk_orth_r_launch(const void* v, void* q, void* r, void* scratch, int B, int 
                      int v_in_smem) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const qk::blk::OrthRPlan p{rows_in_smem, v_in_smem};
-  return dbl ? qk::orth_r_launch<double>(v, q, r, scratch, B, m, k, p, smem_bytes, s)
+  return dbl ? QK_DOUBLE(qk::orth_r_launch<double>(v, q, r, scratch, B, m, k, p, smem_bytes, s))
              : qk::orth_r_launch<float>(v, q, r, scratch, B, m, k, p, smem_bytes, s);
 }
 

@@ -35,6 +35,11 @@
 // split_plan; the launch refuses a shared-memory size below what the plan
 // needs.
 //
+// Built a second time with -DQK_PAIR (ops/_build.py), the same kernels form the
+// pair library: complex64 only, every orthonormalization with the block-2
+// in-panel step (block_chain.cuh mgs_pairs), the reference's
+// _make_split_kernel(iters, pair=True).
+//
 // C interface (ctypes): every entry point returns a cudaError_t as int.
 #include <cuda_runtime.h>
 
@@ -78,7 +83,8 @@ split_kernel(const Cx<T>* __restrict__ theta, const Cx<T>* __restrict__ v0,
   // With the rows in global memory (theta too) the products stage their
   // operands through shared memory, in the space of the orthonormalizer's work.
   Cx<T>* slab = p;
-  blk::split_chain<T, INPLACE, !ROWS_SMEM>(th, ldt, v0, x, ow, m, k, nc, iters, slab);
+  blk::split_chain<T, INPLACE, !ROWS_SMEM, blk::LIB_PAIR>(th, ldt, v0, x, ow,
+                                                          m, k, nc, iters, slab);
   blk::split_outputs<T, !ROWS_SMEM>(th, ldt, x, q + (size_t)b * m * nc, r + (size_t)b * nc * k,
                                     m, k, nc, slab);
   QK_STAMP(blk::ST_END);
@@ -141,8 +147,8 @@ int qk_split_launch(const void* theta, const void* v0, void* q, void* r, void* s
                     long long smem_bytes, void* stream, int theta_in_smem, int inplace) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const qk::blk::SplitPlan p{theta_in_smem, rows_in_smem, inplace};
-  return dbl ? qk::split_launch<double>(theta, v0, q, r, scratch, B, m, k, nc, iters, p,
-                                        smem_bytes, s)
+  return dbl ? QK_DOUBLE(qk::split_launch<double>(theta, v0, q, r, scratch, B, m, k, nc, iters,
+                                                  p, smem_bytes, s))
              : qk::split_launch<float>(theta, v0, q, r, scratch, B, m, k, nc, iters, p,
                                        smem_bytes, s);
 }

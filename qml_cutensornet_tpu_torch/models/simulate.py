@@ -333,7 +333,7 @@ def drive_brick_schedule(x, schedule: BrickSchedule, chunks2, chunk_arrays, laye
         state = vidal.layer_scan(
             state, pars, sws, torch.as_tensor(acts, device=device),
             torch.as_tensor(np.ascontiguousarray(th.transpose(1, 0, 2)), device=device),
-            dataclasses.replace(cfg, chi=cur_chi))
+            dataclasses.replace(cfg, chi=cur_chi), n=n)
     tensors, fidelity, bond_dims = vidal.to_mps_tensors(state, n)
     return MPS(tensors=tensors, fidelity=fidelity, bond_dims=bond_dims)
 

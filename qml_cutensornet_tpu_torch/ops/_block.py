@@ -46,17 +46,28 @@ def orth_work_bytes(nvec: int, dtype: torch.dtype) -> int:
     return nvec * PANEL * cx + PANEL * (cx // 2)
 
 
-def group_static_bytes(warps: int, dtype: torch.dtype) -> int:
+def group_static_bytes(warps: int, dtype: torch.dtype, pair: bool = False) -> int:
     """Static shared memory of one in-panel group's reduction slots, two
-    buffers of ``warps`` x 32 values (``mgs_panel`` / ``mgs_panel_mem``)."""
-    return 2 * warps * 32 * (cx_bytes(dtype) // 2)
+    buffers of ``warps`` x 32 values (``mgs_panel`` / ``mgs_panel_mem``), or
+    with ``pair`` (the block-2 step in complex64) of ``warps`` x 64 values
+    (``mgs_panel_pair`` / ``mgs_panel_pair_mem``)."""
+    slots = 64 if pair_step(pair, dtype) else 32
+    return 2 * warps * slots * (cx_bytes(dtype) // 2)
 
 
-def static_smem_bytes(dtype: torch.dtype) -> int:
-    """Static shared memory of K1 and K2: the 4-warp group's reduction
-    slots, one set per element count (``blk::static_smem_bytes``). A plan's
-    dynamic request plus this must fit the block's opt-in."""
-    return 2 * group_static_bytes(GW, dtype)
+def static_smem_bytes(dtype: torch.dtype, pair: bool = False) -> int:
+    """Static shared memory of K1, K2, K4 and K5: the 4-warp group's
+    reduction slots, one set per element count (``blk::static_smem_bytes``,
+    with ``pair`` ``blk::pair_static_smem_bytes``). A plan's dynamic request
+    plus this must fit the block's opt-in."""
+    return 2 * group_static_bytes(GW, dtype, pair)
+
+
+def pair_step(pair: bool, dtype: torch.dtype) -> bool:
+    """Whether a launch runs the block-2 in-panel step: ``pair`` asked for in
+    complex64. complex128 has no pair library; there the flag changes
+    nothing, as in the reference, whose f64 path never reaches a kernel."""
+    return pair and dtype == torch.complex64
 
 
 EPL_MEM = -1  # the in-panel step on the panel in memory (``blk::EPL_MEM``)

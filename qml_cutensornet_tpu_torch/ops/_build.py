@@ -1,14 +1,18 @@
 """Build ``csrc/*.cu`` with ``nvcc`` and load it with ``ctypes``.
 
 The kernels have a plain C interface (no PyTorch headers), so ``nvcc``
-builds each source in seconds; one ``nvcc`` process per source, all started
-together. Each source becomes its own shared library in ``build/kernels/``
-next to the package (``.gitignore`` lists ``build/``), named by a hash of
-the sources, headers and flags, so a fresh checkout builds on first use and
-a rebuilt source never loads a stale library.
+builds each source in seconds to a minute. Each source becomes two shared
+libraries in ``build/kernels/`` next to the package (``.gitignore`` lists
+``build/``): the single-column one, and the pair library, the same source
+with ``-DQK_PAIR`` (the block-2 in-panel step of the reference's
+``mgs_pair``, complex64 kernels only). One ``nvcc`` process per library, all
+ten started together. Each is named by a hash of the sources, headers and
+flags, so a fresh checkout builds on first use and a rebuilt source never
+loads a stale library.
 
 Launch bookkeeping lives here too: ``LAUNCHES`` counts kernel launches per
-kernel (incremented by each wrapper right after its launch succeeded), and
+kernel (incremented by each wrapper right after its launch succeeded),
+``PAIR_LAUNCHES`` those of them made by a pair library, and
 ``PLAIN_ON_CUDA`` counts calls of a plain PyTorch version on CUDA tensors
 (which only comparisons against the kernel should make).
 """
@@ -33,12 +37,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 KERNELS = ("split", "orth_r", "orth", "gate_split", "brick_split")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+PAIR_LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
 # Filled by the first load(): {"seconds": build time (0 if cached),
 # "path": the libraries' directory, "log": nvcc output}.
 BUILD_INFO: dict = {}
 
-_LIB = None
+_LIBS: dict = {}  # pair (bool) -> the namespace of that library's entry points
+PAIR_FLAG = "-DQK_PAIR"
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source -> {C entry point: (argtypes, restype)}
@@ -69,7 +75,7 @@ SOURCES = {
 
 
 def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
+    for d in (LAUNCHES, PAIR_LAUNCHES, PLAIN_ON_CUDA):
         for key in d:
             d[key] = 0
 
@@ -84,31 +90,43 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); cannot build the CUDA kernels")
 
 
-def _source_key(source: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def count_launch(name: str, pair: bool) -> None:
+    """Count one launch of kernel ``name`` (``pair``: by the pair library)."""
+    LAUNCHES[name] += 1
+    if pair:
+        PAIR_LAUNCHES[name] += 1
+
+
+def _flags(pair: bool) -> tuple:
+    return (*NVCC_FLAGS, PAIR_FLAG) if pair else NVCC_FLAGS
+
+
+def _source_key(source: str, pair: bool) -> str:
+    h = hashlib.sha256(" ".join(_flags(pair)).encode())
     for name in (source, *HEADERS):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def load():
-    """The kernels' C entry points (attributes of the returned namespace),
-    built on first use: every source that has no library yet is compiled by
-    its own ``nvcc`` process, all of them running at once."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
+def load(pair: bool = False):
+    """The kernels' C entry points (attributes of the returned namespace) in
+    the single-column libraries, or with ``pair`` in the pair libraries.
+    Both sets are built on first use: every library that is not there yet
+    is compiled by its own ``nvcc`` process, all of them running at once."""
+    if _LIBS:
+        return _LIBS[pair]
     t0 = time.perf_counter()
-    paths = {src: BUILD_DIR / f"libqk_{pathlib.Path(src).stem}_{_source_key(src)}.so"
-             for src in SOURCES}
+    paths = {(src, p): BUILD_DIR / (f"libqk_{pathlib.Path(src).stem}{'_pair' if p else ''}_"
+                                    f"{_source_key(src, p)}.so")
+             for p in (False, True) for src in SOURCES}
     procs = []
-    for src, so in paths.items():
+    for (src, p), so in paths.items():
         if so.is_file():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [_nvcc(), *_flags(p), "-o", str(tmp), str(CSRC / src)]
         procs.append((cmd, tmp, so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = "", []
@@ -121,17 +139,20 @@ def load():
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("\n".join(failed))
-    lib = types.SimpleNamespace()
-    for src, so in paths.items():
-        cdll = ctypes.CDLL(str(so))
+    libs = {False: types.SimpleNamespace(), True: types.SimpleNamespace()}
+    for (src, p), so in paths.items():
+        cdll = ctypes.CDLL(str(so))  # RTLD_LOCAL: the two libraries' symbols stay apart
         for name, (argtypes, restype) in SOURCES[src].items():
             fn = getattr(cdll, name)
             fn.argtypes = argtypes
             fn.restype = restype
-            setattr(lib, name, fn)
+            setattr(libs[p], name, fn)
+        cdll.qk_pair_step.restype = _i
+        if cdll.qk_pair_step() != int(p):
+            raise RuntimeError(f"{so.name}: built {'without' if p else 'with'} {PAIR_FLAG}")
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(BUILD_DIR), log=log)
-    _LIB = lib
-    return lib
+    _LIBS.update(libs)
+    return libs[pair]
 
 
 def check(rc: int, what: str) -> None:

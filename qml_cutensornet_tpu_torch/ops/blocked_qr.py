@@ -25,6 +25,9 @@ above chi 128) are orthonormalized panel by panel:
     step :func:`mgs2_panel`, in torch ops, which judges every column's
     collapse against its norm BEFORE the projection against earlier panels.
 
+``pair`` (``SimConfig.mgs_pair``) reaches the K3 panels only; the scanned
+panel step ignores it, as the reference's ``_mgs2_panel`` does.
+
 Zero input columns stay exactly zero; dependent columns come out as exact
 zeros. The basis is defined up to a unitary mixing within the span.
 """
@@ -64,9 +67,9 @@ def mgs2_panel(a: torch.Tensor, n2_orig: torch.Tensor) -> torch.Tensor:
     return q
 
 
-def qr_orth_blocked(v: torch.Tensor, kernel_panels: bool) -> torch.Tensor:
+def qr_orth_blocked(v: torch.Tensor, kernel_panels: bool, pair: bool = False) -> torch.Tensor:
     """Orthonormal basis of the columns of ``v [B, m, k]`` (complex), any
-    k; ``kernel_panels`` as in the module docstring."""
+    k; ``kernel_panels`` and ``pair`` as in the module docstring."""
     k = v.shape[2]
     tol = orth.dep_tol2(v.dtype)
     use_kernel = kernel_panels_used(kernel_panels, v.dtype)
@@ -81,7 +84,7 @@ def qr_orth_blocked(v: torch.Tensor, kernel_panels: bool) -> torch.Tensor:
         if use_kernel:
             cross_keep = orth.abs2(a).sum(1) > tol * n2_orig
             a = a * cross_keep[:, None, :].to(a.real.dtype)
-            q[:, :, p0:p0 + PANEL] = orth.orth(a.contiguous())
+            q[:, :, p0:p0 + PANEL] = orth.orth(a.contiguous(), pair)
         else:
             q[:, :, p0:p0 + PANEL] = mgs2_panel(a, n2_orig)
     return q

@@ -121,7 +121,8 @@ def move_center(mps: MPS, site: int, direction: int, cfg: SimConfig) -> MPS:
     """Move the orthogonality center across bond ``(site, site+1)`` by
     ``orth.qr``: the fused Q+R (kernel K2) with ``cfg.fused_split`` up to chi
     128, else kernel K3 (the blocked route above chi 128, ``ops/blocked_qr``)
-    and a matrix product for r.
+    and a matrix product for r; ``cfg.mgs_pair`` selects their block-2
+    in-panel step.
     Exact: no truncation. DIR_R (0)
     leaves the center at ``site+1``, DIR_L (1) at ``site``; a move toward
     where the center already sits is an exact no-op (chunk padding)."""
@@ -131,11 +132,12 @@ def move_center(mps: MPS, site: int, direction: int, cfg: SimConfig) -> MPS:
     b = mps.tensors[:, site + 1]
     if direction == DIR_L:
         th = b.reshape(B, chi, 2 * chi).mH.contiguous()  # t^H [2chi, chi]
-        q, r = orth.qr(th, fused=cfg.fused_split)  # t^H = q r
+        q, r = orth.qr(th, fused=cfg.fused_split, pair=cfg.mgs_pair)  # t^H = q r
         new_b = q.mH.reshape(B, chi, 2, chi)  # row-orthonormal
         new_a = torch.einsum("zasb,zbj->zasj", a, r.mH)
     else:
-        q, r = orth.qr(a.reshape(B, 2 * chi, chi).contiguous(), fused=cfg.fused_split)
+        q, r = orth.qr(a.reshape(B, 2 * chi, chi).contiguous(), fused=cfg.fused_split,
+                       pair=cfg.mgs_pair)
         new_a = q.reshape(B, chi, 2, chi)
         new_b = torch.einsum("zij,zjsc->zisc", r, b)
     mps.tensors[:, site] = new_a

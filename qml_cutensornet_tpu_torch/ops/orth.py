@@ -31,6 +31,15 @@ kernel or raises.
 
 Both kernels run complex64 and, through the double instantiation of the
 same code, complex128. A partial last panel is fine.
+
+``pair`` (``SimConfig.mgs_pair``, the reference's ``pair=True``) selects the
+block-2 in-panel variant: each pair of a panel's columns is projected twice
+against the panel's finished prefix together, then the second column twice
+against the first (the last column of an odd-width panel alone). Same span,
+same exact zeros and dependent-column zeroing; only the f32 summation order
+differs. The kernels run it from their pair libraries (``ops/_build.py``)
+in complex64; in complex128 the flag changes nothing, as in the reference,
+whose f64 path never reaches a kernel.
 """
 
 from __future__ import annotations
@@ -60,9 +69,19 @@ def dep_tol2(dtype: torch.dtype) -> float:
     return DEP_TOL2_F64 if dtype == torch.complex128 else DEP_TOL2
 
 
-def bcgs2_plain(v: torch.Tensor) -> torch.Tensor:
+def _finish_column(x: torch.Tensor, n2_orig: torch.Tensor, tol: float) -> torch.Tensor:
+    """``x [B, m]`` scaled to unit norm, or exact zeros where its squared
+    norm is not above ``tol`` times ``n2_orig [B]``."""
+    n2 = abs2(x).sum(1)
+    keep = (n2 > tol * n2_orig).to(n2.dtype)
+    return x * (torch.rsqrt(n2 + TINY) * keep)[:, None]
+
+
+def bcgs2_plain(v: torch.Tensor, pair: bool = False) -> torch.Tensor:
     """BCGS2 orthonormal basis of the columns of ``v [B, m, k]`` (complex),
-    written with torch ops: the same algorithm and constants as the kernels.
+    written with torch ops: the same algorithm and constants as the kernels,
+    the in-panel step one column at a time or, with ``pair`` in complex64,
+    two (the reference's block-2 branch, ``pallas_qr.orth_rows_body``).
     Shared by the plain versions of all five kernels (each of which counts
     its own use on CUDA tensors)."""
     B, m, k = v.shape
@@ -76,6 +95,21 @@ def bcgs2_plain(v: torch.Tensor) -> torch.Tensor:
             done = q[:, :, :p0]
             for _ in range(2):
                 a = a - done @ (done.mH @ a)
+        if _block.pair_step(pair, v.dtype):
+            for t in range(0, pw, 2):
+                x = a[:, :, t:t + 2]  # the pair (one column at an odd panel's end)
+                if t:
+                    qp = q[:, :, p0:p0 + t]
+                    for _ in range(2):
+                        x = x - qp @ (qp.mH @ x)
+                q0 = _finish_column(x[:, :, 0], n2_orig[:, t], tol)
+                q[:, :, p0 + t] = q0
+                if t + 1 < pw:
+                    x1 = x[:, :, 1]
+                    for _ in range(2):
+                        x1 = x1 - q0 * (q0.conj() * x1).sum(1, keepdim=True)
+                    q[:, :, p0 + t + 1] = _finish_column(x1, n2_orig[:, t + 1], tol)
+            continue
         for t in range(pw):
             x = a[:, :, t]
             if t:
@@ -83,58 +117,56 @@ def bcgs2_plain(v: torch.Tensor) -> torch.Tensor:
                 for _ in range(2):
                     c = (qp.conj() * x[:, :, None]).sum(1)  # [B, t]
                     x = x - (qp * c[:, None, :]).sum(2)
-            n2 = abs2(x).sum(1)
-            keep = (n2 > tol * n2_orig[:, t]).to(n2.dtype)
-            inv = torch.rsqrt(n2 + TINY) * keep
-            q[:, :, p0 + t] = x * inv[:, None]
+            q[:, :, p0 + t] = _finish_column(x, n2_orig[:, t], tol)
     return q
 
 
-def orth_plain(v: torch.Tensor) -> torch.Tensor:
+def orth_plain(v: torch.Tensor, pair: bool = False) -> torch.Tensor:
     """Plain version of K3: the BCGS2 basis."""
     if v.is_cuda:
         _build.PLAIN_ON_CUDA["orth"] += 1
-    return bcgs2_plain(v)
+    return bcgs2_plain(v, pair)
 
 
-def orth_r_plain(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def orth_r_plain(v: torch.Tensor, pair: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K2: ``(q, q^H v)``."""
     if v.is_cuda:
         _build.PLAIN_ON_CUDA["orth_r"] += 1
-    q = bcgs2_plain(v)
+    q = bcgs2_plain(v, pair)
     return q, q.mH @ v
 
 
-def orth(v: torch.Tensor) -> torch.Tensor:
+def orth(v: torch.Tensor, pair: bool = False) -> torch.Tensor:
     """Orthonormal basis ``v [B, m, k] -> q [B, m, k]`` for k <= 128: kernel
     K3 for CUDA tensors, its plain version for CPU tensors."""
     if v.device.type == "cpu":
-        return orth_plain(v)
-    return orth_cuda(v)
+        return orth_plain(v, pair)
+    return orth_cuda(v, pair)
 
 
-def qr_orth(v: torch.Tensor, fused: bool) -> torch.Tensor:
+def qr_orth(v: torch.Tensor, fused: bool, pair: bool = False) -> torch.Tensor:
     """Orthonormal basis of the columns of ``v [B, m, k]`` at any k: K3 up
     to 128 columns, the blocked route above, whose panels go through K3 with
     ``fused`` in complex64 and through the scanned MGS2 step otherwise
-    (``ops/blocked_qr.py``; the reference's ``cpx.qr_orth(v, fused)``)."""
+    (``ops/blocked_qr.py``; the reference's ``cpx.qr_orth(v, fused, pair)``;
+    ``pair`` reaches K3 only, as in the reference)."""
     if v.shape[-1] <= MAX_K:
-        return orth(v.contiguous())
+        return orth(v.contiguous(), pair)
     from qml_cutensornet_tpu_torch.ops import blocked_qr
 
-    return blocked_qr.qr_orth_blocked(v, kernel_panels=fused)
+    return blocked_qr.qr_orth_blocked(v, kernel_panels=fused, pair=pair)
 
 
-def qr(v: torch.Tensor, fused: bool) -> tuple[torch.Tensor, torch.Tensor]:
+def qr(v: torch.Tensor, fused: bool, pair: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """``v [B, m, k] -> (q [B, m, k], r [B, k, k])`` with ``q r == v``. Up to
     128 columns with ``fused``: K2, one launch for both (its plain version
     for CPU tensors). Otherwise the basis from :func:`qr_orth` (``fused``
-    passed on) and ``r = q^H v`` as a batched matrix product."""
+    and ``pair`` passed on) and ``r = q^H v`` as a batched matrix product."""
     if fused and v.shape[-1] <= MAX_K:
         if v.device.type == "cpu":
-            return orth_r_plain(v)
-        return orth_r_cuda(v)
-    q = qr_orth(v, fused)
+            return orth_r_plain(v, pair)
+        return orth_r_cuda(v, pair)
+    q = qr_orth(v, fused, pair)
     return q, q.mH @ v
 
 
@@ -165,13 +197,15 @@ class OrthRPlan:
     scratch_cx: int
 
 
-def orth_r_plan(B: int, m: int, k: int, dtype: torch.dtype, smem_optin: int) -> OrthRPlan:
-    """K2's launch plan, a pure function of the shapes, the dtype and the
+def orth_r_plan(B: int, m: int, k: int, dtype: torch.dtype, smem_optin: int,
+                pair: bool = False) -> OrthRPlan:
+    """K2's launch plan, a pure function of the shapes, the dtype, the
+    in-panel step (``pair``: its static slots are twice as large) and the
     shared memory a block may opt in to: the first of (Q and v in shared
     memory; Q only; neither) that fits."""
     cx = _block.cx_bytes(dtype)
     work = _block.orth_work_bytes(k, dtype)
-    static = _block.static_smem_bytes(dtype)
+    static = _block.static_smem_bytes(dtype, pair)
     rows, vcopy = k * (m + 1) * cx, m * k * cx
     for in_smem, v_smem, nbytes in ((True, True, rows + vcopy), (True, False, rows),
                                     (False, False, 0)):
@@ -182,18 +216,19 @@ def orth_r_plan(B: int, m: int, k: int, dtype: torch.dtype, smem_optin: int) -> 
                      f"(m={m}, k={k}, {dtype})")
 
 
-def orth_r_cuda(v: torch.Tensor, smem_bytes: int | None = None):
-    """Launch K2 on ``v [B, m, k]``. ``smem_bytes`` overrides the plan's
-    dynamic shared memory request (used only to test the launch-error
-    path)."""
+def orth_r_cuda(v: torch.Tensor, pair: bool = False, smem_bytes: int | None = None):
+    """Launch K2 on ``v [B, m, k]``, from the pair library with ``pair`` in
+    complex64. ``smem_bytes`` overrides the plan's dynamic shared memory
+    request (used only to test the launch-error path)."""
     dbl = _check_input(v, "orth_r")
     if v.dim() != 3:
         raise ValueError(f"orth_r: expected [B, m, k], got {tuple(v.shape)}")
     B, m, k = v.shape
     if not (1 <= k <= MAX_K and 1 <= m <= MAX_M and B >= 1):
         raise ValueError(f"orth_r: kernel takes k <= {MAX_K}, m <= {MAX_M}; got m={m}, k={k}")
-    lib = _build.load()
-    plan = orth_r_plan(B, m, k, v.dtype, _build.smem_optin(v.device.index))
+    pair = _block.pair_step(pair, v.dtype)
+    lib = _build.load(pair)
+    plan = orth_r_plan(B, m, k, v.dtype, _build.smem_optin(v.device.index), pair)
     q = torch.empty_like(v)
     r = torch.empty((B, k, k), dtype=v.dtype, device=v.device)
     scratch = torch.empty((B, plan.scratch_cx), dtype=v.dtype, device=v.device)
@@ -203,7 +238,7 @@ def orth_r_cuda(v: torch.Tensor, smem_bytes: int | None = None):
                               plan.smem_bytes if smem_bytes is None else smem_bytes, stream,
                               int(plan.v_smem))
     _build.check(rc, "orth_r kernel launch")
-    _build.LAUNCHES["orth_r"] += 1
+    _build.count_launch("orth_r", pair)
     return q, r
 
 
@@ -226,15 +261,16 @@ class OrthPlan:
     scratch_cx: int
 
 
-def orth_plan(B: int, m: int, k: int, dtype: torch.dtype, smem_optin: int) -> OrthPlan:
-    """K3's launch plan, a pure function of the shapes, the dtype and the
-    shared memory a block may opt in to: the in-panel group of the vector
-    length (``_block.orth_group``), and the rows in shared memory where they
-    fit beside the work and the group's static slots, else in global
-    scratch."""
+def orth_plan(B: int, m: int, k: int, dtype: torch.dtype, smem_optin: int,
+              pair: bool = False) -> OrthPlan:
+    """K3's launch plan, a pure function of the shapes, the dtype, the
+    in-panel step (``pair``) and the shared memory a block may opt in to:
+    the in-panel group of the vector length (``_block.orth_group``), and the
+    rows in shared memory where they fit beside the work and the group's
+    static slots, else in global scratch."""
     warps, epl = _block.orth_group(m)
     work = _block.orth_work_bytes(k, dtype)
-    static = _block.group_static_bytes(warps, dtype)
+    static = _block.group_static_bytes(warps, dtype, pair)
     rows = k * (m + 1) * _block.cx_bytes(dtype)
     for in_smem, nbytes in ((True, rows), (False, 0)):
         if nbytes + work + static <= smem_optin:
@@ -244,18 +280,21 @@ def orth_plan(B: int, m: int, k: int, dtype: torch.dtype, smem_optin: int) -> Or
                      f"(m={m}, k={k}, {dtype})")
 
 
-def orth_cuda(v: torch.Tensor, smem_bytes: int | None = None) -> torch.Tensor:
+def orth_cuda(v: torch.Tensor, pair: bool = False,
+              smem_bytes: int | None = None) -> torch.Tensor:
     """Launch K3 on ``v [B, m, k]`` (k <= 128, any m) as :func:`orth_plan`
-    says. ``smem_bytes`` overrides the plan's dynamic shared memory request
-    (used only to test the launch-error path)."""
+    says, from the pair library with ``pair`` in complex64. ``smem_bytes``
+    overrides the plan's dynamic shared memory request (used only to test
+    the launch-error path)."""
     dbl = _check_input(v, "orth")
     if v.dim() != 3:
         raise ValueError(f"orth: expected [B, m, k], got {tuple(v.shape)}")
     B, m, k = v.shape
     if not (1 <= k <= MAX_K and m >= 1 and B >= 1):
         raise ValueError(f"orth: kernel takes k <= {MAX_K}; got m={m}, k={k}")
-    lib = _build.load()
-    plan = orth_plan(B, m, k, v.dtype, _build.smem_optin(v.device.index))
+    pair = _block.pair_step(pair, v.dtype)
+    lib = _build.load(pair)
+    plan = orth_plan(B, m, k, v.dtype, _build.smem_optin(v.device.index), pair)
     q = torch.empty_like(v)
     scratch = torch.empty((B, plan.scratch_cx), dtype=v.dtype, device=v.device)
     stream = torch.cuda.current_stream(v.device).cuda_stream
@@ -263,5 +302,5 @@ def orth_cuda(v: torch.Tensor, smem_bytes: int | None = None) -> torch.Tensor:
                             int(plan.rows_smem), plan.group_warps, plan.group_epl,
                             plan.smem_bytes if smem_bytes is None else smem_bytes, stream)
     _build.check(rc, "orth kernel launch")
-    _build.LAUNCHES["orth"] += 1
+    _build.count_launch("orth", pair)
     return q

@@ -40,7 +40,10 @@ kernel (``csrc/subspace_split.cu``, ``csrc/gate_split.cu`` and
 launched as :func:`split_plan`, :func:`gate_split_plan` and
 :func:`brick_split_plan` say) or raises. The kernels take nc <= 128, m, k <=
 256 (chi <= 128), iters >= 1, in complex64 (complex128 runs the double
-instantiation).
+instantiation). Each takes ``pair`` (``SimConfig.mgs_pair``): the block-2
+in-panel step of ``ops/orth.bcgs2_plain`` in every orthonormalization of the
+chain, from the pair libraries in complex64; in complex128 it changes
+nothing.
 """
 
 from __future__ import annotations
@@ -56,28 +59,29 @@ MAX_NC = 128
 MAX_MK = 256
 
 
-def _chain_plain(theta: torch.Tensor, v0: torch.Tensor, iters: int):
+def _chain_plain(theta: torch.Tensor, v0: torch.Tensor, iters: int, pair: bool):
     """The double-multiply chain with the plain BCGS2."""
     v = v0.expand(theta.shape[0], *v0.shape)
     for _ in range(iters):
-        w = bcgs2_plain(theta.mH @ v)
-        v = bcgs2_plain(theta @ w)
+        w = bcgs2_plain(theta.mH @ v, pair)
+        v = bcgs2_plain(theta @ w, pair)
     return v, v.mH @ theta
 
 
-def subspace_factor_plain(theta: torch.Tensor, v0: torch.Tensor, iters: int):
+def subspace_factor_plain(theta: torch.Tensor, v0: torch.Tensor, iters: int,
+                          pair: bool = False):
     """Plain version of K1."""
     if theta.is_cuda:
         _build.PLAIN_ON_CUDA["split"] += 1
-    return _chain_plain(theta, v0, iters)
+    return _chain_plain(theta, v0, iters, pair)
 
 
-def subspace_factor(theta: torch.Tensor, v0: torch.Tensor, iters: int):
+def subspace_factor(theta: torch.Tensor, v0: torch.Tensor, iters: int, pair: bool = False):
     """``theta [B, m, k]``, ``v0 [m, nc]`` -> ``(q [B, m, nc], r [B, nc, k])``:
     the kernel for CUDA tensors, the plain version for CPU tensors."""
     if theta.device.type == "cpu":
-        return subspace_factor_plain(theta, v0, iters)
-    return subspace_factor_cuda(theta, v0, iters)
+        return subspace_factor_plain(theta, v0, iters, pair)
+    return subspace_factor_cuda(theta, v0, iters, pair)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,17 +104,18 @@ class SplitPlan:
 
 
 def _plan(B: int, m: int, k: int, nc: int, dtype: torch.dtype, smem_optin: int,
-          stage: int, what: str) -> SplitPlan:
+          stage: int, what: str, pair: bool) -> SplitPlan:
     """The first of K1's placements (theta and rows in shared memory; the
     same with one buffer for W and V; theta in global memory and the rows in
     shared memory, two buffers or one; everything in global memory, the
     products' operands staged through shared memory) that fits, with
     ``stage`` bytes over the rows and the orthonormalizer's work (0 for K1;
-    the theta build's slabs for K4 and K5). One buffer needs one-pass
+    the theta build's slabs for K4 and K5), and the in-panel step's static
+    slots (twice as large with ``pair``). One buffer needs one-pass
     products (:func:`_block.inplace_ok`)."""
     cx = _block.cx_bytes(dtype)
     work = _block.orth_work_bytes(nc, dtype)
-    static = _block.static_smem_bytes(dtype)
+    static = _block.static_smem_bytes(dtype, pair)
     theta = m * (k + 1) * cx
     rows_two = nc * (k + 1 + m + 1) * cx
     rows_one = nc * (max(m, k) + 1) * cx
@@ -132,18 +137,18 @@ def _plan(B: int, m: int, k: int, nc: int, dtype: torch.dtype, smem_optin: int,
 
 
 def split_plan(B: int, m: int, k: int, nc: int, dtype: torch.dtype,
-               smem_optin: int) -> SplitPlan:
+               smem_optin: int, pair: bool = False) -> SplitPlan:
     """K1's launch plan, a pure function of the shapes, the dtype and the
     shared memory a block may opt in to: the first of (theta and rows in
     shared memory; the same with one buffer for W and V; theta in global
     memory and the rows in shared memory, two buffers or one; everything in
     global memory) that fits. One buffer needs one-pass products
     (:func:`_block.inplace_ok`)."""
-    return _plan(B, m, k, nc, dtype, smem_optin, 0, "split")
+    return _plan(B, m, k, nc, dtype, smem_optin, 0, "split", pair)
 
 
 def gate_split_plan(B: int, chi: int, nc: int, dtype: torch.dtype,
-                    smem_optin: int) -> SplitPlan:
+                    smem_optin: int, pair: bool = False) -> SplitPlan:
     """K4's launch plan (``csrc/gate_split.cu``): K1's placements on theta
     ``[2chi, 2chi]``, theta built in place (``theta_smem``: ``[2chi][2chi +
     1]`` in shared memory, else ``[2chi][2chi]`` in the element's global
@@ -152,24 +157,25 @@ def gate_split_plan(B: int, chi: int, nc: int, dtype: torch.dtype,
     complex64 it is K1's plan."""
     m = 2 * chi
     plan = _plan(B, m, m, nc, dtype, smem_optin, _block.build_stage_bytes(chi, dtype),
-                 "gate_split")
+                 "gate_split", pair)
     return dataclasses.replace(plan, scratch_cx=plan.scratch_cx + (0 if plan.theta_smem
                                                                     else m * m))
 
 
 def brick_split_plan(B: int, chi: int, nc: int, dtype: torch.dtype,
-                     smem_optin: int) -> SplitPlan:
+                     smem_optin: int, pair: bool = False) -> SplitPlan:
     """K5's launch plan (``csrc/brick_split.cu``): K4's, ``theta_smem``
     placing theta_w^H (the chain's theta), plus the unweighted theta_t^T
     ``[2chi][2chi]`` that always lives in the element's global scratch."""
-    plan = gate_split_plan(B, chi, nc, dtype, smem_optin)
+    plan = gate_split_plan(B, chi, nc, dtype, smem_optin, pair)
     return dataclasses.replace(plan, scratch_cx=plan.scratch_cx + 4 * chi * chi)
 
 
-def subspace_factor_cuda(theta: torch.Tensor, v0: torch.Tensor, iters: int,
+def subspace_factor_cuda(theta: torch.Tensor, v0: torch.Tensor, iters: int, pair: bool = False,
                          smem_bytes: int | None = None):
-    """Launch K1. ``smem_bytes`` overrides the plan's dynamic shared memory
-    request (used only to test the launch-error path)."""
+    """Launch K1, from the pair library with ``pair`` in complex64.
+    ``smem_bytes`` overrides the plan's dynamic shared memory request (used
+    only to test the launch-error path)."""
     dbl = _check_input(theta, "split")
     _check_input(v0, "split v0")
     if theta.dim() != 3 or v0.dim() != 2 or v0.shape[0] != theta.shape[1]:
@@ -182,8 +188,9 @@ def subspace_factor_cuda(theta: torch.Tensor, v0: torch.Tensor, iters: int,
     if not (1 <= nc <= MAX_NC and 1 <= m <= MAX_MK and 1 <= k <= MAX_MK and iters >= 1):
         raise ValueError(f"split: kernel takes nc <= {MAX_NC}, m, k <= {MAX_MK}, iters >= 1;"
                          f" got m={m}, k={k}, nc={nc}, iters={iters}")
-    lib = _build.load()
-    plan = split_plan(B, m, k, nc, theta.dtype, _build.smem_optin(theta.device.index))
+    pair = _block.pair_step(pair, theta.dtype)
+    lib = _build.load(pair)
+    plan = split_plan(B, m, k, nc, theta.dtype, _build.smem_optin(theta.device.index), pair)
     q = torch.empty((B, m, nc), dtype=theta.dtype, device=theta.device)
     r = torch.empty((B, nc, k), dtype=theta.dtype, device=theta.device)
     scratch = torch.empty((B, plan.scratch_cx), dtype=theta.dtype, device=theta.device)
@@ -194,7 +201,7 @@ def subspace_factor_cuda(theta: torch.Tensor, v0: torch.Tensor, iters: int,
                              plan.smem_bytes if smem_bytes is None else smem_bytes, stream,
                              int(plan.theta_smem), int(plan.inplace))
     _build.check(rc, "split kernel launch")
-    _build.LAUNCHES["split"] += 1
+    _build.count_launch("split", pair)
     return q, r
 
 
@@ -208,23 +215,23 @@ def gate_theta(A: torch.Tensor, Bm: torch.Tensor, g: torch.Tensor) -> torch.Tens
     return theta.reshape(B, m, m)
 
 
-def gate_subspace_factor_plain(A, Bm, g, v0, iters: int):
+def gate_subspace_factor_plain(A, Bm, g, v0, iters: int, pair: bool = False):
     """Plain version of K4."""
     if A.is_cuda:
         _build.PLAIN_ON_CUDA["gate_split"] += 1
     theta = gate_theta(A, Bm, g)
     tot = abs2(theta).sum((1, 2))
-    q, r = _chain_plain(theta, v0, iters)
+    q, r = _chain_plain(theta, v0, iters, pair)
     return q, r, tot
 
 
-def gate_subspace_factor(A, Bm, g, v0, iters: int):
+def gate_subspace_factor(A, Bm, g, v0, iters: int, pair: bool = False):
     """``A [B, 2chi, chi]``, ``Bm [B, chi, 2chi]``, ``g [B, 4, 4]``, ``v0
     [2chi, nc]`` -> ``(q [B, 2chi, nc], r [B, nc, 2chi], tot [B])``: kernel
     K4 for CUDA tensors, its plain version for CPU tensors."""
     if A.device.type == "cpu":
-        return gate_subspace_factor_plain(A, Bm, g, v0, iters)
-    return gate_subspace_factor_cuda(A, Bm, g, v0, iters)
+        return gate_subspace_factor_plain(A, Bm, g, v0, iters, pair)
+    return gate_subspace_factor_cuda(A, Bm, g, v0, iters, pair)
 
 
 def _check_gate_feeds(A, Bm, g, v0, iters: int, what: str):
@@ -249,14 +256,16 @@ def _check_gate_feeds(A, Bm, g, v0, iters: int, what: str):
     return dbl, B, chi, nc
 
 
-def gate_subspace_factor_cuda(A, Bm, g, v0, iters: int, smem_bytes: int | None = None):
-    """Launch K4 as :func:`gate_split_plan` says. ``smem_bytes`` overrides
-    the plan's dynamic shared memory request (used only to test the
-    launch-error path)."""
+def gate_subspace_factor_cuda(A, Bm, g, v0, iters: int, pair: bool = False,
+                              smem_bytes: int | None = None):
+    """Launch K4 as :func:`gate_split_plan` says, from the pair library with
+    ``pair`` in complex64. ``smem_bytes`` overrides the plan's dynamic
+    shared memory request (used only to test the launch-error path)."""
     dbl, B, chi, nc = _check_gate_feeds(A, Bm, g, v0, iters, "gate_split")
     m = 2 * chi
-    lib = _build.load()
-    plan = gate_split_plan(B, chi, nc, A.dtype, _build.smem_optin(A.device.index))
+    pair = _block.pair_step(pair, A.dtype)
+    lib = _build.load(pair)
+    plan = gate_split_plan(B, chi, nc, A.dtype, _build.smem_optin(A.device.index), pair)
     q = torch.empty((B, m, nc), dtype=A.dtype, device=A.device)
     r = torch.empty((B, nc, m), dtype=A.dtype, device=A.device)
     tot = torch.empty(B, dtype=A.real.dtype, device=A.device)
@@ -268,11 +277,11 @@ def gate_subspace_factor_cuda(A, Bm, g, v0, iters: int, smem_bytes: int | None =
                                   int(plan.theta_smem), int(plan.rows_smem), int(plan.inplace),
                                   plan.smem_bytes if smem_bytes is None else smem_bytes, stream)
     _build.check(rc, "gate_split kernel launch")
-    _build.LAUNCHES["gate_split"] += 1
+    _build.count_launch("gate_split", pair)
     return q, r, tot
 
 
-def brick_gate_split_plain(A, Bm, g, lam, v0, iters: int):
+def brick_gate_split_plain(A, Bm, g, lam, v0, iters: int, pair: bool = False):
     """Plain version of K5: ``theta_t`` by :func:`gate_theta`, the lambda
     row weight, the chain on ``theta_w^H``, then ``s2`` and ``na0``."""
     if A.is_cuda:
@@ -280,32 +289,34 @@ def brick_gate_split_plain(A, Bm, g, lam, v0, iters: int):
     theta_t = gate_theta(A, Bm, g)
     theta_w = theta_t * torch.cat([lam, lam], 1)[:, :, None]
     total = abs2(theta_w).sum((1, 2))
-    q, r = _chain_plain(theta_w.mH, v0, iters)  # q [B, 2chi, nc]: columns of the basis
+    q, r = _chain_plain(theta_w.mH, v0, iters, pair)  # q [B, 2chi, nc]: columns of the basis
     return q.mT, (theta_t @ q).mT, abs2(r).sum(2), total
 
 
-def brick_gate_split(A, Bm, g, lam, v0, iters: int):
+def brick_gate_split(A, Bm, g, lam, v0, iters: int, pair: bool = False):
     """``A [B, 2chi, chi]``, ``Bm [B, chi, 2chi]``, ``g [B, 4, 4]``, ``lam
     [B, chi]`` (real), ``v0 [2chi, nc]`` -> ``(q2 [B, nc, 2chi], na0 [B, nc,
     2chi], s2 [B, nc], total [B])``: kernel K5 for CUDA tensors, its plain
     version for CPU tensors."""
     if A.device.type == "cpu":
-        return brick_gate_split_plain(A, Bm, g, lam, v0, iters)
-    return brick_gate_split_cuda(A, Bm, g, lam, v0, iters)
+        return brick_gate_split_plain(A, Bm, g, lam, v0, iters, pair)
+    return brick_gate_split_cuda(A, Bm, g, lam, v0, iters, pair)
 
 
-def brick_gate_split_cuda(A, Bm, g, lam, v0, iters: int, smem_bytes: int | None = None):
-    """Launch K5 as :func:`brick_split_plan` says. ``smem_bytes`` overrides
-    the plan's dynamic shared memory request (used only to test the
-    launch-error path)."""
+def brick_gate_split_cuda(A, Bm, g, lam, v0, iters: int, pair: bool = False,
+                          smem_bytes: int | None = None):
+    """Launch K5 as :func:`brick_split_plan` says, from the pair library with
+    ``pair`` in complex64. ``smem_bytes`` overrides the plan's dynamic
+    shared memory request (used only to test the launch-error path)."""
     dbl, B, chi, nc = _check_gate_feeds(A, Bm, g, v0, iters, "brick_split")
     if lam.device != A.device or lam.dtype != A.real.dtype or tuple(lam.shape) != (B, chi) or (
             not lam.is_contiguous()):
         raise ValueError(f"brick_split: expected a contiguous real lam [B, chi] of A's real "
                          f"dtype on A's device; got {tuple(lam.shape)} {lam.dtype} {lam.device}")
     m = 2 * chi
-    lib = _build.load()
-    plan = brick_split_plan(B, chi, nc, A.dtype, _build.smem_optin(A.device.index))
+    pair = _block.pair_step(pair, A.dtype)
+    lib = _build.load(pair)
+    plan = brick_split_plan(B, chi, nc, A.dtype, _build.smem_optin(A.device.index), pair)
     q2 = torch.empty((B, nc, m), dtype=A.dtype, device=A.device)
     na0 = torch.empty((B, nc, m), dtype=A.dtype, device=A.device)
     s2 = torch.empty((B, nc), dtype=lam.dtype, device=A.device)
@@ -319,5 +330,5 @@ def brick_gate_split_cuda(A, Bm, g, lam, v0, iters: int, smem_bytes: int | None 
                                    int(plan.inplace),
                                    plan.smem_bytes if smem_bytes is None else smem_bytes, stream)
     _build.check(rc, "brick_split kernel launch")
-    _build.LAUNCHES["brick_split"] += 1
+    _build.count_launch("brick_split", pair)
     return q2, na0, s2, total

@@ -41,6 +41,10 @@ reference iterate from the same v0. Three routes run that chain:
   site tensors and the gate, and runs the chain; theta is never formed by
   torch ops, and its squared norm comes from the kernel.
 
+``cfg.mgs_pair`` reaches every kernel of these routes (K1, K3, K4, K5 here
+and K2 on the center moves, ``ops/mps.move_center``) as the reference
+threads it: the block-2 in-panel step (``ops/orth.py``).
+
 The brick engine (``ops/vidal.py``) factors from the right:
 :func:`truncated_split_right` is :func:`truncated_svd` of ``theta^H``, and
 :func:`fused_brick_update` runs the whole Hastings pair update through kernel
@@ -108,12 +112,12 @@ def _split_subspace(theta: torch.Tensor, cfg: SimConfig, keep: int):
     v0 = start_block(m, nc, theta.dtype, theta.device)
     iters = max(1, cfg.subspace_iters)
     if cfg.fused_split and _kernel_precision(cfg) and fused_split_supported(m, k, nc):
-        q, r = split.subspace_factor(theta, v0, iters)
+        q, r = split.subspace_factor(theta, v0, iters, cfg.mgs_pair)
     else:
         v = v0.expand(B, m, nc)
         for _ in range(iters):
-            w = orth.qr_orth(theta.mH @ v, cfg.fused_split)
-            v = orth.qr_orth(theta @ w, cfg.fused_split)
+            w = orth.qr_orth(theta.mH @ v, cfg.fused_split, cfg.mgs_pair)
+            v = orth.qr_orth(theta @ w, cfg.fused_split, cfg.mgs_pair)
         q, r = v, v.mH @ theta
     total = orth.abs2(theta).sum((1, 2))
     return _finish_subspace(q, r, total, cfg, keep, nc)
@@ -311,7 +315,7 @@ def truncated_svd_gate(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, cfg: S
     nc = keep + max(0, cfg.oversample)
     v0 = start_block(2 * chi, nc, a.dtype, a.device)
     q, r, total = split.gate_subspace_factor(*gate_feeds(a, b, g, is_left), v0,
-                                             max(1, cfg.subspace_iters))
+                                             max(1, cfg.subspace_iters), cfg.mgs_pair)
     return _finish_subspace(q, r, total, cfg, keep, nc)
 
 
@@ -351,7 +355,7 @@ def fused_brick_update(a: torch.Tensor, b: torch.Tensor, g4: torch.Tensor, lam: 
     nc = keep + max(0, cfg.oversample)
     v0 = start_block(2 * chi, nc, a.dtype, a.device)
     q2, na0, s2, total = split.brick_gate_split(A, Bm, g4.contiguous(), lam.contiguous(), v0,
-                                                max(1, cfg.subspace_iters))
+                                                max(1, cfg.subspace_iters), cfg.mgs_pair)
     if nc > keep:
         sel = torch.argsort(-s2, dim=1, stable=True)[:, :keep]
         rows = sel[:, :, None].expand(-1, -1, 2 * chi)

@@ -31,6 +31,16 @@ batched factorization: kernel K5 (``ops/split.brick_gate_split``) where
 route). No renormalization after truncation; the kept-fraction product
 accumulates into ``fidelity``; masked and padded entries stay exact zeros.
 
+With ``cfg.brick_struct_caps`` (``QMLTPU_BRICK_CAPS``) and the real site
+count ``n``, a layer's pairs are chunked by their structural bond caps
+(:func:`structural_caps`) and each chunk is updated at its caps' sliced
+shapes ``(cl, cm, cr)``: exact, because a stored entry beyond a bond's
+Schmidt-rank bound is an exact zero at all times. With the fused gate the
+square buckets that K5's shape rule takes stay on K5 (at nf 100, chi 128:
+the 43 interior pairs at the cap); the rectangles and the squares it
+refuses take the unfused update, whose split is K1 at ``m = 2 cr``, ``k = 2
+cl``, ``nc = cm`` (below one panel at the chain's ends).
+
 Unlike the reference, whose arrays are immutable, the layer writes the
 updated pairs into ``tensors``, ``lams`` and ``bond_dims`` IN PLACE (one
 state-sized copy per pair chunk saved) and returns a state sharing them.
@@ -99,8 +109,8 @@ def structural_caps(n: int, K: int, chi: int) -> list[tuple[int, int, int]]:
     ``n`` real sites: bond ``j`` splits the chain into ``l = min(j, n)``
     left and ``n - l`` right sites, so its Schmidt rank is at most
     ``min(2^l, 2^(n-l))``. Each cap is the larger over both parities,
-    rounded up to a power of two and floored at 4. The engine reads it only
-    under ``cfg.brick_struct_caps``, which the port does not run yet."""
+    rounded up to a power of two and floored at 4. The engine reads it
+    under ``cfg.brick_struct_caps`` (:func:`brick_layer`)."""
 
     def sb(j: int) -> int:
         l = min(max(j, 0), n)
@@ -118,6 +128,21 @@ def structural_caps(n: int, K: int, chi: int) -> list[tuple[int, int, int]]:
             rnd(max(sb(j0), sb(j1))),
             rnd(max(sb(j0 + 1), sb(j1 + 1))),
         ))
+    return out
+
+
+def cap_buckets(n: int, K: int, chi: int) -> list[tuple[int, int, tuple[int, int, int]]]:
+    """The runs ``(k0, k1, caps)`` of consecutive pair indices of one layer
+    that share their structural caps (:func:`structural_caps`), in order."""
+    caps = structural_caps(n, K, chi)
+    out = []
+    k0 = 0
+    while k0 < K:
+        k1 = k0 + 1
+        while k1 < K and caps[k1] == caps[k0]:
+            k1 += 1
+        out.append((k0, k1, caps[k0]))
+        k0 = k1
     return out
 
 
@@ -167,13 +192,18 @@ def update_pairs(a: torch.Tensor, b: torch.Tensor, lam_l: torch.Tensor, thetas: 
 
 
 def _brick_pairs(state: VidalState, parity: int, k_off: int, swap_w: float,
-                 active: torch.Tensor, thetas: torch.Tensor, cfg: SimConfig) -> VidalState:
+                 active: torch.Tensor, thetas: torch.Tensor, cfg: SimConfig,
+                 caps: tuple[int, int, int] | None = None) -> VidalState:
     """Update the pair range ``[k_off, k_off + len(active))`` of one layer:
     pair ``k`` joins padded sites ``parity + 2k`` and ``parity + 2k + 1``.
     Inactive pairs are computed and then discarded by a select, so they are
-    exact no-ops."""
+    exact no-ops. ``caps = (cl, cm, cr)``, the structural bond caps of every
+    pair of the range, slices the gathered pairs before the update and
+    zero-pads them on writeback (exact for active and inactive pairs: the
+    entries past a bond's cap are exact zeros)."""
     t = state.tensors
     K = active.shape[0]
+    chi = t.shape[2]
     idx = parity + 2 * (k_off + torch.arange(K, device=t.device))  # left sites
     a = t.index_select(1, idx)  # [B, K, chi, 2, chi]
     b = t.index_select(1, idx + 1)
@@ -182,6 +212,10 @@ def _brick_pairs(state: VidalState, parity: int, k_off: int, swap_w: float,
     # this layer never writes it. idx == 0 is only the leading dummy pair,
     # always inactive: its weights are ones and the select discards it.
     lam_l = state.lams.index_select(1, (idx - 1).clamp(min=0))
+    if caps is not None:
+        cl, cm, cr = caps
+        a, b = a[:, :, :cl, :, :cm], b[:, :, :cm, :, :cr]
+        lam_l, lam_old = lam_l[:, :, :cl], lam_old[:, :, :cm]
     lam_l = torch.where((idx > 0)[None, :, None], lam_l, torch.ones_like(lam_l))
 
     new_a, new_b, s, kf, rank = update_pairs(a, b, lam_l, thetas, swap_w, cfg)
@@ -193,6 +227,11 @@ def _brick_pairs(state: VidalState, parity: int, k_off: int, swap_w: float,
     rank_new = torch.where(am, rank, state.bond_dims.index_select(1, idx))
     fid = state.fidelity * torch.prod(torch.where(am, kf, torch.ones_like(kf)), dim=1).to(
         state.fidelity.dtype)
+    if caps is not None:  # zero-pad back to the stored [chi, 2, chi]
+        pad = torch.nn.functional.pad
+        new_a = pad(new_a, (0, chi - cm, 0, 0, 0, chi - cl))
+        new_b = pad(new_b, (0, chi - cr, 0, 0, 0, chi - cm))
+        lam_new = pad(lam_new, (0, chi - cm))
     t[:, idx] = new_a
     t[:, idx + 1] = new_b
     state.lams[:, idx] = lam_new
@@ -201,13 +240,24 @@ def _brick_pairs(state: VidalState, parity: int, k_off: int, swap_w: float,
 
 
 def brick_layer(state: VidalState, parity: int, swap_w: float, active: torch.Tensor,
-                thetas: torch.Tensor, cfg: SimConfig) -> VidalState:
+                thetas: torch.Tensor, cfg: SimConfig, n: int | None = None) -> VidalState:
     """One brick layer: simultaneous updates of all pairs ``(parity + 2k,
     parity + 2k + 1)``, k < K, in pair chunks of :func:`_pair_chunk`.
     ``active [K]`` bool tensor (shared by the batch), ``thetas [B, K]``
-    per-sample angles (0 on pairs that do not fire)."""
+    per-sample angles (0 on pairs that do not fire). With
+    ``cfg.brick_struct_caps`` and ``n`` (the real site count) the chunks
+    also split where the pairs' structural caps change
+    (:func:`structural_caps`), and each is updated at its caps' shapes."""
     K = active.shape[0]
     batch, chi = state.tensors.shape[0], state.tensors.shape[2]
+    if cfg.brick_struct_caps and n is not None:
+        for k0, k1, caps in cap_buckets(n, K, chi):
+            kc = _pair_chunk(k1 - k0, max(caps), batch)
+            for s in range(k0, k1, kc):
+                sl = slice(s, min(k1, s + kc))
+                state = _brick_pairs(state, parity, s, swap_w, active[sl], thetas[:, sl], cfg,
+                                     caps)
+        return state
     kc = _pair_chunk(K, chi, batch)
     for k0 in range(0, K, kc):
         sl = slice(k0, min(K, k0 + kc))
@@ -216,12 +266,14 @@ def brick_layer(state: VidalState, parity: int, swap_w: float, active: torch.Ten
 
 
 def layer_scan(state: VidalState, parities, swaps, actives: torch.Tensor, thetas: torch.Tensor,
-               cfg: SimConfig) -> VidalState:
+               cfg: SimConfig, n: int | None = None) -> VidalState:
     """Run a chunk of layers in order: ``parities [C]`` and ``swaps [C]``
     (host arrays), ``actives [C, K]`` bool and ``thetas [C, B, K]`` (on the
-    state's device)."""
+    state's device). ``n`` (the real site count) enables the structural
+    caps under ``cfg.brick_struct_caps``."""
     for c in range(len(parities)):
-        state = brick_layer(state, int(parities[c]), float(swaps[c]), actives[c], thetas[c], cfg)
+        state = brick_layer(state, int(parities[c]), float(swaps[c]), actives[c], thetas[c], cfg,
+                            n=n)
     return state
 
 

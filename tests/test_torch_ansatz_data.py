@@ -90,11 +90,16 @@ def test_config_from_reference_and_unported_fields():
     assert SimConfig().svd_method == RefConfig().svd_method == "svd"
     for method in ("svd", "eigh", "subspace"):
         assert SimConfig(svd_method=method).svd_method == method
-    for bad in (dict(mgs_pair=True), dict(brick_struct_caps=True),
-                dict(power_precision="high"), dict(tile_precision="bfloat16"),
+    for bad in (dict(power_precision="high"), dict(tile_precision="bfloat16"),
                 dict(matmul_precision="bfloat16")):
         with pytest.raises(NotImplementedError):
             SimConfig(**bad)
+    # The pair step and the brick caps run; both default off, as in the reference.
+    assert not (SimConfig().mgs_pair or SimConfig().brick_struct_caps)
+    for field in ("mgs_pair", "brick_struct_caps"):
+        assert getattr(SimConfig(**{field: True}), field)
+        ref = RefConfig(**{field: True})
+        assert getattr(SimConfig.from_reference(dataclasses.asdict(ref)), field)
     with pytest.raises(ValueError):
         SimConfig(precision="f16")
 

@@ -1,9 +1,11 @@
 """CUDA kernels of the PyTorch port on a card: each of the five kernels
 against its plain PyTorch version at the main paths' shapes (the basis-only
 kernel also at the blocked route's panel shapes), the double instantiations
-and the global-scratch layouts, the launch-error path, and the Gram slice on
-the card against the same slice on the CPU on the fused, fused-gate, unfused,
-blocked and brick routes.
+and the global-scratch layouts, the launch-error path, the pair variants
+(``mgs_pair``) of all five and K1 at the brick caps' shapes, and the Gram
+slice on the card against the same slice on the CPU on the fused,
+fused-gate, unfused, blocked and brick routes (the brick route also with
+caps and the pair step).
 
 Every test here is marked ``cuda`` and skips where there is no card. This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -717,3 +719,127 @@ def test_choose_chi_and_mem_log_on_card_match_cpu(dev):
     sizes = [[float(line.split("=")[1]) for line in log.getvalue().splitlines()] for log in logs]
     assert len(sizes[0]) == len(sizes[1]) == ans.schedule.num_two_site_ops
     np.testing.assert_allclose(sizes[0], sizes[1], atol=1e-12)
+
+
+# ------------------------------------------------- the pair step and the caps
+# The block-2 in-panel variant (``pair``, the reference's mgs_pair) of K1 to
+# K5 from their pair libraries against the plain pair versions (f32 at the
+# kernel tolerance above), and K1 at the brick caps' rectangular shapes.
+
+def _pair_case(name, rng, kind, dev, dtype=np.complex64):
+    """``(kernel(pair), plain(pair), factor, x)`` for kernel ``name`` at a
+    main-path shape (chi 16 to 64, B 8): ``factor`` maps an output to the
+    (q, product) that _close compares."""
+    chi = {"split": 32, "orth_r": 64, "orth": 64, "gate_split": 32, "brick_split": 16}[name]
+    m = 2 * chi
+    v0 = start_block(m, chi, torch.complex64 if dtype == np.complex64 else torch.complex128,
+                     dev)
+    if name in ("orth_r", "orth"):
+        v = torch.from_numpy(_input(rng, kind, 8, m, chi, dtype)).to(dev)
+        if name == "orth":
+            return (lambda p: orth.orth_cuda(v, p), lambda p: orth.orth_plain(v, p),
+                    lambda q: (q, q @ (q.mH @ v)))
+        return (lambda p: orth.orth_r_cuda(v, p), lambda p: orth.orth_r_plain(v, p),
+                lambda out: (out[0], out[0] @ out[1]))
+    if name == "split":
+        th = torch.from_numpy(_input(rng, kind, 8, m, m, dtype)).to(dev)
+        return (lambda p: split.subspace_factor_cuda(th, v0, 2, p),
+                lambda p: split.subspace_factor_plain(th, v0, 2, p),
+                lambda out: (out[0], out[0] @ out[1]))
+    A = torch.from_numpy(_input(rng, kind, 8, m, chi, dtype)).to(dev)
+    Bm = torch.from_numpy(_input(rng, kind, 8, chi, m, dtype)).to(dev)
+    g = torch.from_numpy(np.linalg.qr(rng.standard_normal((8, 4, 4)))[0].astype(dtype)).to(dev)
+    if name == "gate_split":
+        return (lambda p: split.gate_subspace_factor_cuda(A, Bm, g, v0, 2, p),
+                lambda p: split.gate_subspace_factor_plain(A, Bm, g, v0, 2, p),
+                lambda out: (out[0], out[0] @ out[1]))
+    lam = torch.from_numpy(rng.uniform(0.3, 1.0, size=(8, chi))).to(dev, A.real.dtype)
+    # q2 rows V = conj(q2): the projected pair theta_t V^H V and the basis V^T
+    return (lambda p: split.brick_gate_split_cuda(A, Bm, g, lam, v0, 2, p),
+            lambda p: split.brick_gate_split_plain(A, Bm, g, lam, v0, 2, p),
+            lambda out: (out[0].mT, out[1].mT @ out[0].conj()))
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("name", list(_build.KERNELS))
+@pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
+def test_pair_kernels_match_plain(dev, name, kind):
+    """Each kernel's pair variant (its pair library, counted in
+    ``PAIR_LAUNCHES``) against its plain pair version; two launches
+    bit-equal."""
+    kern, plain, factor = _pair_case(name, np.random.default_rng(len(name)), kind, dev)
+    before = dict(_build.PAIR_LAUNCHES)
+    out, again = kern(True), kern(True)
+    assert _build.PAIR_LAUNCHES[name] == before[name] + 2
+    ref = plain(True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(_tuple(out), _tuple(again)))
+    (qk, pk), (qp, pp) = factor(out), factor(ref)
+    assert (qk @ qk.mH - qp @ qp.mH).abs().max().item() <= TOL
+    assert (pk - pp).abs().max().item() <= TOL * max(1.0, pp.abs().max().item())
+
+
+@pytest.mark.parametrize("name", list(_build.KERNELS))
+def test_pair_changes_no_bit_in_f64(dev, name):
+    """complex128 has no pair library: ``pair`` launches the single-column
+    double kernel, bit-equal to the launch without it, and counts no pair
+    launch."""
+    kern, _, _ = _pair_case(name, np.random.default_rng(9), "full", dev, np.complex128)
+    before = dict(_build.PAIR_LAUNCHES)
+    a, b = kern(True), kern(False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(_tuple(a), _tuple(b)))
+    assert _build.PAIR_LAUNCHES == before
+
+
+@pytest.mark.parametrize("k", [13, 21, 40])
+def test_pair_odd_panel_widths(dev, k):
+    """K3 and K2 with panels of odd width (the last column of an odd panel
+    takes the single-column step)."""
+    v = torch.from_numpy(_input(np.random.default_rng(k), "full", 8, 64, k)).to(dev)
+    _close(orth.orth_cuda(v, True), orth.orth_cuda(v, True).mH @ v,
+           orth.orth_plain(v, True), orth.orth_plain(v, True).mH @ v, TOL)
+    _close(*orth.orth_r_cuda(v, True), *orth.orth_r_plain(v, True), TOL)
+
+
+# (m, k, nc) = (2 cr, 2 cl, cm) of the caps buckets at nf 100, chi 128
+CAPS_SHAPES = [(256, 128, 128), (64, 256, 64), (8, 8, 4), (8, 16, 4), (32, 8, 8),
+               (128, 32, 32), (16, 64, 16)]
+
+
+@pytest.mark.parametrize("m,k,nc", CAPS_SHAPES)
+@pytest.mark.parametrize("pair", [False, True])
+def test_split_at_caps_shapes(dev, m, k, nc, pair):
+    """K1 at the brick caps' rectangular shapes (below one panel at the
+    chain's ends), single-column and pair, against its plain version."""
+    rng = np.random.default_rng(m + k + nc)
+    th = torch.from_numpy(_input(rng, "full", 6, m, k)).to(dev)
+    v0 = start_block(m, nc, torch.complex64, dev)
+    qk, rk = split.subspace_factor_cuda(th, v0, 2, pair)
+    qp, rp = split.subspace_factor_plain(th, v0, 2, pair)
+    torch.cuda.synchronize()
+    assert (qk @ rk - qp @ rp).abs().max().item() <= TOL
+    s2k = torch.sort(rk.abs().pow(2).sum(2), 1).values
+    s2p = torch.sort(rp.abs().pow(2).sum(2), 1).values
+    assert (s2k - s2p).abs().max().item() <= TOL * s2p.max().item()
+
+
+def test_caps_brick_gram_on_card_matches_cpu(dev):
+    """The brick engine with caps and the pair step on the card (K5 on the
+    square bucket, K1 on the rest, both from the pair libraries) against the
+    same build on the CPU."""
+    nq = 10
+    X = np.random.default_rng(6).uniform(0.0, 2.0, size=(4, nq))
+    ans = KernelStateAnsatz(nq, 1, 1.0, entanglement_graph(nq, 2), routing="brick")
+    cfg = SimConfig(chi=16, svd_method="subspace", fused_split=True, fused_gate=True,
+                    brick_struct_caps=True, mgs_pair=True)
+    _build.reset_counters()
+    K_gpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cuda")
+    assert _build.PAIR_LAUNCHES["brick_split"] > 0 and _build.PAIR_LAUNCHES["split"] > 0
+    assert _build.PAIR_LAUNCHES == _build.LAUNCHES
+    assert sum(_build.PLAIN_ON_CUDA.values()) == 0
+    K_cpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cpu")
+    np.testing.assert_allclose(K_gpu, K_cpu, atol=3e-5)

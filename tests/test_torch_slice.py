@@ -85,8 +85,7 @@ def test_cli_main_no_test_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("QMLTPU_MESH", "2"), ("QMLTPU_MGS_PAIR", "1"), ("QMLTPU_SHARD_MPS", "all"),
-    ("QMLTPU_BRICK_CAPS", "1"),
+    ("QMLTPU_MESH", "2"), ("QMLTPU_SHARD_MPS", "all"),
 ])
 def test_unported_knobs_raise(monkeypatch, knob, value):
     monkeypatch.setenv(knob, value)
@@ -102,13 +101,16 @@ def test_unported_knobs_raise(monkeypatch, knob, value):
     ("QMLTPU_ROUTING", "reference", "routing", "reference"),
     ("QMLTPU_CHECKPOINT", "1", "checkpoint", True),
     ("QMLTPU_CHI", "auto", "chi", 8),
+    ("QMLTPU_MGS_PAIR", "1", "mgs_pair", True),
+    ("QMLTPU_BRICK_CAPS", "1", "brick_struct_caps", True),
 ])
 def test_route_knobs_reach_the_config(monkeypatch, knob, value, field, expected):
     """Each knob reaches what the engine reads: the config fields it routes
     on, the schedule's routing, the Gram build's checkpoint flag, and the
     cap QMLTPU_CHI=auto probes (here at most 8: one probe on the CPU). Unset,
     the CLI runs the subspace method, fused_split on, fused_gate off,
-    tracked routing and no checkpoint."""
+    tracked routing, no checkpoint, and neither the pair step nor the brick
+    caps."""
     monkeypatch.setenv("QMLTPU_DEVICE", "cpu")
     monkeypatch.setenv("QMLTPU_AUTO_CHI_MAX", "8")
     argv = ["m", "GPU", "6", "1", "1.0", "1", "5", "5", "1", "v1.csv"]
@@ -123,8 +125,9 @@ def test_route_knobs_reach_the_config(monkeypatch, knob, value, field, expected)
 
     default = read()
     assert (default["svd_method"], default["fused_split"], default["fused_gate"],
-            default["routing"], default["checkpoint"]) == ("subspace", True, False, "tracked",
-                                                           False)
+            default["routing"], default["checkpoint"], default["mgs_pair"],
+            default["brick_struct_caps"]) == ("subspace", True, False, "tracked", False, False,
+                                              False)
     monkeypatch.setenv(knob, value)
     assert read()[field] == expected
 
