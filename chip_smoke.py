@@ -117,6 +117,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``QMLTPU_NORMALIZE=0``) through ``cli.main_no_test``: the full run, a
    partial checkpoint holding its first tile, the resumed run equal to the
    full one (1e-7; bit-equality printed), the file gone after each run.
+10b. mesh: the multi-device Gram build (``parallel/``) through
+   ``parallel.mesh.launch`` on NCCL, one process a card, at every world size
+   from 1 to min(4, cards) (printed; 1 on a one-card machine), one launch a
+   world size: the headline train Gram on the ring, stepwise and
+   ``QMLTPU_RING=fused`` (the same loop without per-iteration syncs, only
+   the aggregate time; golden 1e-6, the single-device default route's Gram
+   2e-6, each other 1e-7; launches counted against the rank's sim
+   dispatches; sim, ring and per-iteration seconds and peak memory
+   printed, beside the single-device build in the rank's process); a ring
+   snapshot after iteration 0 resumed by
+   ``cli.main_no_test`` with ``QMLTPU_CHECKPOINT=1`` (bit-equal, the file
+   gone); ``cli.main`` on 20 + 20 points against the same run on one device
+   (2e-6) with its SVC sweep; the dry run (``parallel/dryrun``, 2e-6).
 11. ``QMLTPU_CHI=auto`` through ``cli.main`` on 20 + 20 points, probes
    capped at chi 64: one probe sequence (chi, min fidelity, max bond
    printed) serves the train and the test Gram.
@@ -1805,6 +1818,146 @@ def phase_checkpoint(smi, K_default):
     return total
 
 
+TOL_RING_SINGLE = 2e-6  # ring vs single-device Gram, f32 (the reference's dry-run bar)
+TOL_RING_FUSED = 1e-7  # QMLTPU_RING=fused vs the stepwise ring
+
+
+def phase_mesh(smi, golden, K_default):
+    """The multi-device Gram build (``parallel/``) through ``mesh.launch``
+    with NCCL, one process a card, at every world size from 1 to min(4,
+    cards), in one launch a world size: (a) the headline train Gram
+    (``cli._pipeline.build``, the train-Gram call of ``cli.main_no_test``) on
+    the ring, stepwise and ``QMLTPU_RING=fused``, held to the golden (1e-6),
+    to the single-device default route's Gram of this run (2e-6) and to each
+    other (1e-7), its launches those of the rank's sim dispatches, and the
+    same Gram on the rank's card alone in the rank's process (its times
+    beside the ring's); (b) a ring snapshot after iteration 0
+    (``dryrun.ring_snapshot``), then ``cli.main_no_test`` with
+    ``QMLTPU_CHECKPOINT=1``, which must resume from it, bit-equal to (a), and
+    remove it; (c) ``cli.main`` on 20 + 20 points, train and test Grams held
+    to the same run on one device (2e-6), and its SVC sweep; (d) the dry run
+    (``parallel/dryrun``). Returns the launches of each world size's run
+    (counters set to 0 before each call)."""
+    import contextlib
+    import io
+
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.cli import main, main_no_test
+    from qml_cutensornet_tpu_torch.models import svm
+    from qml_cutensornet_tpu_torch.models.gram import build_kernel_matrix
+    from qml_cutensornet_tpu_torch.parallel import dryrun, mesh
+    from qml_cutensornet_tpu_torch.parallel import gram as pgram
+
+    cards = torch.cuda.device_count()
+    sizes = list(range(1, min(4, cards) + 1))
+    log(f"mesh: {cards} card(s) seen; world sizes to run: {sizes}")
+    params = pipe.parse_argv(list(ARGV))
+    train_info = pipe.info_names(params)[0]
+    test_info_one = pipe.info_names(pipe.parse_argv(list(ARGV_ONE_BATCH)))[1]
+    ckpt = WORK / "tmp" / f"checkpoint_ring_{train_info}.npz"
+    x_train = pipe.prepare(params)[0]
+    ansatz, cfg = pipe.make_ansatz(params), pipe.sim_config(params, x_train)
+    with contextlib.redirect_stdout(io.StringIO()):
+        K1_train, K1_test, _, _ = main.main(list(ARGV_ONE_BATCH))  # one device
+    torch.cuda.empty_cache()
+    by_path = {}
+    for ws in sizes:
+        calls = [
+            (pipe.build, (params, ansatz), dict(X=x_train, info_file=f"mesh{ws}_stepwise"), {}),
+            (pipe.build, (params, ansatz), dict(X=x_train, info_file=f"mesh{ws}_fused"),
+             {"QMLTPU_RING": "fused"}),
+            # the same Gram on this rank's card alone, in the same process
+            (build_kernel_matrix, (ansatz, x_train),
+             dict(cfg=cfg, info_file=f"mesh{ws}_single", device="cuda"), {}),
+            (dryrun.ring_snapshot, (ansatz, x_train, cfg),
+             dict(mesh=dryrun.MESH, info_file=train_info, checkpoint_dir="tmp"), {}),
+            (main_no_test.main, (list(ARGV),), {}, {"QMLTPU_CHECKPOINT": "1"}),
+            (main.main, (list(ARGV_ONE_BATCH),), {}, {}),
+            (dryrun.dryrun_rank, ("cuda",), {}, {}),
+        ]
+        t0 = time.perf_counter()
+        recs = mesh.launch(dryrun.run_calls, ws, "cuda", "cuda", calls, timeout=900)
+        wall = time.perf_counter() - t0
+        stepwise, fused, single, snap, resumed, cli_main, dry = recs
+        what = f"mesh, world size {ws}"
+
+        block, _ = pgram.ring_rows(len(x_train), None, ws, 32)
+        n_disp = -(-len(x_train) // block)  # sim dispatches of each rank
+        want = expected_launches(ARGV, n_disp)
+        for name, rec in (("stepwise", stepwise), ("fused", fused), ("single", single),
+                          ("resumed", resumed)):
+            assert rec["launches"] == want, (
+                f"{what}, {name}: launches {rec['launches']} != expected {want}")
+        K = stepwise["out"]
+        check_train_gram(K, 102, f"{what}, stepwise")
+        gold_err = float(np.abs(K[:8, :8] - golden["k"]).max())
+        single_err = float(np.abs(K - K_default).max())
+        fused_err = float(np.abs(fused["out"] - K).max())
+        prof = {m: json.loads((WORK / f"mesh{ws}_{m}.json").read_text())
+                for m in ("stepwise", "fused", "single")}
+        single_err = max(single_err, float(np.abs(single["out"] - K_default).max()))
+        assert prof["stepwise"]["n_procs"] == [ws, "devices"], prof["stepwise"]["n_procs"]
+        pad = -(-len(x_train) // block) * block
+        iter_s = prof["stepwise"]["avg_product"][0] * (pad // ws) ** 2
+        log(f"{what} [{smi}]: launches {stepwise['launches']} a rank ({n_disp} dispatches of "
+            f"{block // ws} rows); stepwise sim {prof['stepwise']['r0_circ_sim'][0]:.3f} s, ring "
+            f"{prof['stepwise']['kernel_mat_time'][0]:.3f} s ({ws // 2 + 1} iterations, "
+            f"{iter_s:.4f} s each), build {prof['stepwise']['total_time'][0]:.3f} s; fused sim "
+            f"{prof['fused']['r0_circ_sim'][0]:.3f} s, ring "
+            f"{prof['fused']['kernel_mat_time'][0]:.3f} s, build "
+            f"{prof['fused']['total_time'][0]:.3f} s; peak memory "
+            f"{stepwise['peak_bytes'] / 2**30:.3f} GiB (stepwise), "
+            f"{fused['peak_bytes'] / 2**30:.3f} GiB (fused); single device in the same process "
+            f"sim {prof['single']['r0_circ_sim'][0]:.3f} s, tiles "
+            f"{prof['single']['kernel_mat_time'][0]:.3f} s, peak "
+            f"{single['peak_bytes'] / 2**30:.3f} GiB; single device in this process (phase 4) "
+            f"sim {SIM_SECONDS['default route']:.3f} s, tiles "
+            f"{TILE_SECONDS['default route']:.3f} s")
+        log(f"{what}: max_abs_err vs f64 golden {gold_err:.3e} (tol {TOL_GOLDEN}), vs the "
+            f"single-device Gram {single_err:.3e} (tol {TOL_RING_SINGLE}), fused vs stepwise "
+            f"{fused_err:.3e} (tol {TOL_RING_FUSED}); avg_fidelity "
+            f"{prof['stepwise']['avg_fidelity'][0]:.8f}, avg_max_chi "
+            f"{prof['stepwise']['ave max chi x'][0]:.2f}")
+        assert gold_err <= TOL_GOLDEN, f"{what}: 8x8 block off the golden by {gold_err}"
+        assert single_err <= TOL_RING_SINGLE, f"{what}: off the single-device Gram by {single_err}"
+        assert fused_err <= TOL_RING_FUSED, f"{what}: fused off stepwise by {fused_err}"
+        agg = {prof["fused"][k][0] for k in ("avg_product", "median_product", "q1_product",
+                                             "q3_product")}
+        assert len(agg) == 1, f"{what}: fused reports per-iteration product stats {agg}"
+
+        resumed_line = [ln for ln in resumed["stdout"].splitlines() if "ring resumed" in ln]
+        bit_equal = bool(np.array_equal(resumed["out"], K))
+        log(f"{what}, checkpoint: snapshot {snap['out'].name} after iteration 0; "
+            f"{resumed_line}; resumed Gram bit-equal to the stepwise one: {bit_equal}, "
+            f"max_abs_err {float(np.abs(resumed['out'] - K).max()):.3e}; "
+            f"main_no_test {resumed['seconds']:.3f} s")
+        assert resumed_line == [f"[mesh:{ws}] ring resumed at iteration 1"], resumed_line
+        assert bit_equal, f"{what}: the resumed ring differs from the full one"
+        assert not ckpt.exists(), f"{what}: the ring snapshot was not removed"
+
+        K_tr, K_te, test_rows, train_rows = cli_main["out"]
+        e_tr = float(np.abs(K_tr - K1_train).max())
+        e_te = float(np.abs(K_te - K1_test).max())
+        prof_te = json.loads((WORK / f"{test_info_one}.json").read_text())
+        assert prof_te["n_procs"] == [ws, "devices"] and K_te.shape == (8, 32), K_te.shape
+        assert np.isfinite(K_te).all() and K_te.min() >= 0.0 and K_te.max() <= 1.0 + 1e-6
+        for rows in (test_rows, train_rows):
+            rows = np.asarray(rows)
+            assert rows.shape == (11, 5) and list(rows[:, 0]) == svm.REGULARIZATION_SWEEP
+        log(f"{what}, cli.main on 20 + 20 points: train Gram vs one device {e_tr:.3e}, test "
+            f"Gram {e_te:.3e} (tol {TOL_RING_SINGLE}); launches {cli_main['launches']}; "
+            f"{cli_main['seconds']:.3f} s")
+        assert max(e_tr, e_te) <= TOL_RING_SINGLE, f"{what}: cli.main off one device"
+        log(f"{what}, dry run: {json.dumps(dry['out'])}, {dry['seconds']:.3f} s; "
+            f"launch wall {wall:.3f} s")
+        total = dict.fromkeys(KERNEL_NAMES, 0)
+        for rec in recs:
+            _add_all(total, rec["launches"])
+        by_path[f"mesh_ws{ws}"] = total
+    log(f"mesh phase: world sizes run {sizes} on {cards} card(s)")
+    return by_path
+
+
 def phase_auto_chi(smi):
     """``QMLTPU_CHI=auto`` through ``cli.main`` (train Gram, test Gram, SVC
     sweep) at the headline shape on 20 + 20 points, probes capped at chi 64
@@ -1942,6 +2095,8 @@ def main() -> int:
     log(f"reference routing done at {time.perf_counter() - t_start:.1f} s")
     by_path["checkpoint"] = phase_checkpoint(smi, K_default)
     log(f"checkpoint and resume done at {time.perf_counter() - t_start:.1f} s")
+    by_path.update(phase_mesh(smi, golden, K_default))
+    log(f"mesh phase done at {time.perf_counter() - t_start:.1f} s")
     by_path["auto_chi"] = phase_auto_chi(smi)
     log(f"auto chi done at {time.perf_counter() - t_start:.1f} s")
     by_path["track_mem"] = phase_track_mem(smi)

@@ -50,10 +50,25 @@ names where the port supports them:
     QMLTPU_BRICK_CAPS      1: the brick engine's structural bond caps (each
                            layer's pairs updated at their caps' sliced
                            shapes; SimConfig.brick_struct_caps; default 0)
+    QMLTPU_MESH            device count of the multi-device Gram build (the
+                           ring of parallel/gram.py), one process per device:
+                           under torchrun (WORLD_SIZE in the environment; or
+                           parallel.mesh.launch) every Gram runs on the ring
+                           over the process group, NCCL on cuda, gloo on
+                           cpu; unset, it is the world size, and any other
+                           value raises. Outside a process group a value
+                           above 1 raises (run torchrun --nproc-per-node N
+                           -m qml_cutensornet_tpu_torch.cli.main ...); it
+                           never runs on one device instead. Every rank
+                           builds the same K; only rank 0 writes files
+    QMLTPU_RING            stepwise (default; one ring iteration at a time,
+                           timed, checkpointed with QMLTPU_CHECKPOINT=1 in
+                           tmp/checkpoint_ring_<run name>.npz) | fused (the
+                           same loop with no device sync between iterations:
+                           only the aggregate time, no checkpoint)
     QMLTPU_STAGED, QMLTPU_CHUNK_LEN, QMLTPU_NORMALIZE  as in the reference
 
-Knobs of features not ported yet raise: QMLTPU_MESH > 1 and
-QMLTPU_SHARD_MPS.
+A knob of a feature not ported yet raises: QMLTPU_SHARD_MPS.
 """
 
 from __future__ import annotations
@@ -69,6 +84,7 @@ from qml_cutensornet_tpu_torch.config import SimConfig
 from qml_cutensornet_tpu_torch.models.ansatz import KernelStateAnsatz
 from qml_cutensornet_tpu_torch.models.entanglement import entanglement_graph
 from qml_cutensornet_tpu_torch.models.gram import build_kernel_matrix
+from qml_cutensornet_tpu_torch.parallel.mesh import make_mesh, maybe_distributed_init, process_index
 from qml_cutensornet_tpu_torch.utils.autotune import choose_chi
 from qml_cutensornet_tpu_torch.utils.data import load_and_prepare
 from qml_cutensornet_tpu_torch.utils.naming import run_info
@@ -110,9 +126,6 @@ def _env_flag(name: str, default: str = "0") -> bool:
 
 def check_unported_knobs() -> None:
     """Raise on environment knobs whose features the port does not have."""
-    mesh = os.environ.get("QMLTPU_MESH")
-    if mesh is not None and int(mesh) > 1:
-        raise NotImplementedError("QMLTPU_MESH > 1 (multi-device Gram) is not ported")
     if os.environ.get("QMLTPU_SHARD_MPS", "0") != "0":
         raise NotImplementedError("QMLTPU_SHARD_MPS is not ported")
 
@@ -201,12 +214,35 @@ def _auto_chi(params: RunParams, base: SimConfig, sample_features) -> int:
 
 
 def engine_kwargs() -> dict:
-    return dict(
+    device = os.environ.get("QMLTPU_DEVICE", "cuda")
+    kwargs = dict(
         sim_batch=int(os.environ.get("QMLTPU_SIM_BATCH", 32)),
         tile=int(os.environ.get("QMLTPU_TILE", 32)),
         checkpoint=os.environ.get("QMLTPU_CHECKPOINT", "0") == "1",
-        device=os.environ.get("QMLTPU_DEVICE", "cuda"),
+        device=device,
     )
+    size = os.environ.get("QMLTPU_MESH")
+    if "WORLD_SIZE" in os.environ:
+        maybe_distributed_init(device)
+        kwargs["mesh"] = make_mesh(None if size is None else int(size), device)
+    elif size is not None and int(size) > 1:
+        raise RuntimeError(
+            f"QMLTPU_MESH={size} needs one process per device: run under torchrun "
+            f"--nproc-per-node {size} -m qml_cutensornet_tpu_torch.cli.main ...")
+    return kwargs
+
+
+def n_procs() -> int:
+    """Ranks of the run: the size of the mesh that :func:`engine_kwargs`
+    makes (under torchrun, which initializes the process group), else 1."""
+    mesh = engine_kwargs().get("mesh")
+    return 1 if mesh is None else mesh.size
+
+
+def is_writer() -> bool:
+    """Whether this process writes the run's files: rank 0 only, so that the
+    ranks of one host do not race on the same file."""
+    return process_index() == 0
 
 
 def make_ansatz(params: RunParams) -> KernelStateAnsatz:

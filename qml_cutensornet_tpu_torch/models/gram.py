@@ -12,8 +12,9 @@ States stay resident on the compute device. With ``checkpoint`` (and an
 ``{checkpoint_dir}/checkpoint_{name of info_file}.npy`` after each tile (at
 most every ``QMLTPU_CKPT_INTERVAL`` seconds), atomically, and resumes from
 it: the reference's file and format, so a checkpoint either package wrote
-resumes in the other. Not ported yet: the mesh (multi-device) build, which
-raises.
+resumes in the other. With a ``mesh`` (``parallel/mesh.make_mesh``, one
+process per device) the build goes to the multi-device ring,
+``parallel/gram.build_kernel_matrix_sharded``, as in the reference.
 """
 
 from __future__ import annotations
@@ -137,10 +138,8 @@ def build_kernel_matrix(
     device: str = "cuda",
 ) -> np.ndarray:
     """``K[i, j] = |<psi(Y_i)|psi(X_j)>|^2`` for all pairs, computed on
-    ``device`` ("cuda" or "cpu"; no fallback)."""
-    if mesh is not None:
-        raise NotImplementedError("the mesh (multi-device) Gram build is not ported yet")
-    dev = resolve_device(device)
+    ``device`` ("cuda" or "cpu"; no fallback). With ``mesh`` the ring over
+    the mesh's ranks builds it on their devices (``tile`` unused)."""
     X = np.asarray(X, dtype=np.float64)
     if Y is not None and len(X) < len(np.asarray(Y)):
         raise ValueError(
@@ -150,6 +149,16 @@ def build_kernel_matrix(
         if truncation_error is None:
             raise ValueError("You must specify a truncation error.")
         cfg = SimConfig(truncation_error=truncation_error)
+    if mesh is not None:
+        from qml_cutensornet_tpu_torch.parallel.gram import build_kernel_matrix_sharded
+
+        if torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device!r} but the mesh runs on {mesh.device}")
+        return build_kernel_matrix_sharded(
+            ansatz, X, Y, info_file=info_file, cfg=cfg, mesh=mesh, loglevel=loglevel,
+            checkpoint=checkpoint, checkpoint_dir=checkpoint_dir, sim_batch=sim_batch,
+        )
+    dev = resolve_device(device)
     verbose = loglevel <= 20
     schedule = ansatz.schedule
     len_x = len(X)

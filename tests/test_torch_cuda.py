@@ -5,7 +5,8 @@ and the global-scratch layouts, the launch-error path, the pair variants
 (``mgs_pair``) of all five and K1 at the brick caps' shapes, and the Gram
 slice on the card against the same slice on the CPU on the fused,
 fused-gate, unfused, blocked and brick routes (the brick route also with
-caps and the pair step).
+caps and the pair step), and the multi-device ring at world size 1 over
+NCCL against the single-device Gram.
 
 Every test here is marked ``cuda`` and skips where there is no card. This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -843,3 +844,32 @@ def test_caps_brick_gram_on_card_matches_cpu(dev):
     assert sum(_build.PLAIN_ON_CUDA.values()) == 0
     K_cpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cpu")
     np.testing.assert_allclose(K_gpu, K_cpu, atol=3e-5)
+
+
+def test_ring_world_size_one_nccl(dev):
+    """The multi-device ring at world size 1 on the card (one rank on
+    ``cuda:0`` over NCCL, ``parallel/mesh.launch``): symmetric stepwise and
+    fused and rectangular, through K1 and K2, against the single-device Gram
+    on the card (2e-6: the ring contracts site by site, the single-device
+    tiles two sites a step)."""
+    from qml_cutensornet_tpu_torch.parallel import dryrun, mesh
+    from qml_cutensornet_tpu_torch.parallel import gram as pgram
+
+    nq = 8
+    X = np.random.default_rng(3).uniform(0.0, 2.0, size=(11, nq))
+    Y = X[:5] + 0.25
+    ans = KernelStateAnsatz(nq, 1, 1.0, entanglement_graph(nq, 2))
+    cfg = SimConfig(chi=16, tile_block=2, svd_method="subspace", fused_split=True)
+    build = pgram.build_kernel_matrix_sharded
+    calls = [(build, (ans, X), dict(cfg=cfg, mesh=dryrun.MESH, sim_batch=4), {}),
+             (build, (ans, X), dict(cfg=cfg, mesh=dryrun.MESH, sim_batch=4),
+              {"QMLTPU_RING": "fused"}),
+             (build, (ans, X), dict(Y=Y, cfg=cfg, mesh=dryrun.MESH, sim_batch=4), {})]
+    sym, fused, rect = mesh.launch(dryrun.run_calls, 1, "cuda", "cuda", calls, timeout=600)
+    assert sym["launches"]["split"] > 0 and sym["launches"]["orth_r"] > 0
+    assert sym["peak_bytes"] > 0
+    K = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cuda")
+    K_xy = build_kernel_matrix(ans, X, Y=Y, cfg=cfg, sim_batch=4, tile=4, device="cuda")
+    np.testing.assert_allclose(sym["out"], K, atol=2e-6)
+    np.testing.assert_allclose(fused["out"], sym["out"], atol=1e-7)
+    np.testing.assert_allclose(rect["out"], K_xy, atol=2e-6)

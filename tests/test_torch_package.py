@@ -37,7 +37,7 @@ def test_port_imports_neither_jax_nor_reference():
         "names = {n for n in sys.modules if n.startswith(p.__name__)}\n"
         "for mod in ('cli.main', 'cli.classical_main', 'models.svm', 'ops.blocked_qr',"
         " 'ops.vidal', 'ops.dense', 'utils.autotune', 'cli.main_track_mem',"
-        " 'cli.make_synthetic'):\n"
+        " 'cli.make_synthetic', 'parallel.mesh', 'parallel.gram', 'parallel.dryrun'):\n"
         "    assert p.__name__ + '.' + mod in names, mod\n"
         "from qml_cutensornet_tpu_torch.utils.device import full_f32_is_set\n"
         "assert full_f32_is_set()\n"

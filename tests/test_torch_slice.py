@@ -88,9 +88,19 @@ def test_cli_main_no_test_on_cpu(tmp_path, monkeypatch):
     ("QMLTPU_MESH", "2"), ("QMLTPU_SHARD_MPS", "all"),
 ])
 def test_unported_knobs_raise(monkeypatch, knob, value):
+    """QMLTPU_SHARD_MPS is not ported and raises. QMLTPU_MESH > 1 (the
+    multi-device ring, one process per device) raises outside a process
+    group instead of running on one device."""
     monkeypatch.setenv(knob, value)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv = ["m", "GPU", "6", "1", "1.0", "1", "5", "5", "1", "v1.csv"]
+    if knob == "QMLTPU_MESH":
+        _pipeline.parse_argv(argv)
+        with pytest.raises(RuntimeError, match="torchrun"):
+            _pipeline.engine_kwargs()
+        return
     with pytest.raises(NotImplementedError):
-        _pipeline.parse_argv(["m", "GPU", "6", "1", "1.0", "1", "5", "5", "1", "v1.csv"])
+        _pipeline.parse_argv(argv)
 
 
 @pytest.mark.parametrize("knob,value,field,expected", [
