@@ -130,6 +130,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``cli.main_no_test`` with ``QMLTPU_CHECKPOINT=1`` (bit-equal, the file
    gone); ``cli.main`` on 20 + 20 points against the same run on one device
    (2e-6) with its SVC sweep; the dry run (``parallel/dryrun``, 2e-6).
+10c. site-sharded: the site-sharded brick engine (``parallel/sharded_mps``,
+   ``QMLTPU_SHARD_MPS=all``) through ``parallel.mesh.launch`` on NCCL at the
+   same world sizes, one launch a world size: ``cli.main_no_test`` at nf 100,
+   chi 128 on 8 circuits through K5 and through K1, and at 14 qubits (K5),
+   each Gram held to phase 7's whole-chain Gram (1e-6) and its launches to
+   the brick plan, and each gathered MPS to the whole-chain simulator in the
+   rank's process (bond dims equal, fidelity rtol 1e-6, tensors 2e-6; the
+   two timed in turns); ``sharded_gram`` on the nf-100 points against the
+   K5 Gram (5e-6) and the relay's symmetric tiles against all tiles (the
+   mirrored block exactly transposed, 2e-6); the dry run's site-sharded part
+   (1e-6). Sim, relay and peak memory printed beside the whole chain's.
 11. ``QMLTPU_CHI=auto`` through ``cli.main`` on 20 + 20 points, probes
    capped at chi 64: one probe sequence (chi, min fidelity, max bond
    printed) serves the train and the test Gram.
@@ -152,6 +163,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import shutil
 import sys
 import time
 
@@ -1836,8 +1848,10 @@ def phase_mesh(smi, golden, K_default):
     ``QMLTPU_CHECKPOINT=1``, which must resume from it, bit-equal to (a), and
     remove it; (c) ``cli.main`` on 20 + 20 points, train and test Grams held
     to the same run on one device (2e-6), and its SVC sweep; (d) the dry run
-    (``parallel/dryrun``). Returns the launches of each world size's run
-    (counters set to 0 before each call)."""
+    (``parallel/dryrun``). Returns the ring's launches of each world size
+    (counters set to 0 before each call): those of (a), (b) and (c), not
+    those of the single-device builds held against them or of the dry
+    run."""
     import contextlib
     import io
 
@@ -1950,11 +1964,157 @@ def phase_mesh(smi, golden, K_default):
         assert max(e_tr, e_te) <= TOL_RING_SINGLE, f"{what}: cli.main off one device"
         log(f"{what}, dry run: {json.dumps(dry['out'])}, {dry['seconds']:.3f} s; "
             f"launch wall {wall:.3f} s")
+        # The ring's launches only: not the single-device builds held
+        # against it, nor the dry run (ring, single device and site-sharded
+        # runs in one call).
         total = dict.fromkeys(KERNEL_NAMES, 0)
-        for rec in recs:
+        for rec in (stepwise, fused, snap, resumed, cli_main):
             _add_all(total, rec["launches"])
         by_path[f"mesh_ws{ws}"] = total
     log(f"mesh phase: world sizes run {sizes} on {cards} card(s)")
+    return by_path
+
+
+TOL_SITE_GRAM = 1e-6  # site-sharded vs whole-chain brick Gram of the same argv
+TOL_SITE_TENSORS = 2e-6  # gathered MPS vs the whole chain (the reference's bars)
+TOL_SITE_FID = 1e-6  # relative fidelity, the same
+TOL_RELAY = 5e-6  # sharded_gram vs the site-sharded CLI Gram (the reference's bar)
+TOL_RELAY_SYM = 2e-6  # symmetric relay vs all tiles
+RELAY_TILE = 4  # relay tile of (c): 8 states, 2 x 2 tiles, one mirrored
+
+
+def _slug(text: str) -> str:
+    return "".join(c if c.isalnum() else "_" for c in text)
+
+
+def phase_site_sharded(smi):
+    """The site-sharded brick engine (``parallel/sharded_mps``,
+    ``QMLTPU_SHARD_MPS=all``) through ``mesh.launch`` with NCCL, one process
+    a card, at every world size from 1 to min(4, cards), one launch a world
+    size: (a) nf 100, chi 128, 8 circuits through ``cli.main_no_test``, with
+    K5 (``QMLTPU_FUSED_GATE=1``) and with K1, each Gram held to phase 7's
+    whole-chain Gram of the same argv (1e-6), and the gathered MPS to the
+    whole-chain simulator in the rank's process (bond dims equal, fidelity
+    within rtol 1e-6, tensors within 2e-6); (b) the same at 14 qubits (K5),
+    its Gram informative; (c) ``sharded_gram`` on (a)'s points against
+    (a)'s Gram (5e-6), and the relay's symmetric tiles against all tiles
+    (off-diagonal blocks transposed exactly, 2e-6); (d) the dry run's
+    site-sharded part. Each CLI run's launches equal the brick plan's, K5
+    and K1 (K1 alone on the K1 route), no K2, K3 or K4. Returns the
+    site-sharded engine's launches of each world size (counters set to 0
+    before each call; of a comparison or the dry run, the sharded runs'
+    only, never the whole chain's)."""
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.cli import main_no_test
+    from qml_cutensornet_tpu_torch.parallel import dryrun, mesh, sharded_mps
+    from qml_cutensornet_tpu_torch.utils.device import environ
+
+    cards = torch.cuda.device_count()
+    sizes = list(range(1, min(4, cards) + 1))
+    brick = {**BRICK_KNOBS, "QMLTPU_ROUTING": "brick"}
+    env_k5 = {**brick, "QMLTPU_SIM_BATCH": "8", "QMLTPU_FUSED_GATE": "1"}
+    env_k1 = {**brick, "QMLTPU_SIM_BATCH": "8", "QMLTPU_FUSED_GATE": "0"}
+    env_14 = {**brick, "QMLTPU_FUSED_GATE": "1"}
+    shard = {"QMLTPU_SHARD_MPS": "all"}
+
+    def inputs(argv, env):
+        with environ(**env):
+            params = pipe.parse_argv(list(argv))
+            x = pipe.prepare(params)[0]
+            return pipe.make_ansatz(params), x, pipe.sim_config(params, x), \
+                expected_launches(argv, 1)
+
+    a100, x100, cfg_k5, want_k5 = inputs(ARGV_BRICK100, env_k5)
+    _, _, cfg_k1, want_k1 = inputs(ARGV_BRICK100, env_k1)
+    a14, x14, cfg_14, want_14 = inputs(ARGV_BRICK14, env_14)
+    runs = (("nf 100, K5", ARGV_BRICK100, env_k5, a100, x100, cfg_k5, want_k5,
+             "brick nf 100 K5", "brick route, nf 100, chi 128, K5"),
+            ("nf 100, K1", ARGV_BRICK100, env_k1, a100, x100, cfg_k1, want_k1,
+             "brick nf 100 K1", "brick route, nf 100, chi 128, K1"),
+            ("14 qubits, K5", ARGV_BRICK14, env_14, a14, x14, cfg_14, want_14,
+             "brick 14 qubits", "brick route, 14 qubits, chi 128, K5"))
+    by_path = {}
+    for ws in sizes:
+        calls = []
+        for name, argv, env, ans, x, cfg, _, _, _ in runs:
+            info = WORK / pipe.info_names(pipe.parse_argv(list(argv)))[0]
+            calls += [  # the profile is kept aside before a run of the same argv overwrites it
+                (main_no_test.main, (list(argv),), {}, {**env, **shard}),
+                (shutil.copyfile, (f"{info}.json", f"{info}.{_slug(name)}.json"), {}, {}),
+                (dryrun.compare_site_sharded, (ans, x, cfg, "cuda"), {}, {})]
+        calls += [
+            (sharded_mps.sharded_gram, (a100, x100, cfg_k5), dict(mesh=dryrun.MESH), {}),
+            (dryrun.relay_full_and_symmetric, (a100, x100, cfg_k5),
+             dict(mesh=dryrun.MESH, tile=RELAY_TILE), {}),
+            (dryrun.site_sharded_dryrun, ("cuda",), {}, {}),
+        ]
+        t0 = time.perf_counter()
+        recs = mesh.launch(dryrun.run_calls, ws, "cuda", "cuda", calls, timeout=900)
+        wall = time.perf_counter() - t0
+        what = f"site-sharded, world size {ws}"
+        for i, (name, argv, _, _, x, _, want, gram, whole) in enumerate(runs):
+            cli, cmp = recs[3 * i], recs[3 * i + 2]
+            info = pipe.info_names(pipe.parse_argv(list(argv)))[0]
+            prof = json.loads((WORK / f"{info}.{_slug(name)}.json").read_text())
+            K = cli["out"]
+            check_train_gram(K, len(x), f"{what}, {name}")
+            err = float(np.abs(K - GRAMS[gram]).max())
+            launches = cli["launches"]
+            log(f"{what}, {name} [{smi}]: launches {launches} (plan {want}); sim "
+                f"{prof['r0_circ_sim'][0]:.3f} s, tiles {prof['kernel_mat_time'][0]:.3f} s, "
+                f"main_no_test {cli['seconds']:.3f} s, peak memory "
+                f"{cli['peak_bytes'] / 2**30:.3f} GiB; whole chain (phase 7, this process) sim "
+                f"{SIM_SECONDS[whole]:.3f} s; n_procs {prof['n_procs']}; avg_fidelity "
+                f"{prof['avg_fidelity'][0]:.8f}, avg_max_chi {prof['ave max chi x'][0]:.2f}; "
+                f"Gram vs the whole chain's {err:.3e} (tol {TOL_SITE_GRAM})")
+            secs = {k: " / ".join(f"{t:.3f}" for t in cmp["out"][f"{k}_s"])
+                    for k in ("sharded", "whole")}
+            log(f"{what}, {name}, MPS in the rank's process (in turns whole, sharded, sharded, "
+                f"whole): site-sharded {secs['sharded']} s, whole chain {secs['whole']} s, "
+                f"peak {cmp['peak_bytes'] / 2**30:.3f} GiB; tensors {cmp['out']['tensor_err']:.3e} "
+                f"(tol {TOL_SITE_TENSORS}), fidelity rtol {cmp['out']['fid_rtol']:.3e} (tol "
+                f"{TOL_SITE_FID}), bond dims equal {cmp['out']['bond_dims_equal']}; launches "
+                f"of the two runs, site-sharded {cmp['out']['launches']['sharded']}, whole "
+                f"chain {cmp['out']['launches']['whole']}")
+            assert launches == want, f"{what}, {name}: launches {launches} != plan {want}"
+            assert launches["split"] > 0, launches
+            assert (launches["brick_split"] > 0) == ("K5" in name), launches
+            assert launches["orth_r"] == launches["orth"] == launches["gate_split"] == 0
+            assert err <= TOL_SITE_GRAM, f"{what}, {name}: Gram off the whole chain's by {err}"
+            assert cmp["out"]["bond_dims_equal"], f"{what}, {name}: bond dims differ"
+            assert cmp["out"]["fid_rtol"] <= TOL_SITE_FID, cmp["out"]["fid_rtol"]
+            assert cmp["out"]["tensor_err"] <= TOL_SITE_TENSORS, cmp["out"]["tensor_err"]
+        sg, relay, dry = recs[-3:]
+        k_sg, full, sym = sg["out"], relay["out"]["full"], relay["out"]["sym"]
+        sg_err = float(np.abs(k_sg - recs[0]["out"]).max())
+        sym_err = float(np.abs(sym - full).max())
+        n_loc = sharded_mps.padded_sites_for(a100.schedule.num_sites_padded, ws) // ws
+        t = RELAY_TILE
+        off = ~np.eye(len(x100), dtype=bool)
+        log(f"{what}, relay [{smi}]: sharded_gram {sg['seconds']:.3f} s (evolution and relay, "
+            f"tile {sharded_mps.relay_auto_tile(cfg_k5.chi, n_loc)}), peak "
+            f"{sg['peak_bytes'] / 2**30:.3f} GiB, vs (a)'s K5 Gram {sg_err:.3e} (tol "
+            f"{TOL_RELAY}), diagonal off 1 by {float(np.abs(np.diag(k_sg) - 1).max()):.3e}; "
+            f"relay of {len(x100)} states, tile {t}: all tiles "
+            f"{relay['out']['full_s']:.4f} s, symmetric {relay['out']['sym_s']:.4f} s, "
+            f"symmetric vs all {sym_err:.3e} (tol {TOL_RELAY_SYM}); off-diagonal overlaps max "
+            f"{float(full[off].max()):.3e}")
+        assert sg_err <= TOL_RELAY, f"{what}: sharded_gram off (a)'s Gram by {sg_err}"
+        assert sym_err <= TOL_RELAY_SYM, f"{what}: symmetric relay off all tiles by {sym_err}"
+        assert np.array_equal(sym[t:2 * t, :t], sym[:t, t:2 * t].T), f"{what}: mirror"
+        log(f"{what}, dry run: {json.dumps(dry['out'])}, {dry['seconds']:.3f} s; launch wall "
+            f"{wall:.3f} s")
+        # The site-sharded engine's launches only: the CLI runs, the sharded
+        # runs of each comparison and of the dry run, sharded_gram, the relay.
+        total = dict.fromkeys(KERNEL_NAMES, 0)
+        for i in range(len(runs)):
+            _add_all(total, recs[3 * i]["launches"])
+            _add_all(total, recs[3 * i + 2]["out"]["launches"]["sharded"])
+        for rec in (sg, relay):
+            _add_all(total, rec["launches"])
+        _add_all(total, dry["out"]["launches"])
+        by_path[f"site_sharded_ws{ws}"] = total
+    log(f"site-sharded phase: world sizes run {sizes} on {cards} card(s)")
     return by_path
 
 
@@ -2097,6 +2257,8 @@ def main() -> int:
     log(f"checkpoint and resume done at {time.perf_counter() - t_start:.1f} s")
     by_path.update(phase_mesh(smi, golden, K_default))
     log(f"mesh phase done at {time.perf_counter() - t_start:.1f} s")
+    by_path.update(phase_site_sharded(smi))
+    log(f"site-sharded phase done at {time.perf_counter() - t_start:.1f} s")
     by_path["auto_chi"] = phase_auto_chi(smi)
     log(f"auto chi done at {time.perf_counter() - t_start:.1f} s")
     by_path["track_mem"] = phase_track_mem(smi)

@@ -55,10 +55,11 @@ names where the port supports them:
                            under torchrun (WORLD_SIZE in the environment; or
                            parallel.mesh.launch) every Gram runs on the ring
                            over the process group, NCCL on cuda, gloo on
-                           cpu; unset, it is the world size, and any other
-                           value raises. Outside a process group a value
-                           above 1 raises (run torchrun --nproc-per-node N
-                           -m qml_cutensornet_tpu_torch.cli.main ...); it
+                           cpu; unset, it is the world size (no ring with
+                           QMLTPU_SHARD_MPS), and any other value raises.
+                           Outside a process group a value above 1 raises
+                           (run torchrun --nproc-per-node N -m
+                           qml_cutensornet_tpu_torch.cli.main ...); it
                            never runs on one device instead. Every rank
                            builds the same K; only rank 0 writes files
     QMLTPU_RING            stepwise (default; one ring iteration at a time,
@@ -66,9 +67,18 @@ names where the port supports them:
                            tmp/checkpoint_ring_<run name>.npz) | fused (the
                            same loop with no device sync between iterations:
                            only the aggregate time, no checkpoint)
+    QMLTPU_SHARD_MPS       "all" | N: the brick engine (QMLTPU_ROUTING=brick;
+                           any other routing raises) shards each state's
+                           sites over the process group
+                           (parallel/sharded_mps.py; torchrun
+                           --nproc-per-node N, one process per device), or
+                           runs a mesh of one outside a group with "all"; N
+                           must equal the world size, and N > 1 outside a
+                           group raises. The process group is then the site
+                           mesh and not a ring: with QMLTPU_MESH > 1 it
+                           raises, and the Gram's tiles run on every rank
+                           from the gathered MPS
     QMLTPU_STAGED, QMLTPU_CHUNK_LEN, QMLTPU_NORMALIZE  as in the reference
-
-A knob of a feature not ported yet raises: QMLTPU_SHARD_MPS.
 """
 
 from __future__ import annotations
@@ -79,12 +89,14 @@ import pathlib
 import sys
 
 import numpy as np
+import torch.distributed as dist
 
 from qml_cutensornet_tpu_torch.config import SimConfig
 from qml_cutensornet_tpu_torch.models.ansatz import KernelStateAnsatz
 from qml_cutensornet_tpu_torch.models.entanglement import entanglement_graph
 from qml_cutensornet_tpu_torch.models.gram import build_kernel_matrix
 from qml_cutensornet_tpu_torch.parallel.mesh import make_mesh, maybe_distributed_init, process_index
+from qml_cutensornet_tpu_torch.parallel.sharded_mps import mesh_for_knob
 from qml_cutensornet_tpu_torch.utils.autotune import choose_chi
 from qml_cutensornet_tpu_torch.utils.data import load_and_prepare
 from qml_cutensornet_tpu_torch.utils.naming import run_info
@@ -124,12 +136,6 @@ def _env_flag(name: str, default: str = "0") -> bool:
     return os.environ.get(name, default) != "0"
 
 
-def check_unported_knobs() -> None:
-    """Raise on environment knobs whose features the port does not have."""
-    if os.environ.get("QMLTPU_SHARD_MPS", "0") != "0":
-        raise NotImplementedError("QMLTPU_SHARD_MPS is not ported")
-
-
 def parse_argv(argv=None) -> RunParams:
     argv = sys.argv if argv is None else argv
     if len(argv) <= 9:
@@ -137,7 +143,6 @@ def parse_argv(argv=None) -> RunParams:
     backend = str(argv[1])
     if backend not in ("GPU", "CPU", "TPU"):
         raise ValueError(INPUT_ERROR_MSG)
-    check_unported_knobs()
     return RunParams(
         backend=backend,
         num_features=int(argv[2]),
@@ -222,6 +227,19 @@ def engine_kwargs() -> dict:
         device=device,
     )
     size = os.environ.get("QMLTPU_MESH")
+    shard = os.environ.get("QMLTPU_SHARD_MPS", "0")
+    if shard != "0":
+        # The process group is the site mesh; the Gram's tiles take the
+        # single-device path on every rank, from the gathered MPS.
+        if size is not None and int(size) > 1:
+            raise ValueError(f"QMLTPU_SHARD_MPS with QMLTPU_MESH={size}: the site-sharded "
+                             "engine runs on no ring (no dp x sp mesh behind the knobs)")
+        routing = os.environ.get("QMLTPU_ROUTING", "tracked")
+        if routing != "brick":
+            raise ValueError(f"QMLTPU_SHARD_MPS={shard} shards the brick engine's sites, but "
+                             f"QMLTPU_ROUTING={routing}: set QMLTPU_ROUTING=brick")
+        kwargs["site_mesh"] = mesh_for_knob(shard, device)
+        return kwargs
     if "WORLD_SIZE" in os.environ:
         maybe_distributed_init(device)
         kwargs["mesh"] = make_mesh(None if size is None else int(size), device)
@@ -233,10 +251,12 @@ def engine_kwargs() -> dict:
 
 
 def n_procs() -> int:
-    """Ranks of the run: the size of the mesh that :func:`engine_kwargs`
-    makes (under torchrun, which initializes the process group), else 1."""
+    """Ranks of the run: the size of the ring or site mesh over the process
+    group that :func:`engine_kwargs` initializes under torchrun, else 1."""
     mesh = engine_kwargs().get("mesh")
-    return 1 if mesh is None else mesh.size
+    if mesh is not None:
+        return mesh.size
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def is_writer() -> bool:

@@ -35,6 +35,7 @@ from qml_cutensornet_tpu_torch.models.simulate import (
     state_norms_sq,
     tile_overlaps_sq,
 )
+from qml_cutensornet_tpu_torch.parallel.mesh import process_index
 from qml_cutensornet_tpu_torch.utils.device import resolve_device
 
 
@@ -61,7 +62,7 @@ def _sync(device: torch.device) -> None:
 
 
 def simulate_dataset(schedule, features: np.ndarray, cfg: SimConfig, sim_batch: int,
-                     device: torch.device):
+                     device: torch.device, site_mesh=None):
     """Simulate all datapoint circuits ``sim_batch`` at a time on ``device``
     (``schedule`` a tracked ``GateSchedule`` or a ``BrickSchedule``; both
     simulators return an ``MPS`` over the ``num_qubits`` real sites).
@@ -69,7 +70,7 @@ def simulate_dataset(schedule, features: np.ndarray, cfg: SimConfig, sim_batch: 
     max_chis [N] numpy, per-batch seconds)."""
     n_pts = features.shape[0]
     padded = _pad_rows(np.asarray(features, dtype=np.float64), sim_batch)
-    sim = make_chunked_simulator(schedule, cfg, device)
+    sim = make_chunked_simulator(schedule, cfg, device, site_mesh=site_mesh)
     tensors, fids, chis, batch_times, buckets = [], [], [], [], []
     for start in range(0, padded.shape[0], sim_batch):
         chunk = padded[start: start + sim_batch]
@@ -133,13 +134,17 @@ def build_kernel_matrix(
     sim_batch: int = 32,
     tile: int = 32,
     mesh=None,
+    site_mesh=None,
     checkpoint: bool = False,
     checkpoint_dir: str = "tmp",
     device: str = "cuda",
 ) -> np.ndarray:
     """``K[i, j] = |<psi(Y_i)|psi(X_j)>|^2`` for all pairs, computed on
     ``device`` ("cuda" or "cpu"; no fallback). With ``mesh`` the ring over
-    the mesh's ranks builds it on their devices (``tile`` unused)."""
+    the mesh's ranks builds it on their devices (``tile`` unused). With
+    ``site_mesh`` (``parallel/mesh.make_site_mesh``) the brick engine runs
+    site-sharded over that mesh and every rank builds the whole K from the
+    gathered states; it excludes ``mesh``."""
     X = np.asarray(X, dtype=np.float64)
     if Y is not None and len(X) < len(np.asarray(Y)):
         raise ValueError(
@@ -150,6 +155,8 @@ def build_kernel_matrix(
             raise ValueError("You must specify a truncation error.")
         cfg = SimConfig(truncation_error=truncation_error)
     if mesh is not None:
+        if site_mesh is not None:
+            raise ValueError("mesh (the ring) and site_mesh exclude each other")
         from qml_cutensornet_tpu_torch.parallel.gram import build_kernel_matrix_sharded
 
         if torch.device(device).type != mesh.device.type:
@@ -159,7 +166,10 @@ def build_kernel_matrix(
             checkpoint=checkpoint, checkpoint_dir=checkpoint_dir, sim_batch=sim_batch,
         )
     dev = resolve_device(device)
-    verbose = loglevel <= 20
+    # Inside a process group (the site-sharded engine's) every rank builds
+    # the same K; rank 0 alone writes the files.
+    writer = process_index() == 0
+    verbose = loglevel <= 20 and writer
     schedule = ansatz.schedule
     len_x = len(X)
     len_y = len_x if Y is None else len(np.asarray(Y))
@@ -171,10 +181,10 @@ def build_kernel_matrix(
     start_time = time.perf_counter()
 
     profiling["r0_circ_gen"] = [0.0, "seconds"]
-    ax, fid_x, chi_x, times_x = simulate_dataset(schedule, X, cfg, sim_batch, dev)
+    ax, fid_x, chi_x, times_x = simulate_dataset(schedule, X, cfg, sim_batch, dev, site_mesh)
     if Y is not None:
         ay, fid_y, chi_y, times_y = simulate_dataset(
-            schedule, np.asarray(Y, dtype=np.float64), cfg, sim_batch, dev)
+            schedule, np.asarray(Y, dtype=np.float64), cfg, sim_batch, dev, site_mesh)
     else:
         ay, fid_y, chi_y, times_y = ax, fid_x, chi_x, []
 
@@ -264,13 +274,14 @@ def build_kernel_matrix(
             kernel_mat[y0:y1, x0:x1] = block
             if symmetric and x0 < y0:
                 kernel_mat[x0:x1, y0:y1] = block.T
-            if ckpt_file is not None and time.perf_counter() - last_ckpt >= ckpt_interval:
+            if (ckpt_file is not None and writer
+                    and time.perf_counter() - last_ckpt >= ckpt_interval):
                 # Atomic: a crash mid-save leaves the previous checkpoint.
                 tmp = ckpt_file.with_suffix(".tmp.npy")
                 np.save(tmp, kernel_mat)
                 tmp.replace(ckpt_file)
                 last_ckpt = time.perf_counter()
-    if ckpt_file is not None:
+    if ckpt_file is not None and writer:
         ckpt_file.unlink(missing_ok=True)
     kernel_mat = kernel_mat[:len_y, :len_x]
 
@@ -299,7 +310,7 @@ def build_kernel_matrix(
         profiling["q1_product"] = [float(np.percentile(per_vdot, 25)), "seconds"]
         profiling["q3_product"] = [float(np.percentile(per_vdot, 75)), "seconds"]
 
-    if info_file is not None:
+    if info_file is not None and writer:
         with open(str(info_file) + ".json", "w") as fp:
             json.dump(profiling, fp, indent=4)
     return kernel_mat

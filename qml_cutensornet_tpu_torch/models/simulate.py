@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from collections.abc import Callable
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -155,19 +157,27 @@ def _pad_bonds(state: MPS, chi: int) -> MPS:
 
 def make_chunked_simulator(schedule: GateSchedule | BrickSchedule, cfg: SimConfig,
                            device: torch.device, chunk_len: int | None = None,
-                           staged: bool | None = None):
+                           staged: bool | None = None, site_mesh=None):
     """``simulate(features [B, n]) -> MPS`` over the tracked op stream, in
     chunks of ``chunk_len`` ops (``QMLTPU_CHUNK_LEN``, default 128) with the
     staged bond cap (``QMLTPU_STAGED``, default on): each chunk runs at the
     smallest power-of-two chi that holds its structural bond bound, which
     is exactly equivalent to running at ``cfg.chi`` throughout. A
-    :class:`BrickSchedule` goes to :func:`make_brick_simulator`; its
-    site-sharded engine (``QMLTPU_SHARD_MPS``) is not ported and raises."""
+    :class:`BrickSchedule` goes to :func:`make_brick_simulator`, or with a
+    ``site_mesh`` (``parallel/mesh.make_site_mesh``; the CLI's
+    ``QMLTPU_SHARD_MPS``) to the site-sharded engine
+    (``parallel/sharded_mps.py``), which gives every rank the gathered MPS.
+    A ``site_mesh`` with any other schedule raises."""
     if isinstance(schedule, BrickSchedule):
-        if os.environ.get("QMLTPU_SHARD_MPS", "0") != "0":
-            raise NotImplementedError("QMLTPU_SHARD_MPS (the site-sharded brick engine) "
-                                      "is not ported")
+        if site_mesh is not None:
+            from qml_cutensornet_tpu_torch.parallel import sharded_mps
+
+            return sharded_mps.make_sharded_brick_simulator(schedule, cfg, site_mesh,
+                                                            staged=staged)
         return make_brick_simulator(schedule, cfg, device, staged=staged)
+    if site_mesh is not None:
+        raise ValueError("a site mesh (QMLTPU_SHARD_MPS) shards the brick engine's sites: "
+                         "use the brick routing (QMLTPU_ROUTING=brick)")
     if chunk_len is None:
         chunk_len = int(os.environ.get("QMLTPU_CHUNK_LEN", "128"))
     if staged is None:
@@ -300,42 +310,59 @@ def _pad_vidal(state: vidal.VidalState, chi: int) -> vidal.VidalState:
         lams=torch.nn.functional.pad(state.lams, (0, chi - old)))
 
 
+class BrickStageFns(NamedTuple):
+    """One stage's steps of a brick engine (:func:`drive_brick_schedule`)."""
+
+    init: Callable  # features [B, n] -> state
+    rz: Callable  # (state, rz_arg(rep, x)) -> state
+    chunk: Callable  # (state, parities, swaps, actives, thetas) -> state
+    pad_to: Callable  # state of a lower stage -> state at this stage's chi
+    finalize: Callable  # state -> MPS
+
+
 def drive_brick_schedule(x, schedule: BrickSchedule, chunks2, chunk_arrays, layer_chunk: int,
-                         cfg: SimConfig, device: torch.device, final_chi: int) -> MPS:
-    """The host loop of the brick engine, as the reference's: per-rep
+                         rdt: torch.dtype, fns_for, *, rz_arg, place_acts, place_thetas,
+                         k_pad: int, final_chi: int):
+    """The one host loop both brick engines run, as the reference's: per-rep
     angles, one Rz layer per rep, staged-chi growth before the first chunk
-    of a higher stage, the chunks (each at its stage's ``cfg``), then the
-    MPS over the real sites."""
-    n, gamma, rdt = schedule.num_qubits, schedule.gamma, cfg.real_dtype
+    of a higher stage, the chunks, then the finalize step.
+
+    The whole-chain engine (:func:`make_brick_simulator`) and the
+    site-sharded one (``parallel/sharded_mps.py``) differ only in where
+    their arrays live and in the site frame their Rz layer addresses; both
+    are injected here, so the stage and chunk sequence that keeps the two
+    numerically identical lives in one place. ``fns_for(chi)`` returns the
+    stage's :class:`BrickStageFns`; ``rz_arg(rep, x)`` makes the Rz step's
+    input, ``place_acts`` and ``place_thetas`` put the chunk's actives
+    ``[C, k_pad]`` and thetas ``[C, B, k_pad]`` where the chunk step reads
+    them (its parities and swaps stay on the host); ``k_pad`` pads the pair
+    axis."""
+    gamma = schedule.gamma
     np_rdt = np.dtype(str(rdt).removeprefix("torch."))
     x = np.asarray(x, dtype=np.float64)
     cur_chi = chunks2[0][3] if chunks2 else final_chi
-    state = vidal.zero_state(x.shape[0], schedule.num_sites_padded,
-                             dataclasses.replace(cfg, chi=cur_chi), device)
-    if schedule.hadamard_init:
-        state = vidal.apply_1q_real_sites(state, gates.hadamard(rdt, device), n)
+    state = fns_for(cur_chi).init(x)
+    K = schedule.pairs_per_layer
     rep_thetas = []
     for rep in schedule.bricks:
         th = 0.5 * np.pi * gamma * gamma * (1.0 - x[:, rep.fa]) * (1.0 - x[:, rep.fb])
-        rep_thetas.append(np.where(rep.fire[None], th, 0.0).astype(np_rdt))  # [B, L, K]
+        th = np.where(rep.fire[None], th, 0.0)  # [B, L, K]
+        if k_pad > K:
+            th = np.pad(th, ((0, 0), (0, 0), (0, k_pad - K)))
+        rep_thetas.append(th.astype(np_rdt))
     done_rz = -1
     for (ri, i, j, stage), (pars, sws, acts) in zip(chunks2, chunk_arrays):
         if ri > done_rz:
-            xs = torch.as_tensor(x[:, schedule.bricks[ri].pos_to_feature].astype(np_rdt),
-                                 device=device)
-            state = vidal.apply_diag_real_sites(state, gates.rz_phases(gamma * xs))
+            state = fns_for(cur_chi).rz(state, rz_arg(ri, x))
             done_rz = ri
         if stage > cur_chi:
             cur_chi = stage
-            state = _pad_vidal(state, cur_chi)
+            state = fns_for(cur_chi).pad_to(state)
         # thetas [C, B, K], padded layers get zeros
         th = np.pad(rep_thetas[ri][:, i:j], ((0, 0), (0, layer_chunk - (j - i)), (0, 0)))
-        state = vidal.layer_scan(
-            state, pars, sws, torch.as_tensor(acts, device=device),
-            torch.as_tensor(np.ascontiguousarray(th.transpose(1, 0, 2)), device=device),
-            dataclasses.replace(cfg, chi=cur_chi), n=n)
-    tensors, fidelity, bond_dims = vidal.to_mps_tensors(state, n)
-    return MPS(tensors=tensors, fidelity=fidelity, bond_dims=bond_dims)
+        state = fns_for(cur_chi).chunk(state, pars, sws, place_acts(acts),
+                                       place_thetas(np.ascontiguousarray(th.transpose(1, 0, 2))))
+    return fns_for(cur_chi).finalize(state)
 
 
 BRICK_LAYER_CHUNK = 16  # brick layers per chunk, padded with inactive layers
@@ -350,13 +377,47 @@ def make_brick_simulator(schedule: BrickSchedule, cfg: SimConfig, device: torch.
     default on). Single device."""
     if staged is None:
         staged = os.environ.get("QMLTPU_STAGED", "1") != "0"
+    n, n_p, K = schedule.num_qubits, schedule.num_sites_padded, schedule.pairs_per_layer
+    rdt, gamma = cfg.real_dtype, schedule.gamma
+    np_rdt = np.dtype(str(rdt).removeprefix("torch."))
     rep_stages, final_chi = brick_stage_plan(schedule, cfg, staged)
-    chunks2, chunk_arrays = brick_chunk_plan(schedule, rep_stages, layer_chunk,
-                                             schedule.pairs_per_layer)
+    chunks2, chunk_arrays = brick_chunk_plan(schedule, rep_stages, layer_chunk, K)
+    fns: dict = {}
+
+    def fns_for(chi_s: int):
+        if chi_s in fns:
+            return fns[chi_s]
+        cfg_s = dataclasses.replace(cfg, chi=chi_s)
+
+        def init(x):
+            state = vidal.zero_state(x.shape[0], n_p, cfg_s, device)
+            if schedule.hadamard_init:
+                state = vidal.apply_1q_real_sites(state, gates.hadamard(rdt, device), n)
+            return state
+
+        def rz(state, xs):
+            return vidal.apply_diag_real_sites(state, gates.rz_phases(gamma * xs))
+
+        def chunk(state, pars, sws, acts, thetas):
+            return vidal.layer_scan(state, pars, sws, acts, thetas, cfg_s, n=n)
+
+        def finalize(state):
+            tensors, fidelity, bond_dims = vidal.to_mps_tensors(state, n)
+            return MPS(tensors=tensors, fidelity=fidelity, bond_dims=bond_dims)
+
+        fns[chi_s] = BrickStageFns(init, rz, chunk, lambda state: _pad_vidal(state, chi_s),
+                                   finalize)
+        return fns[chi_s]
+
+    def on_device(a):
+        return torch.as_tensor(a, device=device)
 
     def simulate(features) -> MPS:
-        return drive_brick_schedule(features, schedule, chunks2, chunk_arrays, layer_chunk, cfg,
-                                    device, final_chi)
+        return drive_brick_schedule(
+            features, schedule, chunks2, chunk_arrays, layer_chunk, rdt, fns_for,
+            rz_arg=lambda ri, x: on_device(
+                x[:, schedule.bricks[ri].pos_to_feature].astype(np_rdt)),
+            place_acts=on_device, place_thetas=on_device, k_pad=K, final_chi=final_chi)
 
     return simulate
 
@@ -481,6 +542,22 @@ def _combine_sites(a: torch.Tensor, k: int):
     return main, tail
 
 
+def tile_step(m: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor, p: int) -> torch.Tensor:
+    """One transfer-matrix step of an all-pairs tile: the carry ``m [By, Bx,
+    chi, chi]`` (``m[y, x, a, b]``, ``a`` the bond of ``y``, ``b`` that of
+    ``x``) through the sites ``ty [By, chi, p, chi]`` and ``tx [Bx, chi, p,
+    chi]`` (``p`` physical values): two batched complex matmuls."""
+    By, Bx, chi = m.shape[0], m.shape[1], m.shape[2]
+    # T[x, (y a), (s d)] = sum_b M[x, (y a), b] Tx[x, b, (s d)]
+    mx = m.transpose(0, 1).reshape(Bx, By * chi, chi)
+    t1 = mx @ tx.reshape(Bx, chi, p * chi)
+    # regroup [x, (y a), (s d)] -> [y, (a s), (x d)]
+    t2 = (t1.reshape(Bx, By, chi, p, chi).permute(1, 2, 3, 0, 4)
+          .reshape(By, chi * p, Bx * chi))
+    m2 = ty.reshape(By, chi * p, chi).mH @ t2  # [By, chi, Bx*chi]
+    return m2.reshape(By, chi, Bx, chi).transpose(1, 2)
+
+
 def tile_overlaps_sq(ay: torch.Tensor, ax: torch.Tensor, site_block: int = 1) -> torch.Tensor:
     """All-pairs ``|<y_i|x_j>|^2`` between ``ay [By, n, chi, 2, chi]`` and
     ``ax [Bx, n, chi, 2, chi]`` -> real ``[By, Bx]``, by a transfer-matrix
@@ -498,25 +575,15 @@ def tile_overlaps_sq(ay: torch.Tensor, ax: torch.Tensor, site_block: int = 1) ->
     m = torch.zeros((By, Bx, chi, chi), dtype=ax.dtype, device=ax.device)
     m[:, :, 0, 0] = 1.0
 
-    def step(m, ty, tx, p):
-        # T[x, (y a), (s d)] = sum_b M[x, (y a), b] Tx[x, b, (s d)]
-        mx = m.transpose(0, 1).reshape(Bx, By * chi, chi)
-        t1 = mx @ tx.reshape(Bx, chi, p * chi)
-        # regroup [x, (y a), (s d)] -> [y, (a s), (x d)]
-        t2 = (t1.reshape(Bx, By, chi, p, chi).permute(1, 2, 3, 0, 4)
-              .reshape(By, chi * p, Bx * chi))
-        m2 = ty.reshape(By, chi * p, chi).mH @ t2  # [By, chi, Bx*chi]
-        return m2.reshape(By, chi, Bx, chi).transpose(1, 2)
-
     k = site_block
     gy, ty_tail = _combine_sites(ay, k) if k > 1 else (ay, None)
     gx, tx_tail = _combine_sites(ax, k) if k > 1 else (ax, None)
     if gy is not None:
         p = gy.shape[3]
         for i in range(gy.shape[1]):
-            m = step(m, gy[:, i], gx[:, i], p)
+            m = tile_step(m, gy[:, i], gx[:, i], p)
     if ty_tail is not None:
-        m = step(m, ty_tail, tx_tail, ty_tail.shape[2])
+        m = tile_step(m, ty_tail, tx_tail, ty_tail.shape[2])
     ov = m[:, :, 0, 0]
     return ov.real * ov.real + ov.imag * ov.imag
 

@@ -7,7 +7,8 @@ runs one process per device instead, the original MPI layout of the system
 (one rank per GPU): each rank has its own host thread to feed its card,
 which the port's host-bound routes need. The processes form a
 ``torch.distributed`` group, NCCL for CUDA tensors and gloo for CPU
-tensors; a :class:`Mesh` is one rank's place in it.
+tensors; a :class:`Mesh` is one rank's place in it, as a ring
+(``parallel/gram.py``) or as a site mesh (``parallel/sharded_mps.py``).
 
 Launch with ``torchrun --nproc-per-node N`` (one process per card), or
 locally with :func:`launch`. The backend follows the device the caller
@@ -38,19 +39,83 @@ BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank of a 1-D data-parallel mesh: this process's ``rank`` among
-    ``world_size``, its ``device``, and the process ``group`` (``None``: the
-    default group). ``size`` and ``AXIS`` read as the reference's mesh."""
+    """One rank of a mesh over the process group: ``dp`` rows of ``size``
+    ranks, global rank ``rank = row * size + col``. A ring and a 1-D site
+    mesh are one row (``dp`` 1, ``size`` the world size). On a 2-D ``(dp,
+    sp)`` site mesh (``size`` is ``sp``) the ranks of a row hold the site
+    blocks of one share of the batch and talk over ``group``; the ranks of
+    a column hold the same sites of the other shares (``batch_group``).
+    ``None`` is the default group. A mesh of one needs no process group:
+    every transfer and gather on it is the identity. ``AXIS`` reads as the
+    reference's mesh."""
 
     rank: int
-    world_size: int
+    size: int
     device: torch.device
     group: object = None
+    dp: int = 1
+    batch_group: object = None
     AXIS: ClassVar[str] = AXIS
 
     @property
-    def size(self) -> int:
-        return self.world_size
+    def row(self) -> int:
+        return self.rank // self.size
+
+    @property
+    def col(self) -> int:
+        return self.rank % self.size
+
+    def peer(self, col: int) -> int:
+        """Global rank of column ``col`` (modulo ``size``) of this rank's row."""
+        return self.row * self.size + col % self.size
+
+
+def make_site_mesh(sp: int | None = None, dp: int = 1, device: str = "cuda") -> Mesh:
+    """This rank's site mesh over the initialized process group: ``dp``
+    rows of ``sp`` ranks (``sp`` None: the world size over ``dp``). Outside
+    a process group only the mesh of one exists. A 2-D mesh makes one
+    process group per row and per column; every rank creates all of them,
+    in one order, as ``dist.new_group`` requires."""
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        if dp * (sp or 1) != 1:
+            raise RuntimeError(
+                f"a ({dp}, {sp}) site mesh needs one process per device: run under torchrun "
+                f"--nproc-per-node {dp * (sp or 1)}, or parallel.mesh.launch")
+        return Mesh(rank=0, size=1, device=dev)
+    _check_backend(dev)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    sp = world // dp if sp is None else sp
+    if dp * sp != world:
+        raise ValueError(f"a ({dp}, {sp}) site mesh needs {dp * sp} ranks, but the process "
+                         f"group has {world}")
+    group = batch_group = None
+    if dp > 1:
+        for i in range(dp):
+            g = dist.new_group([i * sp + j for j in range(sp)])
+            if i == rank // sp:
+                group = g
+        for j in range(sp):
+            g = dist.new_group([i * sp + j for i in range(dp)])
+            if j == rank % sp:
+                batch_group = g
+    return Mesh(rank=rank, size=sp, device=dev, group=group, dp=dp, batch_group=batch_group)
+
+
+def gather_along(t: torch.Tensor, dim: int, n: int, group=None) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` of a process group, concatenated along ``dim``
+    in rank order on every rank (one ``all_gather``; complex tensors as
+    ``view_as_real``). With ``n`` 1 it is ``t`` itself."""
+    if n == 1:
+        return t
+    send = t.contiguous()
+    if send.is_complex():
+        send = torch.view_as_real(send)
+    parts = [torch.empty_like(send) for _ in range(n)]
+    dist.all_gather(parts, send, group=group)
+    if t.is_complex():
+        parts = [torch.view_as_complex(p) for p in parts]
+    return torch.cat(parts, dim=dim)
 
 
 def maybe_distributed_init(device: str = "cuda") -> bool:
@@ -104,7 +169,7 @@ def make_mesh(n_devices: int | None = None, device: str = "cuda") -> Mesh:
         raise ValueError(f"Requested {n_devices} devices but the process group has {world} "
                          "ranks (one device each).")
     _check_backend(dev)
-    return Mesh(rank=dist.get_rank(), world_size=world, device=dev)
+    return Mesh(rank=dist.get_rank(), size=world, device=dev)
 
 
 def process_index() -> int:
@@ -118,10 +183,7 @@ def to_host(part: torch.Tensor, mesh: Mesh) -> np.ndarray:
     every rank: one ``all_gather``, concatenated in rank order. The
     reference's contract (``to_host``): every process gets the whole
     matrix."""
-    part = part.contiguous()
-    parts = [torch.empty_like(part) for _ in range(mesh.size)]
-    dist.all_gather(parts, part, group=mesh.group)
-    return torch.cat(parts, dim=-1).cpu().numpy()
+    return np.array(gather_along(part, -1, mesh.size, mesh.group).cpu())  # a copy
 
 
 def _free_port() -> int:

@@ -4,13 +4,17 @@ one NVIDIA GPU:
     python3 -m qml_cutensornet_tpu_torch.utils.profile_routes [ROUTE ...]
 
 ROUTE is any of ``default`` (K1 + K2), ``fused_gate`` (K4 + K2), ``unfused``
-(K3 + matrix products), ``brick_k5`` and ``brick_k1`` (default: all five).
+(K3 + matrix products), ``brick_k5``, ``brick_k1``, ``brick_k5_sharded``,
+``brick14_k5`` and ``brick14_k5_sharded`` (default: the first five).
 The first three simulate one sim batch of 32 circuits at the headline shape
 (32 qubits, r=2, d=6, chi 64, f32, the pinned v1 data); the brick routes
 one sim batch of 8 circuits of the full-width brick configuration (100
 qubits, r=2, d=6, chi 128, oversampling 0, ``QMLTPU_ROUTING=brick``), every
 pair update from chi 16 on through K5 (``brick_k5``: fused gate) or through
-torch products and K1 (``brick_k1``). For each it prints: the wall time of
+torch products and K1 (``brick_k1``); the ``brick14`` routes one sim batch
+of 32 circuits of 14 qubits at the same settings through K5; the
+``_sharded`` routes the same on the site-sharded engine
+(``QMLTPU_SHARD_MPS=all``, a mesh of one). For each it prints: the wall time of
 two unprofiled batches; then, from one batch under ``torch.profiler``, the
 kernel launches per op (per two-site gate or center move; per pair update
 on the brick routes), the device time in total and by kernel (the largest
@@ -34,6 +38,7 @@ from qml_cutensornet_tpu_torch.models import simulate
 from qml_cutensornet_tpu_torch.models.simulate import make_chunked_simulator, stream_chunk_plan
 from qml_cutensornet_tpu_torch.ops import vidal
 from qml_cutensornet_tpu_torch.ops import _build
+from qml_cutensornet_tpu_torch.parallel import sharded_mps
 from qml_cutensornet_tpu_torch.utils.data import load_and_prepare, preprocess_elliptic
 from qml_cutensornet_tpu_torch.utils.device import environ, nvidia_smi
 
@@ -41,15 +46,23 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 ARGV = ["profile", "GPU", "32", "2", "1.0", "6", "64", "64", "5", "elliptic_preproc_bench.csv"]
 ARGV_BRICK = ["profile", "GPU", "100", "2", "1.0", "6", "5", "5", "5",
               "elliptic_preproc_bench.csv"]
+ARGV_BRICK14 = ["profile", "GPU", "14", "2", "1.0", "6", "20", "20", "5",
+                "elliptic_preproc_bench.csv"]
 BRICK = {"QMLTPU_ROUTING": "brick", "QMLTPU_CHI": "128", "QMLTPU_OVERSAMPLE": "0"}
+K5 = {**BRICK, "QMLTPU_FUSED_GATE": "1"}
+SHARD = {"QMLTPU_SHARD_MPS": "all"}
 # route -> (argv, knobs, circuits in the sim batch)
 ROUTES = {
     "default": (ARGV, {}, 32),
     "fused_gate": (ARGV, {"QMLTPU_FUSED_GATE": "1"}, 32),
     "unfused": (ARGV, {"QMLTPU_FUSED_SPLIT": "0"}, 32),
-    "brick_k5": (ARGV_BRICK, {**BRICK, "QMLTPU_FUSED_GATE": "1"}, 8),
+    "brick_k5": (ARGV_BRICK, K5, 8),
     "brick_k1": (ARGV_BRICK, {**BRICK, "QMLTPU_FUSED_GATE": "0"}, 8),
+    "brick_k5_sharded": (ARGV_BRICK, {**K5, **SHARD}, 8),
+    "brick14_k5": (ARGV_BRICK14, K5, 32),
+    "brick14_k5_sharded": (ARGV_BRICK14, {**K5, **SHARD}, 32),
 }
+DEFAULT_ROUTES = ("default", "fused_gate", "unfused", "brick_k5", "brick_k1")
 
 
 def _one_batch(sim, x, dev):
@@ -59,13 +72,15 @@ def _one_batch(sim, x, dev):
     return time.perf_counter() - t0
 
 
-def _op_count(schedule, cfg, batch):
+def _op_count(schedule, cfg, batch, sharded: bool):
     """Ops of one sim batch: two-site gates and center moves of the tracked
     stream (padding moves included), or the brick plan's pair updates (its
     chunks padded to full length with inactive layers, each layer one update
-    per pair chunk)."""
+    per pair chunk; the site-sharded engine's pairs on a mesh of one)."""
     if isinstance(schedule, simulate.BrickSchedule):
         K = schedule.pairs_per_layer
+        if sharded:
+            K = sharded_mps.padded_sites_for(schedule.num_sites_padded, 1) // 2
         rep_stages, _ = simulate.brick_stage_plan(schedule, cfg, True)
         chunks2, _ = simulate.brick_chunk_plan(schedule, rep_stages,
                                                simulate.BRICK_LAYER_CHUNK, K)
@@ -84,7 +99,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_routes: needs a CUDA card", file=sys.stderr)
         return 2
-    routes = list(argv if argv is not None else sys.argv[1:]) or list(ROUTES)
+    routes = list(argv if argv is not None else sys.argv[1:]) or list(DEFAULT_ROUTES)
     unknown = set(routes) - set(ROUTES)
     if unknown:
         print(f"profile_routes: unknown routes {sorted(unknown)}; known: {list(ROUTES)}",
@@ -103,11 +118,13 @@ def main(argv=None) -> int:
             params = pipe.parse_argv(list(argv_r))
             cfg = pipe.sim_config(params)
             schedule = pipe.make_ansatz(params).schedule
-            n_ops, ops_text = _op_count(schedule, cfg, batch)
+            site_mesh = pipe.engine_kwargs().get("site_mesh")
+            n_ops, ops_text = _op_count(schedule, cfg, batch, site_mesh is not None)
             nq = int(argv_r[2])
             x = np.asarray(load_and_prepare(str(csv), nq, int(argv_r[6]), int(argv_r[7]),
                                             5)[0][:batch])
-            sim = make_chunked_simulator(schedule, cfg, dev, chunk_len=128, staged=True)
+            sim = make_chunked_simulator(schedule, cfg, dev, chunk_len=128, staged=True,
+                                         site_mesh=site_mesh)
             _one_batch(sim, x, dev)  # warm-up: builds the kernels, fills the caches
             walls = [_one_batch(sim, x, dev) for _ in range(2)]
             _build.reset_counters()

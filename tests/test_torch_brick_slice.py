@@ -18,6 +18,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from qml_cutensornet_tpu.cli import _pipeline as ref_pipe
 from qml_cutensornet_tpu.cli import main_no_test as ref_main_no_test
@@ -103,9 +104,35 @@ def test_cli_main_no_test_brick_matches_reference(tmp_path, monkeypatch):
 
 
 def test_site_sharded_brick_raises(monkeypatch):
-    """The site-sharded brick engine is not ported: its knob raises where the
-    simulator is built, as the CLI's knob check does."""
-    monkeypatch.setenv("QMLTPU_SHARD_MPS", "all")
+    """The site-sharded brick engine's knob, decided by the CLI's engine
+    setup: ``QMLTPU_SHARD_MPS=2`` outside a process group raises naming
+    torchrun (it never runs on one device instead); beside ``QMLTPU_MESH=2``
+    (a ring) it raises; ``"all"`` outside a group gives a mesh of one, on
+    which the brick engine equals the whole-chain engine's Gram to the bit,
+    and which a tracked schedule refuses, naming the brick routing."""
+    from qml_cutensornet_tpu_torch.cli import _pipeline
+    from qml_cutensornet_tpu_torch.models.simulate import make_chunked_simulator
+
+    for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "QMLTPU_MESH"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("QMLTPU_DEVICE", "cpu")
+    monkeypatch.setenv("QMLTPU_ROUTING", "brick")
     ans = KernelStateAnsatz(4, 1, 1.0, entanglement_graph(4, 1), routing="brick")
-    with pytest.raises(NotImplementedError, match="QMLTPU_SHARD_MPS"):
-        build_kernel_matrix(ans, np.ones((2, 4)), cfg=SimConfig(chi=4), device="cpu")
+    X = np.random.default_rng(0).uniform(0, 2, size=(3, 4))
+    cfg = SimConfig(chi=4, svd_method="subspace")
+    K_whole = build_kernel_matrix(ans, X, cfg=cfg, device="cpu")
+    monkeypatch.setenv("QMLTPU_SHARD_MPS", "2")
+    with pytest.raises(RuntimeError, match="torchrun"):
+        _pipeline.engine_kwargs()
+    monkeypatch.setenv("QMLTPU_SHARD_MPS", "all")
+    monkeypatch.setenv("QMLTPU_MESH", "2")
+    with pytest.raises(ValueError, match="QMLTPU_SHARD_MPS"):
+        _pipeline.engine_kwargs()
+    monkeypatch.delenv("QMLTPU_MESH")
+    kwargs = _pipeline.engine_kwargs()
+    assert "mesh" not in kwargs
+    K = build_kernel_matrix(ans, X, cfg=cfg, site_mesh=kwargs["site_mesh"], device="cpu")
+    np.testing.assert_array_equal(K, K_whole)
+    tracked = KernelStateAnsatz(4, 1, 1.0, entanglement_graph(4, 1)).schedule
+    with pytest.raises(ValueError, match="QMLTPU_ROUTING=brick"):
+        make_chunked_simulator(tracked, cfg, torch.device("cpu"), site_mesh=kwargs["site_mesh"])

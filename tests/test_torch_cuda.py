@@ -873,3 +873,47 @@ def test_ring_world_size_one_nccl(dev):
     np.testing.assert_allclose(sym["out"], K, atol=2e-6)
     np.testing.assert_allclose(fused["out"], sym["out"], atol=1e-7)
     np.testing.assert_allclose(rect["out"], K_xy, atol=2e-6)
+
+
+def test_site_sharded_world_size_one_nccl(dev, monkeypatch):
+    """The site-sharded brick engine on the card: one rank on ``cuda:0``
+    over NCCL (``parallel/mesh.launch``), through K5 (and K1 on the chi-8
+    stage): the gathered MPS against the whole chain in the rank's process
+    (bond dims equal, fidelity rtol 1e-6, tensors 2e-6: the same kernel per
+    pair), the relay against the tile scan of the whole chain's states on
+    the card (2e-6); and ``QMLTPU_SHARD_MPS=all`` outside a process group
+    (a mesh of one, from the CLI's ``engine_kwargs``) through
+    ``build_kernel_matrix`` against the whole chain's Gram (1e-6)."""
+    from qml_cutensornet_tpu_torch.cli import _pipeline
+    from qml_cutensornet_tpu_torch.models.simulate import make_brick_simulator, tile_overlaps_sq
+    from qml_cutensornet_tpu_torch.parallel import dryrun, mesh
+
+    nq = 10
+    X = np.random.default_rng(7).uniform(0.0, 2.0, size=(5, nq))
+    ans = KernelStateAnsatz(nq, 2, 1.0, entanglement_graph(nq, 2), routing="brick")
+    cfg = SimConfig(chi=16, svd_method="subspace", fused_split=True, fused_gate=True)
+    calls = [(dryrun.compare_site_sharded, (ans, X, cfg, "cuda"), {}, {}),
+             (dryrun.relay_full_and_symmetric, (ans, X, cfg),
+              dict(mesh=dryrun.MESH, tile=2), {})]
+    cmp, relay = mesh.launch(dryrun.run_calls, 1, "cuda", "cuda", calls, timeout=600)
+    assert cmp["launches"]["brick_split"] > 0 and cmp["launches"]["split"] > 0
+    sharded_launches = cmp["out"]["launches"]["sharded"]
+    assert sharded_launches["brick_split"] > 0 and sharded_launches["split"] > 0
+    assert cmp["out"]["bond_dims_equal"] and cmp["out"]["fid_rtol"] <= 1e-6
+    assert cmp["out"]["tensor_err"] <= 2e-6
+    whole = make_brick_simulator(ans.schedule, cfg, dev)(X).tensors
+    K_tiles = tile_overlaps_sq(whole, whole).cpu().numpy()
+    np.testing.assert_allclose(relay["out"]["full"], K_tiles, atol=2e-6)
+    np.testing.assert_allclose(relay["out"]["sym"], relay["out"]["full"], atol=2e-6)
+    for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
+    K_whole = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=5, tile=5, device="cuda")
+    monkeypatch.setenv("QMLTPU_SHARD_MPS", "all")
+    monkeypatch.setenv("QMLTPU_ROUTING", "brick")
+    monkeypatch.setenv("QMLTPU_DEVICE", "cuda")
+    site_mesh = _pipeline.engine_kwargs()["site_mesh"]
+    _build.reset_counters()
+    K = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=5, tile=5, device="cuda",
+                            site_mesh=site_mesh)
+    assert _build.LAUNCHES["brick_split"] > 0 and sum(_build.PLAIN_ON_CUDA.values()) == 0
+    np.testing.assert_allclose(K, K_whole, atol=1e-6)

@@ -2,7 +2,8 @@
 reference package, scikit-learn nor pandas (checked in a fresh interpreter
 over every module of the package, so this test process's own imports cannot
 mask a leak; and on the syntax tree of ``chip_smoke.py``, whose imports sit
-inside its functions), and importing it fixes full-f32 matmuls (TF32 off),
+inside its functions), importing it builds no native library, and importing
+it fixes full-f32 matmuls (TF32 off),
 the Hopper form of the reference's HIGHEST-precision rule."""
 
 import ast
@@ -25,7 +26,7 @@ def test_full_f32_matmul_flags_are_set():
     assert torch.get_float32_matmul_precision() == "highest"
 
 
-def test_port_imports_neither_jax_nor_reference():
+def test_port_imports_neither_jax_nor_reference(tmp_path):
     code = (
         "import importlib, pkgutil, sys\n"
         "import qml_cutensornet_tpu_torch as p\n"
@@ -37,13 +38,18 @@ def test_port_imports_neither_jax_nor_reference():
         "names = {n for n in sys.modules if n.startswith(p.__name__)}\n"
         "for mod in ('cli.main', 'cli.classical_main', 'models.svm', 'ops.blocked_qr',"
         " 'ops.vidal', 'ops.dense', 'utils.autotune', 'cli.main_track_mem',"
-        " 'cli.make_synthetic', 'parallel.mesh', 'parallel.gram', 'parallel.dryrun'):\n"
+        " 'cli.make_synthetic', 'parallel.mesh', 'parallel.gram', 'parallel.dryrun',"
+        " 'parallel.sharded_mps', 'native', 'backends.cpu_native'):\n"
         "    assert p.__name__ + '.' + mod in names, mod\n"
+        "import os\n"
+        "from qml_cutensornet_tpu_torch import native\n"
+        "assert native._LIB is None and not os.path.exists(os.environ['QMLTPU_NATIVE_CACHE'])\n"
         "from qml_cutensornet_tpu_torch.utils.device import full_f32_is_set\n"
         "assert full_f32_is_set()\n"
         "print('ok', len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["QMLTPU_NATIVE_CACHE"] = str(tmp_path / "native")  # importing builds nothing there
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -84,23 +84,50 @@ def test_cli_main_no_test_on_cpu(tmp_path, monkeypatch):
     assert json.loads(pathlib.Path(f"{info}.json").read_text())["lenX"] == [8, "entries"]
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("QMLTPU_MESH", "2"), ("QMLTPU_SHARD_MPS", "all"),
+@pytest.mark.parametrize("knob,value,routing", [
+    pytest.param("QMLTPU_MESH", "2", "tracked", id="QMLTPU_MESH-2"),
+    pytest.param("QMLTPU_SHARD_MPS", "all", "brick", id="QMLTPU_SHARD_MPS-all"),
+    pytest.param("QMLTPU_SHARD_MPS", "all", "tracked", id="QMLTPU_SHARD_MPS-all-tracked"),
 ])
-def test_unported_knobs_raise(monkeypatch, knob, value):
-    """QMLTPU_SHARD_MPS is not ported and raises. QMLTPU_MESH > 1 (the
-    multi-device ring, one process per device) raises outside a process
-    group instead of running on one device."""
+def test_unported_knobs_raise(monkeypatch, knob, value, routing):
+    """The multi-device knobs outside a process group: QMLTPU_MESH > 1 (the
+    ring) raises instead of running on one device; QMLTPU_SHARD_MPS (the
+    site-sharded brick engine) raises naming the brick routing under any
+    other routing, and under the brick routing runs a mesh of one with
+    "all" (no ring), raises naming torchrun with N > 1, and raises beside
+    QMLTPU_MESH=2."""
     monkeypatch.setenv(knob, value)
-    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setenv("QMLTPU_DEVICE", "cpu")
+    monkeypatch.setenv("QMLTPU_ROUTING", routing)
+    for key in ("WORLD_SIZE", "QMLTPU_MESH" if knob != "QMLTPU_MESH" else "QMLTPU_SHARD_MPS"):
+        monkeypatch.delenv(key, raising=False)
     argv = ["m", "GPU", "6", "1", "1.0", "1", "5", "5", "1", "v1.csv"]
+    _pipeline.parse_argv(argv)
     if knob == "QMLTPU_MESH":
-        _pipeline.parse_argv(argv)
         with pytest.raises(RuntimeError, match="torchrun"):
             _pipeline.engine_kwargs()
         return
-    with pytest.raises(NotImplementedError):
-        _pipeline.parse_argv(argv)
+    if routing != "brick":
+        with pytest.raises(ValueError, match="QMLTPU_ROUTING=brick"):
+            _pipeline.engine_kwargs()
+        return
+    kwargs = _pipeline.engine_kwargs()
+    assert "mesh" not in kwargs and kwargs["site_mesh"].size == 1
+    assert _pipeline.n_procs() == 1
+    ans = KernelStateAnsatz(4, 1, 1.0, entanglement_graph(4, 1), routing="brick")
+    X = np.random.default_rng(1).uniform(0, 2, size=(3, 4))
+    cfg = SimConfig(chi=4, svd_method="subspace")
+    K_sharded = build_kernel_matrix(ans, X, cfg=cfg, site_mesh=kwargs["site_mesh"], device="cpu")
+    monkeypatch.setenv(knob, "0")
+    assert "site_mesh" not in _pipeline.engine_kwargs()
+    np.testing.assert_array_equal(K_sharded, build_kernel_matrix(ans, X, cfg=cfg, device="cpu"))
+    monkeypatch.setenv(knob, "2")
+    with pytest.raises(RuntimeError, match="torchrun"):
+        _pipeline.engine_kwargs()
+    monkeypatch.setenv(knob, "all")
+    monkeypatch.setenv("QMLTPU_MESH", "2")
+    with pytest.raises(ValueError, match="QMLTPU_SHARD_MPS"):
+        _pipeline.engine_kwargs()
 
 
 @pytest.mark.parametrize("knob,value,field,expected", [
