@@ -52,7 +52,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 4. default route: the port's ``cli.main_no_test`` at the repo's headline
    shape (32 qubits, r=2, d=6, chi 64, f32, 102 train points of the pinned v1
    data): kernels K1 and K2 carry it; K symmetric with unit diagonal, its
-   leading 8x8 block within 1e-6 of the f64 golden.
+   leading 8x8 block within 1e-6 of the f64 golden; its sim and tile FLOPs
+   by the FLOP model (``utils/flops.gram_flops``) and their roofline against
+   the H100 entry of ``utils/flops.PEAKS`` (whose peaks also give every
+   ``bound_ms``).
 5. fused-gate route: the port's ``cli.main`` (train Gram, test Gram, SVC
    sweep) with ``QMLTPU_FUSED_GATE=1`` at the same shape: kernel K4 on every
    two-site update (with chunks of 128 ops the staged ramp of this shape has
@@ -146,6 +149,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    printed) serves the train and the test Gram.
 12. ``cli.main_track_mem`` at nf 100, r 2, d 6, chi 64, one circuit: one
    ``MPS size`` line per op of the schedule (3744), all positive.
+13. residency: ``cli.main_no_test`` at the crossover sweep's d-8
+   configuration (nf 100, r 2, d 8, chi 256, 5 + 5 points, one sim batch of
+   8) with the default ``QMLTPU_STATES_DEVICE_BYTES`` (the states stay on
+   the card) and with 0 (host-resident states, one trimmed upload a tile):
+   the regime each run reports, the two Grams within 1e-7 (bit-equality
+   printed), and each run's sim, tile and upload seconds, peak memory,
+   avg_max_chi and avg_fidelity.
 
 On every route the launch counters must equal the counts worked out from
 the op stream (the brick layers' chunk plan on the brick route, its caps
@@ -188,6 +198,14 @@ ARGV_BRICK14 = ["main", "GPU", "14", "2", "1.0", "6", "20", "20", "5", CSV_V1]
 ARGV_BRICK100 = ["main", "GPU", "100", "2", "1.0", "6", "5", "5", "5", CSV_V1]
 BRICK_KNOBS = {"QMLTPU_CHI": "128", "QMLTPU_OVERSAMPLE": "0"}
 BRICK_BN = 8 * 51  # pairs of one full-width layer: 8 circuits x 51 pairs (nf 100)
+# The residency phase: the crossover sweep's d-8 configuration at full width
+# (``runs/crossover/run_all.sh``: nf 100, r 2, gamma 1.0, d 8, chi_for_d(8) =
+# 256) on 5 + 5 points (8 train points), one sim batch of 8: above chi 128
+# an op costs the same for 3 to 8 circuits, so a second batch would double
+# the phase (two batches of 5 took 225 to 350 s); the card test
+# ``test_host_resident_states_on_card`` assembles three batches.
+ARGV_D8 = ["main", "GPU", "100", "2", "1.0", "8", "5", "5", "5", CSV_V1]
+RESIDENCY_KNOBS = {"QMLTPU_CHI": "256", "QMLTPU_SIM_BATCH": "8"}
 GOLDEN = ROOT / "runs/golden/bench_nq32_r2_d6_g1.0_N8.npz"
 RAW_V1 = ROOT / "datasets/elliptic_bitcoin_dataset_v1"
 RAW_V2 = ROOT / "datasets/elliptic_bitcoin_dataset"  # generator version 2: tied levels
@@ -206,16 +224,16 @@ TOL_GOLDEN = 1e-6  # leading 8x8 Gram block vs the f64 golden (ROADMAP bar)
 TOL_ROUTES = 3e-5  # Gram of one route vs another; the reference's fused-vs-unfused bar
 TOL_F64 = 1e-5  # chi-256 and chi-128 f32 Gram vs the port's f64 Gram on the card
 TOL_KKT = 1e-3  # the SVC's stopping tolerance
+# Host-resident states against device-resident ones: the same kernels on the
+# same inputs, so the Grams should be equal to the bit; a tile trimmed to its
+# own bucket runs its products at another shape, which may group a sum
+# otherwise.
+TOL_RESIDENCY = 1e-7
 # nf 100 brick Gram through K5 vs through K1 at chi 128: both runs truncate,
 # and their kept subspaces differ by rounding, which truncating every bond of
 # 100 qubits can carry past the 3e-5 of runs that truncate nothing.
 TOL_BRICK_ROUTES = 1e-4
 
-# Published peaks of one H100 SXM at its full 700 W power limit: f32 outside
-# the tensor cores, and HBM3 bandwidth. ``bound_ms`` is the larger of the
-# kernel's operations over the first and its bytes over the second.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 
 KERNEL_TABLE = (
     ("split", "qml_cutensornet_tpu_torch/csrc/subspace_split.cu",
@@ -588,7 +606,14 @@ def _chain_ops(m, k, nc, iters):
 
 
 def bound(ops, nbytes):
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    """The least time in ms for ``ops`` and ``nbytes``: the larger of the
+    operations over the card's f32 peak (outside the tensor cores) and the
+    bytes over its memory rate, the published H100 SXM figures at 700 W
+    (``utils/flops.PEAKS``)."""
+    from qml_cutensornet_tpu_torch.utils.flops import phase_time_floors
+
+    t = phase_time_floors(ops, nbytes, "h100")
+    t_ops, t_bytes = t["compute_s"], t["hbm_s"]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1364,7 +1389,30 @@ def phase_default_route(smi, golden):
     log(profile_line(run_info("train", 32, 2, 1.0, 6, 64, 5, CSV_V1), smi, "default route")
         + f", max_abs_err vs f64 golden {gold_err:.3e} (tol {TOL_GOLDEN})")
     assert gold_err <= TOL_GOLDEN, f"8x8 block off the golden by {gold_err}"
+    log(flops_line(ARGV, 102, smi, "default route"))
     return K, launches
+
+
+def flops_line(argv, n_points, smi, what):
+    """The run's sim and tile FLOPs by the FLOP model (``utils/flops.
+    gram_flops``: ``n_points`` circuits, not the padding of the last sim
+    batch; the tiles' pairs at the final chi) and their roofline against
+    the card's f32 peak, from the sim and tile seconds of its profile."""
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.utils import flops
+
+    params = pipe.parse_argv(list(argv))
+    g = flops.gram_flops(pipe.make_ansatz(params).schedule, pipe.sim_config(params), n_points,
+                         int(os.environ.get("QMLTPU_CHUNK_LEN", "128")),
+                         os.environ.get("QMLTPU_STAGED", "1") != "0")
+    sim = flops.roofline(g["sim_flops"], SIM_SECONDS[what], "h100")
+    tile = flops.roofline(g["tile_flops"], TILE_SECONDS[what], "h100")
+    return (f"{what} FLOPs [{smi}]: sim {g['sim_flops']} ({g['sim_flops_per_circuit']} a "
+            f"circuit x {n_points}) in {SIM_SECONDS[what]:.3f} s, {sim['tflops']} TFLOP/s, "
+            f"peak fraction {sim['peak_fraction']}; tiles {g['tile_flops']} ({g['n_pairs']} "
+            f"pairs at chi {g['final_chi']}) in {TILE_SECONDS[what]:.3f} s, {tile['tflops']} "
+            f"TFLOP/s, peak fraction {tile['peak_fraction']} (h100 f32 "
+            f"{flops.PEAKS['h100']['f32_flops']:.3g} FLOP/s)")
 
 
 def phase_fused_gate_route(smi, golden, K_default):
@@ -2206,6 +2254,61 @@ def phase_track_mem(smi):
     return launches
 
 
+def phase_residency(smi):
+    """The large-chi memory path: ``cli.main_no_test`` at the crossover's d-8
+    configuration (nf 100, chi 256, 8 points in one sim batch) with the default
+    ``QMLTPU_STATES_DEVICE_BYTES`` (states on the card) and with 0 (states in
+    host memory, each tile's block trimmed to its bucket and uploaded); the
+    two Grams held to each other (bit-equality printed), and each run's
+    sim, tile and upload seconds, peak memory, avg_max_chi and
+    avg_fidelity printed."""
+    import contextlib
+    import io
+    import re
+
+    from qml_cutensornet_tpu_torch.cli import main_no_test
+    from qml_cutensornet_tpu_torch.models import gram
+    from qml_cutensornet_tpu_torch.utils.device import environ
+    from qml_cutensornet_tpu_torch.utils.naming import run_info
+
+    os.environ.pop("QMLTPU_STATES_DEVICE_BYTES", None)  # the first run takes the default
+    info = run_info("train", 100, 2, 1.0, 8, 5, 5, CSV_V1)
+    grams, total = {}, dict.fromkeys(KERNEL_NAMES, 0)
+    t_phase = time.perf_counter()
+    for path, knobs in (("device", RESIDENCY_KNOBS),
+                        ("host", dict(RESIDENCY_KNOBS, QMLTPU_STATES_DEVICE_BYTES="0"))):
+        what = f"residency, {path} path"
+        buf = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(buf):
+                return main_no_test.main(list(ARGV_D8))
+
+        with environ(**knobs):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            K, launches = count_launches(run, expected_launches(ARGV_D8, 1), what)
+            peak = torch.cuda.max_memory_allocated()
+        _add_all(total, launches)
+        found = re.findall(r"States (\w+)-resident: tiles (\S+) s, of them uploads (\S+) s",
+                           buf.getvalue())
+        assert len(found) == 1, f"{what}: {len(found)} residency lines"
+        regime, _, upload = found[0]
+        assert regime == path, f"{what}: the states were {regime}-resident"
+        check_train_gram(K, 8, what)
+        grams[path] = K
+        log(profile_line(info, smi, what) + f", uploads {float(upload):.3f} s, peak memory "
+            f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB held before the run; default "
+            f"limit {gram.STATES_DEVICE_BYTES:.4g} B)")
+    diff = float(np.abs(grams["host"] - grams["device"]).max())
+    log(f"residency [{smi}]: host-path Gram vs device-path Gram max abs diff {diff:.3e} "
+        f"(tol {TOL_RESIDENCY}; bit-equal {np.array_equal(grams['host'], grams['device'])}); "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    assert diff <= TOL_RESIDENCY, f"host path off the device path by {diff}"
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -2263,6 +2366,8 @@ def main() -> int:
     log(f"auto chi done at {time.perf_counter() - t_start:.1f} s")
     by_path["track_mem"] = phase_track_mem(smi)
     log(f"main_track_mem done at {time.perf_counter() - t_start:.1f} s")
+    by_path["residency"] = phase_residency(smi)
+    log(f"residency done at {time.perf_counter() - t_start:.1f} s")
     log(f"dense verdict (max_abs_err vs the dense statevector Gram): {json.dumps(DENSE_VERDICT)}")
 
     bounds = kernel_bounds(32, 64, 2)

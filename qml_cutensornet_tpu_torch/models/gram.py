@@ -7,8 +7,11 @@ psi(X_j)>|^2`` with the reference's contract: ``Y=None`` means ``Y == X``
 and only the lower block-triangle of tiles is computed (the rest mirrored);
 the symmetric result is normalized by the tile path's own diagonal; a
 profiling JSON with the reference's keys goes to ``{info_file}.json``.
-States stay resident on the compute device. With ``checkpoint`` (and an
-``info_file``) the tile loop saves the padded Gram to
+The simulated states stay on the compute device while the reference's
+projection of their assembled footprint fits ``QMLTPU_STATES_DEVICE_BYTES``
+(:func:`states_regime`); past it they live in host memory and the tile loop
+uploads one block a tile, trimmed to the tile's own chi bucket. With
+``checkpoint`` (and an ``info_file``) the tile loop saves the padded Gram to
 ``{checkpoint_dir}/checkpoint_{name of info_file}.npy`` after each tile (at
 most every ``QMLTPU_CKPT_INTERVAL`` seconds), atomically, and resumes from
 it: the reference's file and format, so a checkpoint either package wrote
@@ -61,16 +64,67 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+STATES_DEVICE_BYTES = 41e9  # derivation: simulate_dataset's docstring
+
+
+def states_regime(buckets, batch_shape, n_batches: int, itemsize: int, limit: float) -> str:
+    """Where the simulated states live, by the reference's rule
+    (``qml_cutensornet_tpu/models/gram.py`` ``simulate_dataset``): "device"
+    while the projected footprint of the assembled set fits ``limit``, else
+    "host". The projection is ``2`` (the concatenation's copy) x
+    ``n_batches`` batches of ``batch_shape`` = (sim batch, sites) states at
+    the largest chi bucket of ``buckets`` (those seen so far), ``[n, c, 2,
+    c]`` elements of ``itemsize`` bytes (complex) each: the reference's byte
+    count for its (re, im) pairs of the same shapes. Buckets only grow, so
+    once "host" the rule stays "host"."""
+    sim_batch, n_sites = batch_shape
+    c_max = max(buckets)
+    projected = 2 * n_batches * sim_batch * n_sites * c_max * 2 * c_max * itemsize
+    return "device" if projected <= limit else "host"
+
+
 def simulate_dataset(schedule, features: np.ndarray, cfg: SimConfig, sim_batch: int,
                      device: torch.device, site_mesh=None):
     """Simulate all datapoint circuits ``sim_batch`` at a time on ``device``
     (``schedule`` a tracked ``GateSchedule`` or a ``BrickSchedule``; both
     simulators return an ``MPS`` over the ``num_qubits`` real sites).
-    Returns (tensors [N, n, chi, 2, chi] on device, fidelities [N] numpy,
-    max_chis [N] numpy, per-batch seconds)."""
+    Returns (tensors [N, n, c, 2, c], fidelities [N] numpy, max_chis [N]
+    numpy, per-batch seconds, regime): ``c`` the largest chi bucket
+    (:func:`_chi_bucket`), ``regime`` "device" or "host", where the tensors
+    are.
+
+    Each batch is sliced to its own chi bucket (lossless: bond padding is
+    exact zeros), then :func:`states_regime` decides, again after every
+    batch, from the largest bucket so far and ``QMLTPU_STATES_DEVICE_BYTES``
+    (default ``STATES_DEVICE_BYTES``). When it turns to "host" the batches
+    kept on the device move to pageable host memory, and every later batch
+    goes there once simulated, which frees its device memory before the
+    next batch runs. Host batches are assembled on the host and uploaded
+    whole only if the set's bytes fit the limit.
+
+    The default, 41e9 B, is one H100 80GB HBM3's memory (power limit
+    700.00 W; ``utils/residency_probe.py peak``, one run) less what the rest
+    of the build needs beside the states:
+
+    - 85017493504 B, the card (``total_memory``);
+    - less 9.2e9 B, the tile budget (``QMLTPU_TILE_BYTES``, :func:`_auto_tile`);
+    - less 26843688448 B, one sim batch's peak at the largest chi run: nf
+      100, d 10, chi 512, the CLI's sim batch of 32, staged,
+      ``max_memory_allocated`` above the start (2.0x the batch's 13.4 GB
+      state: a feature layer writes a new state beside the old one);
+    - less 5187760640 B, the allocator's reserve above that peak;
+    - less 2e9 B, a margin for the CUDA context and cuBLAS workspaces;
+
+    = 41.786e9 B, rounded down. The reference reads the same variable with
+    a default of 10e9 for a 16 GB TPU v5e; its projection counts the same
+    bytes, so one value puts both packages in the same regime."""
     n_pts = features.shape[0]
     padded = _pad_rows(np.asarray(features, dtype=np.float64), sim_batch)
     sim = make_chunked_simulator(schedule, cfg, device, site_mesh=site_mesh)
+    limit = float(os.environ.get("QMLTPU_STATES_DEVICE_BYTES", STATES_DEVICE_BYTES))
+    n_batches = padded.shape[0] // sim_batch
+    host = torch.device("cpu")
+    regime = "device"
     tensors, fids, chis, batch_times, buckets = [], [], [], [], []
     for start in range(0, padded.shape[0], sim_batch):
         chunk = padded[start: start + sim_batch]
@@ -83,10 +137,16 @@ def simulate_dataset(schedule, features: np.ndarray, cfg: SimConfig, sim_batch: 
         c = _chi_bucket(int(batch_chis.max(initial=1)), t.shape[2])
         buckets.append(c)
         if c < t.shape[2]:
-            t = t[:, :, :c, :, :c]
-        tensors.append(t)
+            t = t[:, :, :c, :, :c].contiguous()  # a copy: the padded batch can go
         fids.append(out.fidelity.cpu().numpy())
         chis.append(batch_chis)
+        del out
+        regime = states_regime(buckets, (sim_batch, t.shape[1]), n_batches, t.element_size(),
+                               limit)
+        if regime == "host":
+            tensors = [p.to(host) for p in tensors]
+            t = t.to(host)
+        tensors.append(t)
     c = max(buckets)
 
     def pad_to_bucket(p):  # exact zeros
@@ -95,9 +155,11 @@ def simulate_dataset(schedule, features: np.ndarray, cfg: SimConfig, sim_batch: 
         return torch.nn.functional.pad(p, (0, c - p.shape[4], 0, 0, 0, c - p.shape[2]))
 
     tensors = torch.cat([pad_to_bucket(t) for t in tensors], dim=0)[:n_pts]
+    if regime == "host" and tensors.nbytes <= limit:
+        tensors, regime = tensors.to(device), "device"
     fids = np.concatenate(fids)[:n_pts]
     chis = np.concatenate(chis)[:n_pts]
-    return tensors, fids, chis, batch_times
+    return tensors, fids, chis, batch_times, regime
 
 
 def _tile_ranges(n: int, tile: int):
@@ -175,18 +237,21 @@ def build_kernel_matrix(
     len_y = len_x if Y is None else len(np.asarray(Y))
 
     profiling: dict = {}
-    profiling["n_procs"] = [1, "devices"]
+    # The site mesh's ranks (its world size); one device otherwise.
+    n_procs = 1 if site_mesh is None else site_mesh.size * site_mesh.dp
+    profiling["n_procs"] = [n_procs, "devices"]
     profiling["lenX"] = [len_x, "entries"]
     profiling["lenY"] = [None if Y is None else len_y, "entries"]
     start_time = time.perf_counter()
 
     profiling["r0_circ_gen"] = [0.0, "seconds"]
-    ax, fid_x, chi_x, times_x = simulate_dataset(schedule, X, cfg, sim_batch, dev, site_mesh)
+    ax, fid_x, chi_x, times_x, at_x = simulate_dataset(schedule, X, cfg, sim_batch, dev,
+                                                       site_mesh)
     if Y is not None:
-        ay, fid_y, chi_y, times_y = simulate_dataset(
+        ay, fid_y, chi_y, times_y, at_y = simulate_dataset(
             schedule, np.asarray(Y, dtype=np.float64), cfg, sim_batch, dev, site_mesh)
     else:
-        ay, fid_y, chi_y, times_y = ax, fid_x, chi_x, []
+        ay, fid_y, chi_y, times_y, at_y = ax, fid_x, chi_x, [], at_x
 
     sim_times = times_x + times_y
     n_batches_pts = [min(sim_batch, len_x)] * len(times_x) + [
@@ -221,7 +286,9 @@ def build_kernel_matrix(
               f"in {sum(sim_times):.3f}s (avg chi {np.mean(chi_x):.1f}).")
 
     # Tiles: pad the state batches to tile multiples with exact-zero states
-    # (zero overlaps, sliced away before normalization).
+    # (zero overlaps, sliced away before normalization). Host-resident
+    # states are not padded: each uploaded block is, on the device, so that
+    # neither a host copy of the set nor zero states cross the bus.
     tiling_start = time.perf_counter()
     tile = _auto_tile(tile, max(ax.shape[2], ay.shape[2]), ax.shape[1],
                       site_block=cfg.tile_block)
@@ -233,8 +300,10 @@ def build_kernel_matrix(
             return t
         return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 1) + (0, target - t.shape[0]))
 
-    ay = pad_states(ay, len_y_pad)
-    ax = pad_states(ax, len_x_pad)
+    if at_y == "device":
+        ay = pad_states(ay, len_y_pad)
+    if at_x == "device":
+        ax = pad_states(ax, len_x_pad)
     kernel_mat = np.zeros((len_y_pad, len_x_pad))
     ckpt_file = None
     ckpt_interval = float(os.environ.get("QMLTPU_CKPT_INTERVAL", "0"))
@@ -257,7 +326,16 @@ def build_kernel_matrix(
                       "changed); discarding it and recomputing.")
     vdot_time: list[float] = []
     tile_pairs: list[int] = []
+    upload_time = 0.0
     symmetric = Y is None
+
+    def block(states, at, r0, r1, c_t):
+        # A host-resident block: its rows trimmed to the tile's bucket,
+        # uploaded, then padded to the tile's rows with zero states.
+        if at == "device":
+            return states[r0:r1]
+        return pad_states(states[r0:r1, :, :c_t, :, :c_t].to(dev), r1 - r0)
+
     for (y0, y1) in _tile_ranges(len_y_pad, tile):
         for (x0, x1) in _tile_ranges(len_x_pad, tile):
             if symmetric and x0 > y0:
@@ -265,15 +343,27 @@ def build_kernel_matrix(
             if ckpt_file is not None and kernel_mat[y0, x0] != 0:
                 continue  # the tile is in the checkpoint
             t0 = time.perf_counter()
-            ay_blk = ay[y0:y1]
-            ax_blk = ay_blk if (symmetric and x0 == y0) else ax[x0:x1]
-            block = tile_overlaps_sq(ay_blk, ax_blk, site_block=cfg.tile_block)
-            block = block.cpu().numpy()
+            # The tile's own bucket: the largest tracked chi of its rows and
+            # columns (lossless, exact-zero padding), so that one
+            # cap-saturating state elsewhere does not widen every upload.
+            # Capped by the wider of the two sets (the reference caps by Y's,
+            # which would cut X states tracked past Y's bucket).
+            c_t = _chi_bucket(max(chi_y[y0:min(y1, len_y)].max(initial=1),
+                                  chi_x[x0:min(x1, len_x)].max(initial=1)),
+                              max(ay.shape[2], ax.shape[2]))
+            ay_blk = block(ay, at_y, y0, y1, c_t)
+            # A symmetric diagonal tile uploads its block once, for both sides.
+            ax_blk = ay_blk if (symmetric and x0 == y0) else block(ax, at_x, x0, x1, c_t)
+            if "host" in (at_x, at_y):
+                _sync(dev)
+                upload_time += time.perf_counter() - t0
+            out = tile_overlaps_sq(ay_blk, ax_blk, site_block=cfg.tile_block)
+            out = out.cpu().numpy()
             vdot_time.append(time.perf_counter() - t0)
             tile_pairs.append(max(1, (min(y1, len_y) - y0) * (min(x1, len_x) - x0)))
-            kernel_mat[y0:y1, x0:x1] = block
+            kernel_mat[y0:y1, x0:x1] = out
             if symmetric and x0 < y0:
-                kernel_mat[x0:x1, y0:y1] = block.T
+                kernel_mat[x0:x1, y0:y1] = out.T
             if (ckpt_file is not None and writer
                     and time.perf_counter() - last_ckpt >= ckpt_interval):
                 # Atomic: a crash mid-save leaves the previous checkpoint.
@@ -287,15 +377,17 @@ def build_kernel_matrix(
 
     # Normalize out the states' norm deficits. Symmetric case: by the tile
     # path's OWN diagonal (unit diagonal by construction, same rounding as
-    # the off-diagonal tiles); otherwise by separately computed state norms.
+    # the off-diagonal tiles); otherwise by separately computed state norms,
+    # ``tile`` states at a time.
     if os.environ.get("QMLTPU_NORMALIZE", "1") != "0":
         if Y is None:
             dg = np.sqrt(np.maximum(np.diag(kernel_mat), 0.0))
             dg = np.where(dg > 0, dg, 1.0)
             kernel_mat = kernel_mat / np.outer(dg, dg)
         else:
-            n2x = state_norms_sq(ax).cpu().numpy()
-            n2y = state_norms_sq(ay).cpu().numpy()
+            n2x, up_x = _norms_chunked(ax, at_x, tile, dev)
+            n2y, up_y = _norms_chunked(ay, at_y, tile, dev)
+            upload_time += up_x + up_y
             kernel_mat = kernel_mat / np.outer(n2y[:len_y], n2x[:len_x])
 
     tiling_duration = time.perf_counter() - tiling_start
@@ -310,10 +402,30 @@ def build_kernel_matrix(
         profiling["q1_product"] = [float(np.percentile(per_vdot, 25)), "seconds"]
         profiling["q3_product"] = [float(np.percentile(per_vdot, 75)), "seconds"]
 
+    if verbose:
+        print(f"States {at_x}-resident"
+              + ("" if Y is None else f" (Y {at_y}-resident)")
+              + f": tiles {tiling_duration:.3f} s, of them uploads {upload_time:.3f} s.")
     if info_file is not None and writer:
         with open(str(info_file) + ".json", "w") as fp:
             json.dump(profiling, fp, indent=4)
     return kernel_mat
+
+
+def _norms_chunked(a: torch.Tensor, at: str, chunk: int, device: torch.device):
+    """Squared norms of the states ``a`` (where ``at`` says), ``chunk`` at a
+    time, each chunk uploaded when the states are host-resident. Returns
+    (norms [N] numpy, upload seconds)."""
+    out, upload = [], 0.0
+    for s in range(0, a.shape[0], chunk):
+        blk = a[s:s + chunk]
+        if at == "host":
+            t0 = time.perf_counter()
+            blk = blk.to(device)
+            _sync(device)
+            upload += time.perf_counter() - t0
+        out.append(state_norms_sq(blk).cpu().numpy())
+    return np.concatenate(out), upload
 
 
 def _actual_mps_bytes(max_chis, n_sites, itemsize, chi_cap):

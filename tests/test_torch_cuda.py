@@ -917,3 +917,33 @@ def test_site_sharded_world_size_one_nccl(dev, monkeypatch):
                             site_mesh=site_mesh)
     assert _build.LAUNCHES["brick_split"] > 0 and sum(_build.PLAIN_ON_CUDA.values()) == 0
     np.testing.assert_allclose(K, K_whole, atol=1e-6)
+
+
+@pytest.mark.parametrize("rect", [False, True], ids=["symmetric", "rectangular"])
+def test_host_resident_states_on_card(dev, monkeypatch, capsys, rect):
+    """The large-chi memory path on the card: 16 qubits at chi 256 (the
+    blocked route, K3 panels), the states host-resident
+    (``QMLTPU_STATES_DEVICE_BYTES=0``: one trimmed upload a tile, and the
+    rectangular case's norms in uploaded chunks) against device-resident
+    (the default); the Grams within 1e-7 (the same kernels on the same
+    inputs; a tile trimmed to its own bucket runs its products at another
+    shape), the regime each build reports, no plain version on the card."""
+    rng = np.random.default_rng(16)
+    X = rng.uniform(0.0, 2.0, size=(10, 16))
+    Y = rng.uniform(0.0, 2.0, size=(4, 16)) if rect else None
+    ans = KernelStateAnsatz(16, 2, 1.0, entanglement_graph(16, 6))
+    cfg = SimConfig(chi=256, oversample=16, tile_block=1, svd_method="subspace",
+                    fused_split=True)
+    out = {}
+    for path, limit in (("device", None), ("host", "0")):
+        if limit is None:
+            monkeypatch.delenv("QMLTPU_STATES_DEVICE_BYTES", raising=False)
+        else:
+            monkeypatch.setenv("QMLTPU_STATES_DEVICE_BYTES", limit)
+        _build.reset_counters()
+        out[path] = build_kernel_matrix(ans, X, Y, cfg=cfg, sim_batch=4, tile=4, device="cuda",
+                                        loglevel=20)
+        assert f"States {path}-resident" in capsys.readouterr().out
+        assert _build.LAUNCHES["orth"] > 0 and sum(_build.PLAIN_ON_CUDA.values()) == 0
+    assert out["host"].shape == ((4, 10) if rect else (10, 10))
+    assert np.abs(out["host"] - out["device"]).max() <= 1e-7

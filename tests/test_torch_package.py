@@ -39,7 +39,7 @@ def test_port_imports_neither_jax_nor_reference(tmp_path):
         "for mod in ('cli.main', 'cli.classical_main', 'models.svm', 'ops.blocked_qr',"
         " 'ops.vidal', 'ops.dense', 'utils.autotune', 'cli.main_track_mem',"
         " 'cli.make_synthetic', 'parallel.mesh', 'parallel.gram', 'parallel.dryrun',"
-        " 'parallel.sharded_mps', 'native', 'backends.cpu_native'):\n"
+        " 'parallel.sharded_mps', 'native', 'backends.cpu_native', 'utils.flops'):\n"
         "    assert p.__name__ + '.' + mod in names, mod\n"
         "import os\n"
         "from qml_cutensornet_tpu_torch import native\n"

@@ -31,9 +31,11 @@ inputs from numpy seeds:
 - ``padded_sites_for`` and ``relay_auto_tile`` equal to the reference's;
 - ``QMLTPU_SHARD_MPS`` through the CLI's ``engine_kwargs`` (the site mesh
   over the process group) and ``build_kernel_matrix`` against the whole
-  chain (1e-6)."""
+  chain (1e-6), its profiling JSON's ``n_procs`` the world size (the whole
+  chain's 1)."""
 
 import concurrent.futures
+import json
 
 import numpy as np
 import pytest
@@ -82,8 +84,9 @@ def _ansatz(name):
         SimConfig(**ckw)
 
 
-def _calls(ws):
-    """The port's calls on a world of ``ws`` ranks (``dryrun.run_calls``)."""
+def _calls(ws, work):
+    """The port's calls on a world of ``ws`` ranks (``dryrun.run_calls``);
+    the knob's build writes its profiling JSON into ``work``."""
     calls = []
     for name in ("main", "f64", "fused"):
         ans, X, cfg = _ansatz(name)
@@ -100,18 +103,18 @@ def _calls(ws):
         ans, X, cfg = _ansatz("knob")
         calls.append((_pipeline.engine_kwargs, (), {}, {**KNOB, "QMLTPU_SHARD_MPS": "2"}))
         calls.append((build_kernel_matrix, (ans, X),
-                      dict(cfg=cfg, sim_batch=6, tile=6, device="cpu", site_mesh=dryrun.MESH),
-                      {}))
+                      dict(cfg=cfg, sim_batch=6, tile=6, device="cpu", site_mesh=dryrun.MESH,
+                           info_file=str(work / "knob_ws2")), {}))
     return calls
 
 
-def _in_process():
+def _in_process(work):
     """World size 1: the same calls in this process, on a mesh of one
     outside any process group; then the whole-chain engine's MPS of each
     case and Gram of the knob's case."""
     site = mesh.make_site_mesh(device="cpu")
     out = []
-    for fn, args, kwargs, env in _calls(1):
+    for fn, args, kwargs, env in _calls(1, work):
         kwargs = {k: (site if v == dryrun.MESH else v) for k, v in kwargs.items()}
         with environ(**env):
             out.append(fn(*args, **kwargs))
@@ -119,8 +122,9 @@ def _in_process():
     with environ(**KNOB, QMLTPU_SHARD_MPS="all"):
         kw = _pipeline.engine_kwargs()
     out += [kw, build_kernel_matrix(ans, X, cfg=cfg, sim_batch=6, tile=6, device="cpu",
-                                    site_mesh=kw["site_mesh"])]
-    whole = {"knob": build_kernel_matrix(ans, X, cfg=cfg, sim_batch=6, tile=6, device="cpu")}
+                                    site_mesh=kw["site_mesh"], info_file=str(work / "knob_ws1"))]
+    whole = {"knob": build_kernel_matrix(ans, X, cfg=cfg, sim_batch=6, tile=6, device="cpu",
+                                         info_file=str(work / "knob_whole"))}
     for name in ("main", "f64", "fused", "two_d", "relay"):
         ans, X, cfg = _ansatz(name)
         whole[name] = make_brick_simulator(ans.schedule, cfg, torch.device("cpu"))(X)
@@ -167,15 +171,18 @@ def _reference():
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     """Port results by world size (each a list in ``_calls`` order; rank
-    0's), the whole chain's and the reference's; the three launches (one
-    thread a rank) run while the reference and world size 1 compute here."""
+    0's), the whole chain's and the reference's, and the directory of the
+    knob's profiling JSONs; the three launches (one thread a rank) run while
+    the reference and world size 1 compute here."""
+    work = tmp_path_factory.mktemp("sharded_mps")
     with environ(OMP_NUM_THREADS="1"), concurrent.futures.ThreadPoolExecutor(3) as pool:
-        futures = {ws: pool.submit(mesh.launch, dryrun.run_calls, ws, "cpu", "cpu", _calls(ws))
+        futures = {ws: pool.submit(mesh.launch, dryrun.run_calls, ws, "cpu", "cpu",
+                                   _calls(ws, work))
                    for ws in (2, 3, 4)}
-        out = {"ref": _reference()}
-        out[1], out["whole"] = _in_process()
+        out = {"ref": _reference(), "work": work}
+        out[1], out["whole"] = _in_process(work)
         for ws, f in futures.items():
             out[ws] = [r["out"] for r in f.result()]
     return out
@@ -303,6 +310,14 @@ def test_knob_through_build_kernel_matrix(runs, ws):
     kw, k = runs[ws][-2:]
     assert "mesh" not in kw and kw["site_mesh"].size == ws and kw["site_mesh"].dp == 1
     np.testing.assert_allclose(k, runs["whole"]["knob"], atol=1e-6)
+
+
+@pytest.mark.parametrize("name,n_procs", [("knob_ws1", 1), ("knob_ws2", 2), ("knob_whole", 1)])
+def test_profile_reports_site_mesh_ranks(runs, name, n_procs):
+    """A site-sharded build's profiling JSON counts its site mesh's ranks,
+    as the reference's counts its devices; a whole-chain build one."""
+    prof = json.loads((runs["work"] / f"{name}.json").read_text())
+    assert prof["n_procs"] == [n_procs, "devices"]
 
 
 def test_padded_sites_and_relay_tile_equal_reference(monkeypatch):
