@@ -156,12 +156,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the regime each run reports, the two Grams within 1e-7 (bit-equality
    printed), and each run's sim, tile and upload seconds, peak memory,
    avg_max_chi and avg_fidelity.
+14. reduced precisions (kernel K7, ``ops/lowp.py``: the bf16 tensor-core
+   complex product of ``QMLTPU_POWER_PRECISION`` and
+   ``QMLTPU_TILE_PRECISION``): (a) K7 at three passes and at one against
+   its plain version and the exact product, both ops, at the headline
+   tile's two products of a site block ([32,2048,64] . [32,64,256] and
+   [32,256,64]^H . [32,256,2048]), the chi-64 power products and ragged
+   shapes, two launches bit-equal; its times beside ``torch.matmul`` in
+   full f32 and its bound; (b) ``cli.main_no_test`` at the headline shape
+   with the tile precision "high", then "bfloat16", and the power precision
+   "high": golden 8x8 parity (printed), the Gram against the default
+   route's, K7 launches equal to the op stream's and the tiles' count (K1
+   none on the power route); (c) the golden's 8 points simulated once,
+   their tiles by K7, by its plain version and in full f32 against the
+   golden. On every other route K7 launches 0 times.
 
-On every route the launch counters must equal the counts worked out from
-the op stream (the brick layers' chunk plan on the brick route, its caps
-buckets under ``QMLTPU_BRICK_CAPS``) and the routing rules, every launch must
-come from the pair libraries exactly when the pair step is on (f32), and no
-plain version may have run on a CUDA tensor. The last three lines of stdout are the card's name and power
+On every route the launch counters (K1 to K5 and K7) must equal the counts
+worked out from the op stream (the brick layers' chunk plan on the brick
+route, its caps buckets under ``QMLTPU_BRICK_CAPS``; the tiles at a reduced
+tile precision) and the routing rules, every launch of K1 to K5 must come
+from the pair libraries exactly when the pair step is on (f32), none of
+K7's, and no plain version may have run on a CUDA tensor. The last three lines of stdout are the card's name and power
 limit, the kernels summary JSON and the result JSON ``{"ok": true,
 "device": {...}}``.
 """
@@ -248,6 +263,13 @@ KERNEL_TABLE = (
      "qml_cutensornet_tpu/ops/pallas_split.py:603"),
 )
 KERNEL_NAMES = tuple(row[0] for row in KERNEL_TABLE)
+# K7, the bf16 tensor-core complex product of the reduced power and tile
+# precisions; it has no pair library. The launch counters hold K1 to K5 and
+# K7 (``ops/_build.KERNELS``).
+K7 = ("cgemm", "qml_cutensornet_tpu_torch/csrc/bf16_cgemm.cu",
+      "qml_cutensornet_tpu/ops/svd.py:236, :240 and qml_cutensornet_tpu/models/simulate.py:931 "
+      "(XLA dots under HIGH and DEFAULT, not Pallas kernels)")
+LAUNCH_NAMES = KERNEL_NAMES + (K7[0],)
 
 
 def log(msg: str) -> None:
@@ -1210,8 +1232,10 @@ def op_launches(cfg, count):
     """``add(chi, kind)``: add to ``count`` the kernel launches of one op of
     a stream at stage ``chi`` under ``cfg``: per two-site gate one K4 launch
     where the stage is gate-split eligible, else one K1 launch where the
-    fused split takes the shape, else 2 * iters orthonormalizations by K3,
-    and none with the svd or eigh method (cuSOLVER); per center move one K2
+    fused split takes the shape in a full-precision configuration, else 2 *
+    iters orthonormalizations by K3 (and, at a reduced power precision in
+    complex64, 2 * iters power products by K7), and none with the svd or
+    eigh method (cuSOLVER); per center move one K2
     launch with the fused split up to ``orth.MAX_K`` columns, else one
     orthonormalization by K3. An orthonormalization of more columns than that
     is one K3 launch per panel of ``blocked_qr.PANEL`` on the fused split in
@@ -1220,9 +1244,10 @@ def op_launches(cfg, count):
     kernels, keeping ``chi`` columns of a ``[m, k]`` theta (``2 chi``
     square by default)."""
     from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX
-    from qml_cutensornet_tpu_torch.ops import blocked_qr, orth, svd
+    from qml_cutensornet_tpu_torch.ops import blocked_qr, lowp, orth, svd
 
     iters = max(1, cfg.subspace_iters)
+    power_passes = lowp.reduced_passes(cfg.resolved_power_precision, cfg.complex_dtype)
 
     def panels(k):
         if k <= orth.MAX_K:
@@ -1236,10 +1261,11 @@ def op_launches(cfg, count):
             return
         nc = chi + max(0, cfg.oversample)
         m, k = m or 2 * chi, k or 2 * chi
-        if cfg.fused_split and svd.fused_split_supported(m, k, nc):
+        if cfg.fused_split and svd._kernel_precision(cfg) and svd.fused_split_supported(m, k, nc):
             count["split"] += 1
         else:
             count["orth"] += 2 * iters * panels(nc)
+            count["cgemm"] += 2 * iters * bool(power_passes)
 
     def add(chi, kind):
         if kind >= GATE_RX:
@@ -1276,7 +1302,7 @@ def expected_launches(argv, n_batches):
     chunk_len = int(os.environ.get("QMLTPU_CHUNK_LEN", "128"))
     staged = os.environ.get("QMLTPU_STAGED", "1") != "0"
     schedule = pipe.make_ansatz(params).schedule
-    count = dict.fromkeys(KERNEL_NAMES, 0)
+    count = dict.fromkeys(LAUNCH_NAMES, 0)
     add, split_launches = op_launches(cfg, count)
     if isinstance(schedule, BrickSchedule):
         # Per chunk of the plan (padded to its full length with inactive
@@ -1338,8 +1364,10 @@ def count_launches(run, want, what):
     assert sum(plain_on_cuda.values()) == 0, f"{what}: a plain version ran on a CUDA tensor"
     pair_mode = (os.environ.get("QMLTPU_MGS_PAIR", "0") != "0"
                  and os.environ.get("QMLTPU_PRECISION", "f32") == "f32")
-    assert pair == (launches if pair_mode else dict.fromkeys(launches, 0)), (
+    pair_k, launches_k = ({k: d[k] for k in KERNEL_NAMES} for d in (pair, launches))
+    assert pair_k == (launches_k if pair_mode else dict.fromkeys(KERNEL_NAMES, 0)), (
         f"{what}: pair launches {pair} (pair step {'on' if pair_mode else 'off'})")
+    assert pair[K7[0]] == 0, f"{what}: a K7 launch counted as a pair library's"
     PAIR_BY_RUN[what] = pair
     return out, launches
 
@@ -1354,12 +1382,14 @@ def run_counted(entry, argv, n_batches, what):
                           what)
 
 
-def check_train_gram(K, n, what):
+def check_train_gram(K, n, what, sym_tol=1e-6):
     assert K.shape == (n, n) and np.isfinite(K).all(), (what, K.shape)
     # Off-diagonal tiles are mirrored exactly; inside a diagonal tile K[i,j]
-    # and K[j,i] come from different f32 contraction orders.
+    # and K[j,i] come from different f32 contraction orders (at a reduced
+    # tile precision, from different bf16 roundings: ``sym_tol``, None where
+    # the class bounds nothing useful).
     sym_err = float(np.abs(K - K.T).max())
-    assert sym_err <= 1e-6, f"{what}: K is not symmetric: {sym_err}"
+    assert sym_tol is None or sym_err <= sym_tol, f"{what}: K is not symmetric: {sym_err}"
     diag_err = float(np.abs(np.diag(K) - 1.0).max())
     assert diag_err <= 1e-12, f"{what}: diagonal of K off by {diag_err}"
 
@@ -1466,7 +1496,7 @@ def phase_unfused_route(smi):
     from qml_cutensornet_tpu_torch.utils.device import environ
     from qml_cutensornet_tpu_torch.utils.naming import run_info
 
-    total = dict.fromkeys(KERNEL_NAMES, 0)
+    total = dict.fromkeys(LAUNCH_NAMES, 0)
 
     def add(launches):
         for k, n in launches.items():
@@ -1565,7 +1595,7 @@ def phase_brick_route(smi):
     from qml_cutensornet_tpu_torch.utils.device import environ
     from qml_cutensornet_tpu_torch.utils.naming import run_info
 
-    total = dict.fromkeys(KERNEL_NAMES, 0)
+    total = dict.fromkeys(LAUNCH_NAMES, 0)
 
     def add(launches):
         for k, n in launches.items():
@@ -1741,7 +1771,7 @@ def phase_svd_methods(smi, golden, K_default, x_train):
     from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
     from qml_cutensornet_tpu_torch.utils.device import environ
 
-    total = dict.fromkeys(KERNEL_NAMES, 0)
+    total = dict.fromkeys(LAUNCH_NAMES, 0)
     params = pipe.parse_argv(list(ARGV))
     ansatz = pipe.make_ansatz(params)
     n = SVD_POINTS
@@ -1785,7 +1815,7 @@ def phase_reference_routing(smi, golden, K_default, x_train):
     from qml_cutensornet_tpu_torch.utils.device import environ
     from qml_cutensornet_tpu_torch.utils.naming import run_info
 
-    total = dict.fromkeys(KERNEL_NAMES, 0)
+    total = dict.fromkeys(LAUNCH_NAMES, 0)
     info = run_info("train", 32, 2, 1.0, 6, 64, 5, CSV_V1)
     with environ(QMLTPU_ROUTING="reference"):
         K, launches = run_counted(main_no_test, ARGV, 4, "reference routing")
@@ -1817,7 +1847,7 @@ def phase_reference_routing(smi, golden, K_default, x_train):
     for i in range(2):
         gates = ansatz.circuit_for_data(x_train[i])
         gkinds = lower_gate_list(gates, 32)[1]
-        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want = dict.fromkeys(LAUNCH_NAMES, 0)
         add, _ = op_launches(cfg, want)
         for kind in gkinds:
             add(cfg.chi, int(kind))
@@ -1846,7 +1876,7 @@ def phase_checkpoint(smi, K_default):
     from qml_cutensornet_tpu_torch.utils.device import environ
     from qml_cutensornet_tpu_torch.utils.naming import run_info
 
-    total = dict.fromkeys(KERNEL_NAMES, 0)
+    total = dict.fromkeys(LAUNCH_NAMES, 0)
     info = run_info("train", 32, 2, 1.0, 6, 64, 5, CSV_V1)
     ckpt = WORK / "tmp" / f"checkpoint_{info}.npy"
     with environ(QMLTPU_CHECKPOINT="1", QMLTPU_NORMALIZE="0", QMLTPU_TILE="32"):
@@ -2015,7 +2045,7 @@ def phase_mesh(smi, golden, K_default):
         # The ring's launches only: not the single-device builds held
         # against it, nor the dry run (ring, single device and site-sharded
         # runs in one call).
-        total = dict.fromkeys(KERNEL_NAMES, 0)
+        total = dict.fromkeys(LAUNCH_NAMES, 0)
         for rec in (stepwise, fused, snap, resumed, cli_main):
             _add_all(total, rec["launches"])
         by_path[f"mesh_ws{ws}"] = total
@@ -2154,7 +2184,7 @@ def phase_site_sharded(smi):
             f"{wall:.3f} s")
         # The site-sharded engine's launches only: the CLI runs, the sharded
         # runs of each comparison and of the dry run, sharded_gram, the relay.
-        total = dict.fromkeys(KERNEL_NAMES, 0)
+        total = dict.fromkeys(LAUNCH_NAMES, 0)
         for i in range(len(runs)):
             _add_all(total, recs[3 * i]["launches"])
             _add_all(total, recs[3 * i + 2]["out"]["launches"]["sharded"])
@@ -2198,7 +2228,7 @@ def phase_auto_chi(smi):
         f"main() {wall:.3f} s")
     assert len(chosen) == 1, f"{len(chosen)} probe sequences in one run (want 1)"
     assert probes and probes[-1][0] == chosen[0] and probes[0][0] == 8
-    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want = dict.fromkeys(LAUNCH_NAMES, 0)
     for chi, _, _ in probes:  # one sim batch of the 8 sample points each
         with environ(QMLTPU_CHI=str(chi), QMLTPU_OVERSAMPLE="0"):
             _add_all(want, expected_launches(ARGV_ONE_BATCH, 1))
@@ -2229,7 +2259,7 @@ def phase_track_mem(smi):
         params = pipe.parse_argv(list(argv))
         cfg = pipe.sim_config(params)
         schedule = pipe.make_ansatz(params).schedule
-        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want = dict.fromkeys(LAUNCH_NAMES, 0)
         add, _ = op_launches(cfg, want)
         for seg in schedule.segments:
             for kind in seg.gkinds:
@@ -2273,7 +2303,7 @@ def phase_residency(smi):
 
     os.environ.pop("QMLTPU_STATES_DEVICE_BYTES", None)  # the first run takes the default
     info = run_info("train", 100, 2, 1.0, 8, 5, 5, CSV_V1)
-    grams, total = {}, dict.fromkeys(KERNEL_NAMES, 0)
+    grams, total = {}, dict.fromkeys(LAUNCH_NAMES, 0)
     t_phase = time.perf_counter()
     for path, knobs in (("device", RESIDENCY_KNOBS),
                         ("host", dict(RESIDENCY_KNOBS, QMLTPU_STATES_DEVICE_BYTES="0"))):
@@ -2307,6 +2337,206 @@ def phase_residency(smi):
         f"phase {time.perf_counter() - t_phase:.1f} s")
     assert diff <= TOL_RESIDENCY, f"host path off the device path by {diff}"
     return total
+
+
+# Phase 14, the reduced precisions. K7 against its plain version: the two
+# differ only in the order of their f32 sums, so elementwise within both
+# sums' worst case, 2 (2 K P + 2) 2^-24 of |op(a)| |b|; against the exact
+# product within the class's bound (ops/lowp.rel_bound). The routes' Grams
+# against the default route's, and K - K^T (K[i, j] and K[j, i] of a
+# diagonal tile round apart): three passes at the routes' bar; one pass
+# keeps 8 bits a product, which a scan of 16 steps can carry past any useful
+# bar (8 qubits at chi 16 on the CPU: K - K^T 8.8e-3), so those two are
+# printed, and the pass is held by (a) and (c). K7 against its plain
+# version on the same states: the tiles differ by the f32 sums and the rare
+# bf16 rounding those sums move.
+TOL_LOWP_GRAM = {3: TOL_ROUTES, 1: None}
+TOL_K7_SAME_STATES = {3: 1e-6, 1: 2.0**-8}
+BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor cores at 700 W (NVIDIA's data sheet)
+HBM_RATE = 3.35e12
+# [B, M, N, K] and op: the headline tile's two products of a site block
+# (tile 32, chi 64, tile block 2), the chi-64 power products (B 32), ragged.
+CGEMM_MAIN = ((32, 2048, 256, 64, "n"), (32, 64, 2048, 256, "h"),
+              (32, 128, 64, 128, "h"), (32, 128, 64, 128, "n"))
+CGEMM_RAGGED = ((3, 17, 33, 70, "n"), (3, 17, 33, 70, "h"), (2, 65, 130, 1, "h"))
+LOWP_ROUTES = (("tile high", {"QMLTPU_TILE_PRECISION": "high"}),
+               ("tile bfloat16", {"QMLTPU_TILE_PRECISION": "bfloat16"}),
+               ("power high", {"QMLTPU_POWER_PRECISION": "high"}))
+
+
+def cgemm_bound(B, M, N, K, passes):
+    """K7's least time in ms: the larger of its tensor-core operations (8 M N
+    K a pass, a batch element) over the bf16 peak and its bytes (each
+    complex64 operand read once, C written once) over the memory rate."""
+    t_ops = 8.0 * B * M * N * K * passes / BF16_PEAK * 1e3
+    t_bytes = 8.0 * B * (M * K + K * N + M * N) / HBM_RATE * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def cgemm_key(B, M, N, K, op, passes):
+    return f"B{B}_M{M}_N{N}_K{K}_{op}_P{passes}"
+
+
+def expected_tile_cgemm(argv, n_points):
+    """K7 launches of a symmetric train Gram's tiles (``models/gram``) under
+    the current environment: none at a full tile precision; else per tile
+    of the block triangle two products a scan step (``n / k`` steps, one
+    more for a remainder) and, with a site block ``k > 1``, ``k - 1``
+    combining products for each side's whole blocks (``rem - 1`` for its
+    remainder)."""
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.models import gram
+    from qml_cutensornet_tpu_torch.ops import lowp
+
+    params = pipe.parse_argv(list(argv))
+    cfg = pipe.sim_config(params)
+    if not lowp.reduced_passes(cfg.resolved_tile_precision, cfg.complex_dtype):
+        return 0
+    n, k = params.num_features, cfg.tile_block
+    tile = gram._auto_tile(int(os.environ.get("QMLTPU_TILE", "32")), cfg.chi, n, k)
+    nb = -(-n_points // tile)
+    g, rem = divmod(n, k)
+    combines = ((k - 1 if g else 0) + (rem - 1 if rem else 0)) if k > 1 else 0
+    return nb * (nb + 1) // 2 * (2 * combines + 2 * (g + (1 if rem else 0)))
+
+
+def phase_reduced_precision(dev, smi, golden, K_default, x_train):
+    """The reduced power and tile precisions: (a) K7 against its plain
+    version and the exact product at the main paths' shapes, both ops, both
+    pass counts and ragged edges, two launches bit-equal, and its times
+    beside ``torch.matmul`` in full f32 (the library call) and its bound;
+    (b) ``cli.main_no_test`` at the headline shape with
+    ``QMLTPU_TILE_PRECISION=high``, ``=bfloat16`` and
+    ``QMLTPU_POWER_PRECISION=high``, each against the golden and the default
+    route's Gram, its K7 launches equal to the op stream's and the tiles'
+    count (K1 none on the power route); (c) the golden's 8 points simulated
+    once, their tiles by K7, by its plain version and in full f32, each
+    against the golden. Returns (the kernel's summary, launches by route)."""
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.cli import main_no_test
+    from qml_cutensornet_tpu_torch.models import gram, simulate
+    from qml_cutensornet_tpu_torch.ops import _build, lowp
+    from qml_cutensornet_tpu_torch.utils.device import environ
+    from qml_cutensornet_tpu_torch.utils.naming import run_info
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20261018)
+
+    def operands(B, M, N, K, op):
+        def c(*shape):
+            x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+            return torch.from_numpy(x.astype(np.complex64)).to(dev)
+        return (c(B, K, M) if op == "h" else c(B, M, K)), c(B, K, N)
+
+    # (a) the kernel
+    err = 0.0
+    for B, M, N, K, op in CGEMM_MAIN + CGEMM_RAGGED:
+        a, b = operands(B, M, N, K, op)
+        a64 = (a.mH if op == "h" else a).to(torch.complex128)
+        exact = a64 @ b.to(torch.complex128)
+        scale = a64.abs() @ b.to(torch.complex128).abs()
+        full = (a.mH if op == "h" else a) @ b
+        for P in (3, 1):
+            got, again = lowp.cgemm(a, b, P, op), lowp.cgemm(a, b, P, op)
+            plain = lowp.cgemm_plain(a, b, P, op)
+            torch.cuda.synchronize()
+            what = f"K7 [{B},{M},{N},{K}] op {op}, {P} pass{'es' if P > 1 else ''}"
+            assert torch.equal(got, again), f"{what}: two launches differ"
+            rel_plain = ((got - plain).abs() / scale).max().item()
+            rel_exact = ((got - exact).abs() / scale).max().item()
+            abs_plain = (got - plain).abs().max().item()
+            abs_full = (got - full).abs().max().item()
+            err = max(err, abs_plain)
+            log(f"  {what}: vs plain max abs {abs_plain:.3e} (relative to |a||b| "
+                f"{rel_plain:.3e}, tol {2 * (2 * K * P + 2) * 2.0**-24:.3e}); vs the exact "
+                f"product {rel_exact:.3e} relative (class bound {lowp.rel_bound(P, K):.3e}); "
+                f"vs torch.matmul in f32 max abs {abs_full:.3e}")
+            assert rel_plain <= 2 * (2 * K * P + 2) * 2.0**-24, f"{what}: off its plain version"
+            assert rel_exact <= lowp.rel_bound(P, K), f"{what}: outside its class's bound"
+    by_shape = {}
+    for B, M, N, K, op in CGEMM_MAIN:
+        a, b = operands(B, M, N, K, op)
+        am = a.mH if op == "h" else a
+        for P in (3, 1):
+            kern = lambda: lowp.cgemm(a, b, P, op)
+            k1, lib, k2 = time_ms(kern, 20), time_ms(lambda: am @ b, 20), time_ms(kern, 20)
+            plain_ms = time_ms(lambda: lowp.cgemm_plain(a, b, P, op), 3)
+            bound_ms, bound_by = cgemm_bound(B, M, N, K, P)
+            by_shape[cgemm_key(B, M, N, K, op, P)] = {
+                "ms": (k1 + k2) / 2, "plain_ms": plain_ms, "library_ms": lib,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            log(f"  time K7 [{B},{M},{N},{K}] op {op}, {P} pass{'es' if P > 1 else ''} "
+                f"[{smi}]: kernel {k1:.4f} / {k2:.4f} ms, torch.matmul f32 {lib:.4f} ms (turns "
+                f"kernel, matmul, kernel), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {8.0 * B * M * N * K * P / 1e9:.2f} GFLOP)")
+    # the main shape: the tile route's first product at tile "high"
+    summary = {"max_abs_err": err, **by_shape[cgemm_key(*CGEMM_MAIN[0], 3)],
+               "ms_by_shape": by_shape}
+
+    # (b) the routes, each through cli.main_no_test
+    info = run_info("train", int(ARGV[2]), int(ARGV[3]), float(ARGV[4]), int(ARGV[5]),
+                    int(ARGV[6]), int(ARGV[8]), ARGV[9])
+    by_route = {}
+    for name, knobs in LOWP_ROUTES:
+        what = f"reduced precision, {name}"
+        with environ(**knobs):
+            want = expected_launches(ARGV, 4)
+            want["cgemm"] += expected_tile_cgemm(ARGV, 102)
+            cfg = pipe.sim_config(pipe.parse_argv(list(ARGV)))
+            K, launches = count_launches(lambda: main_no_test.main(list(ARGV)), want, what)
+        passes = lowp.passes(knobs.get("QMLTPU_TILE_PRECISION",
+                                       knobs.get("QMLTPU_POWER_PRECISION")))
+        assert launches["cgemm"] > 0, f"{what}: K7 never launched"
+        if "QMLTPU_POWER_PRECISION" in knobs:
+            assert launches["split"] == launches["gate_split"] == 0, launches
+        check_train_gram(K, 102, what, TOL_LOWP_GRAM[passes])
+        gold_err = float(np.abs(K[:8, :8] - golden["k"]).max())
+        route_err = float(np.abs(K - K_default).max())
+        sym_err = float(np.abs(K - K.T).max())
+        log(profile_line(info, smi, what) + f", golden 8x8 max_abs_err {gold_err:.3e} (the "
+            f"default route's bar {TOL_GOLDEN}, printed); vs the default route's Gram "
+            f"{route_err:.3e} (tol {TOL_LOWP_GRAM[passes] or 'none, printed'}); K - K^T "
+            f"{sym_err:.3e} (the same); "
+            f"K7 launches {launches['cgemm']} "
+            f"(expected {want['cgemm']}: tile block {cfg.tile_block}, power iterations "
+            f"{cfg.subspace_iters})")
+        assert TOL_LOWP_GRAM[passes] is None or route_err <= TOL_LOWP_GRAM[passes], (
+            f"{what}: K off the default route's")
+        GRAMS[what] = K
+        by_route[name.replace(" ", "_")] = launches
+
+    # (c) the golden's 8 points simulated once; their tiles by K7, by its
+    # plain version on the same states (outside the counted runs) and in f32
+    params = pipe.parse_argv(list(ARGV))
+    cfg = pipe.sim_config(params)
+    states = gram.simulate_dataset(pipe.make_ansatz(params).schedule, x_train[:8], cfg, 8,
+                                   dev)[0]
+
+    def normalized(precision):
+        k = simulate.tile_overlaps_sq(states, states, precision, cfg.tile_block).cpu().numpy()
+        dg = np.sqrt(np.diag(k))
+        return k / np.outer(dg, dg)
+
+    full = normalized("highest")
+    line = [f"full f32 {np.abs(full - golden['k']).max():.3e}"]
+    for precision in ("high", "bfloat16"):
+        kern = normalized(precision)
+        real_cgemm, lowp.cgemm = lowp.cgemm, lowp.cgemm_plain
+        try:
+            plain = normalized(precision)
+        finally:
+            lowp.cgemm = real_cgemm
+        diff = float(np.abs(kern - plain).max())
+        passes = lowp.passes(precision)
+        line.append(f"{precision}: K7 {np.abs(kern - golden['k']).max():.3e}, plain "
+                    f"{np.abs(plain - golden['k']).max():.3e}, K7 vs plain {diff:.3e} (tol "
+                    f"{TOL_K7_SAME_STATES[passes]:.3e})")
+        assert diff <= TOL_K7_SAME_STATES[passes], f"same states, {precision}: K7 off plain"
+    log(f"reduced precision, the golden's 8 points simulated once [{smi}]: golden 8x8 "
+        f"max_abs_err by tile precision: " + "; ".join(line))
+    _build.reset_counters()
+    log(f"reduced precision phase {time.perf_counter() - t_phase:.1f} s")
+    return summary, by_route
 
 
 def main() -> int:
@@ -2368,6 +2598,9 @@ def main() -> int:
     log(f"main_track_mem done at {time.perf_counter() - t_start:.1f} s")
     by_path["residency"] = phase_residency(smi)
     log(f"residency done at {time.perf_counter() - t_start:.1f} s")
+    k7, lowp_paths = phase_reduced_precision(dev, smi, golden, K_default, x_train)
+    by_path.update(lowp_paths)
+    log(f"reduced precision done at {time.perf_counter() - t_start:.1f} s")
     log(f"dense verdict (max_abs_err vs the dense statevector Gram): {json.dumps(DENSE_VERDICT)}")
 
     bounds = kernel_bounds(32, 64, 2)
@@ -2393,6 +2626,18 @@ def main() -> int:
             **({"ms_by_stage": stage_ms[name]} if name in stage_ms else {}),
             **({"yardstick_ms": stage_ms[name]["chi128_Bn408"]["k1_same_theta_ms"]}
                if name == "brick_split" else {})})
+    name, source, replaces = K7
+    launches = sum(p.get(name, 0) for p in by_path.values())
+    assert launches > 0, "K7 never launched on a reduced-precision path"
+    assert all(p.get(name, 0) == 0 for path, p in by_path.items() if path not in lowp_paths), (
+        "K7 launched on a full-precision path")
+    kernels.append({
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        "launches_by_path": {path: p[name] for path, p in lowp_paths.items()},
+        "max_abs_err": k7["max_abs_err"], "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+        "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"], "library_ms": k7["library_ms"],
+        "ms_by_shape": k7["ms_by_shape"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,15 @@ names where the port supports them:
                            (torch.linalg: cuSOLVER on the card)
     QMLTPU_SUBSPACE_ITERS  power iterations (default 2)
     QMLTPU_OVERSAMPLE      subspace oversampling (default 16 at chi >= 128)
-    QMLTPU_POWER_PRECISION / QMLTPU_TILE_PRECISION  inherit | highest
+    QMLTPU_POWER_PRECISION  the subspace power products' precision, and
+    QMLTPU_TILE_PRECISION   the Gram tiles' and state norms': inherit
+                           (default: the full f32 of the engine) | highest |
+                           float32 (full f32) | high | bfloat16_3x |
+                           tensorfloat32 (three bf16 passes) | bfloat16 |
+                           default (one bf16 pass); a reduced class runs on
+                           kernel K7 (ops/lowp.py), full f64 under
+                           QMLTPU_PRECISION=f64; a power precision other
+                           than inherit keeps the split off K1, K4 and K5
     QMLTPU_TILE_BLOCK      sites per tile-scan step (default 2 at chi <= 128)
     QMLTPU_FUSED_SPLIT     1 (default): split by kernel K1, center move by K2;
                            0: the unfused chain (kernel K3 + matrix products)

@@ -5,13 +5,26 @@ with torch dtypes in place of the JAX real dtypes. The port runs native
 complex tensors: ``precision`` names the real dtype under them ("f32" ->
 complex64, "f64" -> complex128).
 
-Fields whose behaviour the port does not implement raise on a non-default
-value instead of being ignored: the reduced precisions
-(``power_precision`` / ``tile_precision`` other than "inherit" / "highest",
-``matmul_precision`` other than "highest" / "float32"). ``mgs_pair`` (the
-block-2 in-panel step of kernels K1 to K5) and ``brick_struct_caps`` (the
-brick engine's structural bond caps) run, off by default as in the
-reference. All three ``svd_method`` values run, with the
+The three precision fields take every string the reference takes. JAX
+folds them into three classes, which the port computes as the reference's
+TPU does (``ops/lowp.py``): full f32 ("highest", "float32"), three bf16
+passes ("high", "bfloat16_3x", "tensorfloat32": each f32 split into a bf16
+high and low part, ``hi*hi + hi*lo + lo*hi`` accumulated in f32) and one
+bf16 pass ("bfloat16", "default"); never TF32, which stays off
+(``utils/device.py``). ``power_precision`` covers the subspace power
+products (``ops/svd._split_subspace``) and ``tile_precision`` the Gram
+tiles' products and the state norms (``models/simulate``,
+:attr:`SimConfig.resolved_tile_precision`); at a reduced class both run on
+kernel K7, a bf16 tensor-core complex product, and "inherit" takes the
+ambient ``matmul_precision``. Under complex128 (``precision="f64"``) every
+class computes in full f64, as XLA computes f64 dots whatever their
+precision. A reduced ambient ``matmul_precision`` (other than "highest" /
+"float32") raises ``NotImplementedError``: it governs every other product
+of the engine and is the next slice of the port (``ROADMAP.md``).
+
+``mgs_pair`` (the block-2 in-panel step of kernels K1 to K5) and
+``brick_struct_caps`` (the brick engine's structural bond caps) run, off by
+default as in the reference. All three ``svd_method`` values run, with the
 reference's dataclass default "svd" (the CLI's default is "subspace", in
 both packages): "subspace" through the kernels below, "svd" and "eigh"
 through ``torch.linalg`` (cuSOLVER on the card). ``fused_split`` and
@@ -20,8 +33,10 @@ the subspace split through kernel K1 and the center move through K2 (off:
 kernel K3 and matrix products, the reference's unfused chain), and
 ``fused_gate`` on top of it routes the subspace two-site update through K4.
 As in the reference the dataclass default of both is off and the CLI turns
-``fused_split`` on. ``fused_interpret`` (Pallas interpret mode) has no
-counterpart and is dropped; :meth:`SimConfig.from_reference` discards it.
+``fused_split`` on; a ``power_precision`` other than "inherit" keeps a
+configuration off K1, K4 and K5, as in the reference. ``fused_interpret`` (Pallas
+interpret mode) has no counterpart and is dropped;
+:meth:`SimConfig.from_reference` discards it.
 """
 
 from __future__ import annotations
@@ -34,9 +49,8 @@ _REAL_DTYPES = {"f32": torch.float32, "f64": torch.float64}
 _COMPLEX_DTYPES = {"f32": torch.complex64, "f64": torch.complex128}
 _PRECISIONS = ("highest", "float32", "high", "bfloat16_3x", "tensorfloat32",
                "bfloat16", "default")
-# Precisions the port runs: full f32 accumulation only (TF32 stays off,
-# utils/device.py).
-_FULL_PRECISION = ("inherit", "highest", "float32")
+# The ambient matmul precisions the port runs: full f32 accumulation.
+_FULL_PRECISION = ("highest", "float32")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,16 +95,11 @@ class SimConfig:
             raise ValueError("oversample must be >= 0")
         if not 1 <= self.tile_block <= 8:
             raise ValueError("tile_block must be in 1..8")
-        # The reduced precisions, which the port does not implement.
-        for name in ("power_precision", "tile_precision"):
-            if getattr(self, name) not in _FULL_PRECISION:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported; the port "
-                    "runs full f32 accumulation ('inherit' or 'highest')")
-        if self.matmul_precision not in ("highest", "float32"):
+        if self.matmul_precision not in _FULL_PRECISION:
             raise NotImplementedError(
-                f"matmul_precision={self.matmul_precision!r} is not ported; "
-                "the port runs full f32 accumulation")
+                f"matmul_precision={self.matmul_precision!r} is not ported yet: the "
+                "reduced ambient precision is the next slice of the port (ROADMAP.md); "
+                "power_precision and tile_precision take every class")
 
     @property
     def real_dtype(self) -> torch.dtype:
@@ -99,6 +108,16 @@ class SimConfig:
     @property
     def complex_dtype(self) -> torch.dtype:
         return _COMPLEX_DTYPES[self.precision]
+
+    @property
+    def resolved_tile_precision(self) -> str:
+        return (self.matmul_precision if self.tile_precision == "inherit"
+                else self.tile_precision)
+
+    @property
+    def resolved_power_precision(self) -> str:
+        return (self.matmul_precision if self.power_precision == "inherit"
+                else self.power_precision)
 
     @classmethod
     def from_reference(cls, fields: dict) -> "SimConfig":

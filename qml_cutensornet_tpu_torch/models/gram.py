@@ -357,7 +357,8 @@ def build_kernel_matrix(
             if "host" in (at_x, at_y):
                 _sync(dev)
                 upload_time += time.perf_counter() - t0
-            out = tile_overlaps_sq(ay_blk, ax_blk, site_block=cfg.tile_block)
+            out = tile_overlaps_sq(ay_blk, ax_blk, precision=cfg.resolved_tile_precision,
+                                   site_block=cfg.tile_block)
             out = out.cpu().numpy()
             vdot_time.append(time.perf_counter() - t0)
             tile_pairs.append(max(1, (min(y1, len_y) - y0) * (min(x1, len_x) - x0)))
@@ -385,8 +386,9 @@ def build_kernel_matrix(
             dg = np.where(dg > 0, dg, 1.0)
             kernel_mat = kernel_mat / np.outer(dg, dg)
         else:
-            n2x, up_x = _norms_chunked(ax, at_x, tile, dev)
-            n2y, up_y = _norms_chunked(ay, at_y, tile, dev)
+            prec = cfg.resolved_tile_precision
+            n2x, up_x = _norms_chunked(ax, at_x, tile, dev, prec)
+            n2y, up_y = _norms_chunked(ay, at_y, tile, dev, prec)
             upload_time += up_x + up_y
             kernel_mat = kernel_mat / np.outer(n2y[:len_y], n2x[:len_x])
 
@@ -412,10 +414,11 @@ def build_kernel_matrix(
     return kernel_mat
 
 
-def _norms_chunked(a: torch.Tensor, at: str, chunk: int, device: torch.device):
+def _norms_chunked(a: torch.Tensor, at: str, chunk: int, device: torch.device,
+                   precision: str = "highest"):
     """Squared norms of the states ``a`` (where ``at`` says), ``chunk`` at a
-    time, each chunk uploaded when the states are host-resident. Returns
-    (norms [N] numpy, upload seconds)."""
+    time, each chunk uploaded when the states are host-resident, the
+    products at ``precision``. Returns (norms [N] numpy, upload seconds)."""
     out, upload = [], 0.0
     for s in range(0, a.shape[0], chunk):
         blk = a[s:s + chunk]
@@ -424,7 +427,7 @@ def _norms_chunked(a: torch.Tensor, at: str, chunk: int, device: torch.device):
             blk = blk.to(device)
             _sync(device)
             upload += time.perf_counter() - t0
-        out.append(state_norms_sq(blk).cpu().numpy())
+        out.append(state_norms_sq(blk, precision).cpu().numpy())
     return np.concatenate(out), upload
 
 

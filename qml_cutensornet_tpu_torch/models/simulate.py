@@ -54,7 +54,7 @@ from qml_cutensornet_tpu_torch.models.ansatz import (
     BrickSchedule,
     GateSchedule,
 )
-from qml_cutensornet_tpu_torch.ops import gates, mps as mps_ops, vidal
+from qml_cutensornet_tpu_torch.ops import gates, lowp, mps as mps_ops, vidal
 from qml_cutensornet_tpu_torch.ops.mps import MPS
 from qml_cutensornet_tpu_torch.utils.device import resolve_device
 
@@ -505,26 +505,43 @@ def simulate_gate_list(gate_list, num_qubits: int, cfg: SimConfig,
     return state
 
 
-def state_norms_sq(a: torch.Tensor) -> torch.Tensor:
-    """``<psi_b|psi_b>`` for ``a [B, n, chi, 2, chi]`` -> real ``[B]``."""
+def state_norms_sq(a: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """``<psi_b|psi_b>`` for ``a [B, n, chi, 2, chi]`` -> real ``[B]``, its
+    products at ``precision`` (kernel K7 at a reduced class in complex64,
+    ``ops/lowp.py``; full precision otherwise, as before)."""
     B, n, chi = a.shape[0], a.shape[1], a.shape[2]
+    n_passes = lowp.reduced_passes(precision, a.dtype)
     m = torch.zeros((B, chi, chi), dtype=a.dtype, device=a.device)
     m[:, 0, 0] = 1.0
     for i in range(n):
         t = a[:, i]
+        if n_passes:
+            # tm[z, a, (s d)] = m[z] t[z, a, (s d)]; m'[z] = t[z, (a s), :]^H tm[z, (a s), :]
+            tm = lowp.cgemm(m, t.reshape(B, chi, 2 * chi), n_passes)
+            m = lowp.cgemm(t.reshape(B, 2 * chi, chi), tm.reshape(B, 2 * chi, chi), n_passes,
+                           "h")
+            continue
         tm = torch.einsum("zab,zbsd->zasd", m, t)
         m = torch.einsum("zasc,zasd->zcd", t.conj(), tm)
     return m[:, 0, 0].real
 
 
-def _combine_sites(a: torch.Tensor, k: int):
+def _combine_sites(a: torch.Tensor, k: int, precision: str = "highest"):
     """Pre-contract runs of ``k`` adjacent sites into physical-dim ``2^k``
     blocks: ``[B, n, chi, 2, chi] -> ([B, n//k, chi, 2^k, chi], tail
-    [B, chi, 2^rem, chi] | None)``."""
+    [B, chi, 2^rem, chi] | None)``, the products at ``precision`` (as
+    :func:`state_norms_sq`)."""
     b, n, chi = a.shape[0], a.shape[1], a.shape[2]
     g, rem = n // k, n % k
+    n_passes = lowp.reduced_passes(precision, a.dtype)
 
     def combine(u, t):
+        if n_passes:
+            # [(..., x p), y] @ [y, (t z)] as one batch of the leading dims
+            p = u.shape[-2]
+            lead = u.shape[:-3]
+            out = lowp.cgemm(u.reshape(-1, chi * p, chi), t.reshape(-1, chi, 2 * chi), n_passes)
+            return out.reshape(*lead, chi, p * 2, chi)
         out = torch.einsum("...xpy,...ytz->...xptz", u, t)
         return out.reshape(*out.shape[:-4], chi, out.shape[-3] * 2, chi)
 
@@ -542,28 +559,36 @@ def _combine_sites(a: torch.Tensor, k: int):
     return main, tail
 
 
-def tile_step(m: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor, p: int) -> torch.Tensor:
+def tile_step(m: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor, p: int,
+              precision: str = "highest") -> torch.Tensor:
     """One transfer-matrix step of an all-pairs tile: the carry ``m [By, Bx,
     chi, chi]`` (``m[y, x, a, b]``, ``a`` the bond of ``y``, ``b`` that of
     ``x``) through the sites ``ty [By, chi, p, chi]`` and ``tx [Bx, chi, p,
-    chi]`` (``p`` physical values): two batched complex matmuls."""
+    chi]`` (``p`` physical values): two batched complex matmuls, at
+    ``precision`` (as :func:`state_norms_sq`)."""
     By, Bx, chi = m.shape[0], m.shape[1], m.shape[2]
+    n_passes = lowp.reduced_passes(precision, m.dtype)
     # T[x, (y a), (s d)] = sum_b M[x, (y a), b] Tx[x, b, (s d)]
     mx = m.transpose(0, 1).reshape(Bx, By * chi, chi)
-    t1 = mx @ tx.reshape(Bx, chi, p * chi)
+    txm = tx.reshape(Bx, chi, p * chi)
+    t1 = lowp.cgemm(mx, txm, n_passes) if n_passes else mx @ txm
     # regroup [x, (y a), (s d)] -> [y, (a s), (x d)]
     t2 = (t1.reshape(Bx, By, chi, p, chi).permute(1, 2, 3, 0, 4)
           .reshape(By, chi * p, Bx * chi))
-    m2 = ty.reshape(By, chi * p, chi).mH @ t2  # [By, chi, Bx*chi]
+    tym = ty.reshape(By, chi * p, chi)
+    m2 = lowp.cgemm(tym, t2, n_passes, "h") if n_passes else tym.mH @ t2  # [By, chi, Bx*chi]
     return m2.reshape(By, chi, Bx, chi).transpose(1, 2)
 
 
-def tile_overlaps_sq(ay: torch.Tensor, ax: torch.Tensor, site_block: int = 1) -> torch.Tensor:
+def tile_overlaps_sq(ay: torch.Tensor, ax: torch.Tensor, precision: str = "highest",
+                     site_block: int = 1) -> torch.Tensor:
     """All-pairs ``|<y_i|x_j>|^2`` between ``ay [By, n, chi, 2, chi]`` and
     ``ax [Bx, n, chi, 2, chi]`` -> real ``[By, Bx]``, by a transfer-matrix
     scan carrying ``M [By, Bx, chi, chi]``: two large batched complex
     matmuls per site block (the reference leaves this to XLA; here it is
-    torch.matmul in full f32, utils/device.py)."""
+    torch.matmul in full f32, utils/device.py, and at a reduced
+    ``precision`` in complex64 kernel K7, ``ops/lowp.py``, the site
+    pre-combination included)."""
     By, Bx = ay.shape[0], ax.shape[0]
     chi = max(ay.shape[2], ax.shape[2])
 
@@ -576,14 +601,14 @@ def tile_overlaps_sq(ay: torch.Tensor, ax: torch.Tensor, site_block: int = 1) ->
     m[:, :, 0, 0] = 1.0
 
     k = site_block
-    gy, ty_tail = _combine_sites(ay, k) if k > 1 else (ay, None)
-    gx, tx_tail = _combine_sites(ax, k) if k > 1 else (ax, None)
+    gy, ty_tail = _combine_sites(ay, k, precision) if k > 1 else (ay, None)
+    gx, tx_tail = _combine_sites(ax, k, precision) if k > 1 else (ax, None)
     if gy is not None:
         p = gy.shape[3]
         for i in range(gy.shape[1]):
-            m = tile_step(m, gy[:, i], gx[:, i], p)
+            m = tile_step(m, gy[:, i], gx[:, i], p, precision)
     if ty_tail is not None:
-        m = tile_step(m, ty_tail, tx_tail, ty_tail.shape[2])
+        m = tile_step(m, ty_tail, tx_tail, ty_tail.shape[2], precision)
     ov = m[:, :, 0, 0]
     return ov.real * ov.real + ov.imag * ov.imag
 

@@ -1,14 +1,16 @@
 """Build ``csrc/*.cu`` with ``nvcc`` and load it with ``ctypes``.
 
 The kernels have a plain C interface (no PyTorch headers), so ``nvcc``
-builds each source in seconds to a minute. Each source becomes two shared
-libraries in ``build/kernels/`` next to the package (``.gitignore`` lists
-``build/``): the single-column one, and the pair library, the same source
-with ``-DQK_PAIR`` (the block-2 in-panel step of the reference's
-``mgs_pair``, complex64 kernels only). One ``nvcc`` process per library, all
-ten started together. Each is named by a hash of the sources, headers and
-flags, so a fresh checkout builds on first use and a rebuilt source never
-loads a stale library.
+builds each source in seconds to a minute. Each source of K1 to K5 becomes
+two shared libraries in ``build/kernels/`` next to the package
+(``.gitignore`` lists ``build/``): the single-column one, and the pair
+library, the same source with ``-DQK_PAIR`` (the block-2 in-panel step of
+the reference's ``mgs_pair``, complex64 kernels only). K7
+(``bf16_cgemm.cu``, :data:`SINGLE_BUILD`) has no in-panel step and is built
+once; its entry point is in both namespaces :func:`load` returns. One
+``nvcc`` process per library, all eleven started together. Each is named by
+a hash of the sources, headers and flags, so a fresh checkout builds on
+first use and a rebuilt source never loads a stale library.
 
 Launch bookkeeping lives here too: ``LAUNCHES`` counts kernel launches per
 kernel (incremented by each wrapper right after its launch succeeded),
@@ -35,7 +37,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("split", "orth_r", "orth", "gate_split", "brick_split")
+PAIR_KERNELS = ("split", "orth_r", "orth", "gate_split", "brick_split")  # K1 to K5
+KERNELS = PAIR_KERNELS + ("cgemm",)  # and K7
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PAIR_LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
@@ -71,7 +74,12 @@ SOURCES = {
         "qk_brick_split_smem": ([_i] * 6, _ll),
         "qk_brick_split_launch": ([_vp] * 10 + [_i] * 8 + [_ll, _vp], _i),
     },
+    "bf16_cgemm.cu": {
+        "qk_cgemm_launch": ([_vp] * 3 + [_i] * 4 + [_ll] * 4 + [_i, _i, _vp], _i),
+    },
 }
+# Sources built once, without a pair library.
+SINGLE_BUILD = ("bf16_cgemm.cu",)
 
 
 def reset_counters() -> None:
@@ -111,15 +119,16 @@ def _source_key(source: str, pair: bool) -> str:
 
 def load(pair: bool = False):
     """The kernels' C entry points (attributes of the returned namespace) in
-    the single-column libraries, or with ``pair`` in the pair libraries.
-    Both sets are built on first use: every library that is not there yet
-    is compiled by its own ``nvcc`` process, all of them running at once."""
+    the single-column libraries, or with ``pair`` in the pair libraries
+    (both with the entry points of :data:`SINGLE_BUILD`). Every library is
+    built on first use: each that is not there yet is compiled by its own
+    ``nvcc`` process, all of them running at once."""
     if _LIBS:
         return _LIBS[pair]
     t0 = time.perf_counter()
     paths = {(src, p): BUILD_DIR / (f"libqk_{pathlib.Path(src).stem}{'_pair' if p else ''}_"
                                     f"{_source_key(src, p)}.so")
-             for p in (False, True) for src in SOURCES}
+             for p in (False, True) for src in SOURCES if not (p and src in SINGLE_BUILD)}
     procs = []
     for (src, p), so in paths.items():
         if so.is_file():
@@ -146,7 +155,10 @@ def load(pair: bool = False):
             fn = getattr(cdll, name)
             fn.argtypes = argtypes
             fn.restype = restype
-            setattr(libs[p], name, fn)
+            for ns in ((False, True) if src in SINGLE_BUILD else (p,)):
+                setattr(libs[ns], name, fn)
+        if src in SINGLE_BUILD:
+            continue
         cdll.qk_pair_step.restype = _i
         if cdll.qk_pair_step() != int(p):
             raise RuntimeError(f"{so.name}: built {'without' if p else 'with'} {PAIR_FLAG}")

@@ -30,12 +30,15 @@ reference iterate from the same v0. Three routes run that chain:
 
 - fused split (``cfg.fused_split`` and a shape kernel K1 takes: nc <= 128,
   m, k <= 256): one launch of K1 (``ops/split.py``);
-- unfused split (``cfg.fused_split`` off, or a shape K1 does not take, such
-  as chi 128 with the default oversampling of 16, nc = 144): the products
-  as ``torch.matmul`` and every orthonormalization through
-  ``orth.qr_orth`` (kernel K3; above 128 columns the blocked route, K3 on
-  its panels with ``cfg.fused_split`` in complex64, the scanned panel step
-  otherwise);
+- unfused split (``cfg.fused_split`` off, a shape K1 does not take, such
+  as chi 128 with the default oversampling of 16, nc = 144, or a
+  ``cfg.power_precision`` other than "inherit"): the products as
+  ``torch.matmul`` (at a reduced ``power_precision``, the two power
+  products through kernel K7, ``ops/lowp.py``; complex128 stays full f64)
+  and every orthonormalization through ``orth.qr_orth`` (kernel K3; above
+  128 columns the blocked route, K3 on its panels with ``cfg.fused_split``
+  in complex64, the scanned panel step otherwise), at full precision as in
+  the reference;
 - fused gate (``truncated_svd_gate``, taken by ``ops/mps.apply_2site`` when
   :func:`gate_split_eligible`): one launch of K4 builds theta from the two
   site tensors and the gate, and runs the chain; theta is never formed by
@@ -63,7 +66,7 @@ import numpy as np
 import torch
 
 from qml_cutensornet_tpu_torch.config import SimConfig
-from qml_cutensornet_tpu_torch.ops import orth, split
+from qml_cutensornet_tpu_torch.ops import lowp, orth, split
 
 
 def _subspace_start(m: int, keep: int, dtype_name: str):
@@ -114,10 +117,16 @@ def _split_subspace(theta: torch.Tensor, cfg: SimConfig, keep: int):
     if cfg.fused_split and _kernel_precision(cfg) and fused_split_supported(m, k, nc):
         q, r = split.subspace_factor(theta, v0, iters, cfg.mgs_pair)
     else:
+        # The power products at cfg.power_precision (kernel K7 at a reduced
+        # class); the orthonormalizations and r at full precision, so the
+        # reduced class perturbs only which subspace is kept.
+        n_passes = lowp.reduced_passes(cfg.resolved_power_precision, theta.dtype)
         v = v0.expand(B, m, nc)
         for _ in range(iters):
-            w = orth.qr_orth(theta.mH @ v, cfg.fused_split, cfg.mgs_pair)
-            v = orth.qr_orth(theta @ w, cfg.fused_split, cfg.mgs_pair)
+            w = lowp.cgemm(theta, v, n_passes, "h") if n_passes else theta.mH @ v
+            w = orth.qr_orth(w, cfg.fused_split, cfg.mgs_pair)
+            v = lowp.cgemm(theta, w, n_passes) if n_passes else theta @ w
+            v = orth.qr_orth(v, cfg.fused_split, cfg.mgs_pair)
         q, r = v, v.mH @ theta
     total = orth.abs2(theta).sum((1, 2))
     return _finish_subspace(q, r, total, cfg, keep, nc)

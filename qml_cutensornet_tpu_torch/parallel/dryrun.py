@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import pathlib
 import time
@@ -161,8 +162,9 @@ def relay_full_and_symmetric(ansatz, X, cfg: SimConfig, mesh, tile: int | None =
     out = {"first_site": st.tensors[:, 0].cpu()}
     for what, symmetric in (("full", False), ("sym", True)):
         out[what], out[f"{what}_s"] = _timed(
-            mesh.device, sharded_mps.sharded_tile_overlaps_sq, st.tensors, st.tensors, mesh,
-            tile, symmetric)
+            mesh.device, functools.partial(sharded_mps.sharded_tile_overlaps_sq,
+                                           symmetric=symmetric),
+            st.tensors, st.tensors, mesh, tile)
     return out
 
 

@@ -90,9 +90,10 @@ def ring_schedule(ndev: int, symmetric: bool, rank: int) -> list[RingStep]:
             for i in range(n_iters)]
 
 
-def _block_overlaps(ay: torch.Tensor, ax: torch.Tensor) -> torch.Tensor:
-    """``|<y_i|x_j>|^2`` of one ``[Byl] x [Bxl]`` block, site by site."""
-    return tile_overlaps_sq(ay, ax, site_block=1)
+def _block_overlaps(ay: torch.Tensor, ax: torch.Tensor, precision: str) -> torch.Tensor:
+    """``|<y_i|x_j>|^2`` of one ``[Byl] x [Bxl]`` block, site by site, at
+    ``precision``."""
+    return tile_overlaps_sq(ay, ax, precision=precision, site_block=1)
 
 
 def _sendrecv(mesh: Mesh, t: torch.Tensor, dst: int, src: int) -> torch.Tensor:
@@ -116,20 +117,21 @@ def _shift(mesh: Mesh, ay: torch.Tensor) -> torch.Tensor:
     return _sendrecv(mesh, ay, (mesh.rank - 1) % mesh.size, (mesh.rank + 1) % mesh.size)
 
 
-def make_ring_steps(mesh: Mesh, n_iters: int, symmetric: bool):
+def make_ring_steps(mesh: Mesh, n_iters: int, symmetric: bool, precision: str = "highest"):
     """``step(i, ax, ay_cur, k_local) -> (ay_next, k_local)``: ring iteration
     ``i`` on this rank. ``k_local [len_y_pad, Bxl]`` is the rank's column
-    stripe of K, written in place: the tile into rows ``y_block * Byl``, in
-    the symmetric case the mirror tile received into rows ``mirror_src *
-    Byl`` (the mirror batch first, then the Y shift, as the reference
-    orders them)."""
+    stripe of K, written in place: the tile (its products at ``precision``,
+    the reference's ``cfg.resolved_tile_precision``) into rows ``y_block *
+    Byl``, in the symmetric case the mirror tile received into rows
+    ``mirror_src * Byl`` (the mirror batch first, then the Y shift, as the
+    reference orders them)."""
     schedule = ring_schedule(mesh.size, symmetric, mesh.rank)
     assert len(schedule) == n_iters, (len(schedule), n_iters)
 
     def step(i: int, ax: torch.Tensor, ay_cur: torch.Tensor, k_local: torch.Tensor):
         s = schedule[i]
         byl = ay_cur.shape[0]
-        block = _block_overlaps(ay_cur, ax).to(k_local.dtype)
+        block = _block_overlaps(ay_cur, ax, precision).to(k_local.dtype)
         k_local[s.y_block * byl:(s.y_block + 1) * byl] = block
         if s.mirror:
             recv = _sendrecv(mesh, block.T, s.y_block, s.mirror_src)
@@ -333,7 +335,7 @@ def build_kernel_matrix_sharded(
     fused = ring_mode == "fused"
     t0 = time.perf_counter()
     iter_times: list[float] = []
-    step = make_ring_steps(mesh, n_iters, symmetric)
+    step = make_ring_steps(mesh, n_iters, symmetric, cfg.resolved_tile_precision)
     bxl = len_x_padded // ndev
     ckpt_file = None
     start_iter = 0
@@ -394,8 +396,8 @@ def build_kernel_matrix_sharded(
             k = k / np.outer(dg, dg)
         else:
             # State norms of the padded batches, matching k's padded shape.
-            n2x = to_host(state_norms_sq(ax), mesh)
-            n2y = to_host(state_norms_sq(ay), mesh)
+            n2x = to_host(state_norms_sq(ax, cfg.resolved_tile_precision), mesh)
+            n2y = to_host(state_norms_sq(ay, cfg.resolved_tile_precision), mesh)
             k = k / np.outer(n2y, n2x)
 
     profiling["kernel_mat_time"] = [gram_time, "seconds"]

@@ -278,7 +278,8 @@ def relay_auto_tile(chi: int, n_loc: int, dtype_bytes: int = 4) -> int:
 
 
 def sharded_tile_overlaps_sq(ay: torch.Tensor, ax: torch.Tensor, mesh: Mesh,
-                             tile: int | None = 32, symmetric: bool = False) -> np.ndarray:
+                             tile: int | None = 32, precision: str = "highest",
+                             symmetric: bool = False) -> np.ndarray:
     """All-pairs ``|<y_i|x_j>|^2`` of site-sharded batches: ``ay [By, n_loc,
     chi, 2, chi]`` and ``ax [Bx, n_loc, ...]`` are this rank's blocks (the
     ``gather=False`` output of :func:`make_sharded_brick_simulator`; dummy
@@ -288,10 +289,10 @@ def sharded_tile_overlaps_sq(ay: torch.Tensor, ax: torch.Tensor, mesh: Mesh,
     The transfer-matrix product runs over the sites in order, so it is a
     relay: the carry ``[tile, tile, chi, chi]`` passes from rank ``d`` to
     ``d + 1``, each applying its site block (:func:`models.simulate.
-    tile_step`, one site a step). The tiles are pipelined: at stage ``s``
-    rank ``d`` works tile ``s - d``, so ``T`` tiles take ``T + D - 1``
-    stages on ``D`` ranks, and a rank with no tile at a stage only passes
-    the carry on. The last rank emits each finished tile; at the end it
+    tile_step`, one site a step, its products at ``precision``). The tiles
+    are pipelined: at stage ``s`` rank ``d`` works tile ``s - d``, so ``T``
+    tiles take ``T + D - 1`` stages on ``D`` ranks, and a rank with no tile
+    at a stage only passes the carry on. The last rank emits each finished tile; at the end it
     broadcasts the assembled matrix. ``symmetric=True`` (``ay`` is ``ax``)
     computes the ``yi <= xi`` tiles and copies their transposes. ``tile``
     None takes :func:`relay_auto_tile`."""
@@ -330,7 +331,7 @@ def sharded_tile_overlaps_sq(ay: torch.Tensor, ax: torch.Tensor, mesh: Mesh,
             ay_b = ay[yi * tile:(yi + 1) * tile]
             ax_b = ax[xi * tile:(xi + 1) * tile]
             for i in range(n_loc):
-                m = tile_step(m, ay_b[:, i], ax_b[:, i], 2)
+                m = tile_step(m, ay_b[:, i], ax_b[:, i], 2, precision)
             if d == ndev - 1:
                 ov = m[:, :, 0, 0]
                 blk = ov.real * ov.real + ov.imag * ov.imag
@@ -352,7 +353,8 @@ def sharded_gram(ansatz, X, cfg: SimConfig, mesh: Mesh, tile: int | None = None)
     the row gets the same matrix."""
     sim = make_sharded_brick_simulator(ansatz.schedule, cfg, mesh, gather=False)
     st = sim(np.asarray(X, dtype=np.float64))
-    k = sharded_tile_overlaps_sq(st.tensors, st.tensors, mesh, tile=tile, symmetric=True)
+    k = sharded_tile_overlaps_sq(st.tensors, st.tensors, mesh, tile=tile,
+                                 precision=cfg.resolved_tile_precision, symmetric=True)
     if os.environ.get("QMLTPU_NORMALIZE", "1") != "0":
         dg = np.sqrt(np.maximum(np.diag(k), 0.0))
         dg = np.where(dg > 0, dg, 1.0)

@@ -90,10 +90,18 @@ def test_config_from_reference_and_unported_fields():
     assert SimConfig().svd_method == RefConfig().svd_method == "svd"
     for method in ("svd", "eigh", "subspace"):
         assert SimConfig(svd_method=method).svd_method == method
-    for bad in (dict(power_precision="high"), dict(tile_precision="bfloat16"),
-                dict(matmul_precision="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            SimConfig(**bad)
+    # The power and tile precisions take every string the reference takes
+    # (ops/lowp.py), and the tile precision resolves as the reference's; a
+    # reduced ambient matmul_precision is not ported yet.
+    for s in ("inherit", "highest", "float32", "high", "bfloat16_3x", "tensorfloat32",
+              "bfloat16", "default"):
+        port = SimConfig(power_precision=s, tile_precision=s)
+        ref = RefConfig(power_precision=s, tile_precision=s)
+        assert port.resolved_tile_precision == ref.resolved_tile_precision
+        assert SimConfig.from_reference(dataclasses.asdict(ref)) == port
+    for bad in ("high", "bfloat16"):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            SimConfig(matmul_precision=bad)
     # The pair step and the brick caps run; both default off, as in the reference.
     assert not (SimConfig().mgs_pair or SimConfig().brick_struct_caps)
     for field in ("mgs_pair", "brick_struct_caps"):

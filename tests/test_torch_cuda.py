@@ -6,7 +6,10 @@ and the global-scratch layouts, the launch-error path, the pair variants
 slice on the card against the same slice on the CPU on the fused,
 fused-gate, unfused, blocked and brick routes (the brick route also with
 caps and the pair step), and the multi-device ring at world size 1 over
-NCCL against the single-device Gram.
+NCCL against the single-device Gram; kernel K7 (the bf16 tensor-core
+complex product of the reduced precisions) against its plain version and
+the exact product, its refusals, and the reduced power and tile
+precisions' slice on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no card. This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -28,7 +31,7 @@ from qml_cutensornet_tpu_torch.config import SimConfig
 from qml_cutensornet_tpu_torch.models.ansatz import KernelStateAnsatz
 from qml_cutensornet_tpu_torch.models.entanglement import entanglement_graph
 from qml_cutensornet_tpu_torch.models.gram import build_kernel_matrix
-from qml_cutensornet_tpu_torch.ops import _build, blocked_qr, orth, split
+from qml_cutensornet_tpu_torch.ops import _build, blocked_qr, lowp, orth, split
 from qml_cutensornet_tpu_torch.ops.svd import start_block
 from qml_cutensornet_tpu_torch.ops.vidal import update_pairs
 
@@ -765,7 +768,7 @@ def _tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-@pytest.mark.parametrize("name", list(_build.KERNELS))
+@pytest.mark.parametrize("name", list(_build.PAIR_KERNELS))
 @pytest.mark.parametrize("kind", ["full", "rank_deficient", "zero_padded"])
 def test_pair_kernels_match_plain(dev, name, kind):
     """Each kernel's pair variant (its pair library, counted in
@@ -783,7 +786,7 @@ def test_pair_kernels_match_plain(dev, name, kind):
     assert (pk - pp).abs().max().item() <= TOL * max(1.0, pp.abs().max().item())
 
 
-@pytest.mark.parametrize("name", list(_build.KERNELS))
+@pytest.mark.parametrize("name", list(_build.PAIR_KERNELS))
 def test_pair_changes_no_bit_in_f64(dev, name):
     """complex128 has no pair library: ``pair`` launches the single-column
     double kernel, bit-equal to the launch without it, and counts no pair
@@ -947,3 +950,102 @@ def test_host_resident_states_on_card(dev, monkeypatch, capsys, rect):
         assert _build.LAUNCHES["orth"] > 0 and sum(_build.PLAIN_ON_CUDA.values()) == 0
     assert out["host"].shape == ((4, 10) if rect else (10, 10))
     assert np.abs(out["host"] - out["device"]).max() <= 1e-7
+
+
+# K7: [B, M, N, K] and op at the main paths' shapes (the headline tile's two
+# products of a site block, the chi-64 power products), ragged edges, a
+# broadcast start block and one element.
+CGEMM_SHAPES = [
+    (32, 2048, 256, 64, "n"), (32, 64, 2048, 256, "h"),
+    (32, 128, 64, 128, "h"), (32, 128, 64, 128, "n"),
+    (3, 17, 33, 70, "n"), (3, 17, 33, 70, "h"), (2, 65, 130, 1, "h"), (1, 1, 1, 1, "n"),
+]
+
+
+def _cgemm_operands(rng, B, M, N, K, op, dev):
+    def c(*shape):
+        x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(x.astype(np.complex64)).to(dev)
+
+    return (c(B, K, M) if op == "h" else c(B, M, K)), c(B, K, N)
+
+
+@pytest.mark.parametrize("n_passes", [3, 1])
+@pytest.mark.parametrize("B,M,N,K,op", CGEMM_SHAPES)
+def test_cgemm_kernel_matches_plain(dev, B, M, N, K, op, n_passes):
+    """K7 against its plain version on the card: elementwise within both
+    f32 sums' worst case, ``2 (2 K P + 2) 2^-24`` of ``|op(a)| |b|`` (they
+    differ only in summation order), and within the class's bound of the
+    exact product (``lowp.rel_bound``); two launches bit-equal."""
+    a, b = _cgemm_operands(np.random.default_rng(M + N + K), B, M, N, K, op, dev)
+    before = _build.LAUNCHES["cgemm"]
+    got, again = lowp.cgemm(a, b, n_passes, op), lowp.cgemm(a, b, n_passes, op)
+    assert _build.LAUNCHES["cgemm"] == before + 2
+    plain = lowp.cgemm_plain(a, b, n_passes, op)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and got.shape == (B, M, N)
+    a64 = (a.mH if op == "h" else a).to(torch.complex128)
+    scale = a64.abs() @ b.to(torch.complex128).abs()
+    assert ((got - plain).abs() / scale).max().item() <= 2 * (2 * K * n_passes + 2) * 2.0**-24
+    exact = a64 @ b.to(torch.complex128)
+    assert ((got - exact).abs() / scale).max().item() <= lowp.rel_bound(n_passes, K)
+
+
+def test_cgemm_strides(dev):
+    """A broadcast operand (batch stride 0, the power step's start block), a
+    sliced one (a site of a state batch) and strided rows (the tile step's
+    view of a transposed carry) equal the dense copies."""
+    a, b = _cgemm_operands(np.random.default_rng(1), 4, 16, 24, 40, "h", dev)
+    bcast = b[:1].expand(4, 40, 24)
+    np.testing.assert_array_equal(lowp.cgemm(a, bcast, 3, "h").cpu().numpy(),
+                                  lowp.cgemm(a, bcast.contiguous(), 3, "h").cpu().numpy())
+    stacked = torch.stack([a, a], 1)  # [4, 2, 40, 16]: a slice has batch stride 2 x 40 x 16
+    np.testing.assert_array_equal(lowp.cgemm(stacked[:, 1], b, 1, "h").cpu().numpy(),
+                                  lowp.cgemm(a, b, 1, "h").cpu().numpy())
+    carry, _ = _cgemm_operands(np.random.default_rng(3), 4 * 4, 8, 8, 8, "n", dev)
+    mx = carry.reshape(4, 8, 4, 8).transpose(1, 2).transpose(0, 1).reshape(4, 32, 8)
+    assert mx.stride() == (8, 32, 1)
+    np.testing.assert_array_equal(lowp.cgemm(mx, b[:, :8], 3).cpu().numpy(),
+                                  lowp.cgemm(mx.contiguous(), b[:, :8], 3).cpu().numpy())
+
+
+def test_cgemm_refusals(dev):
+    """complex128, a matrix that is not row-major and dense, a bad shape, a
+    bad pass count and a CPU operand raise and launch nothing."""
+    a, b = _cgemm_operands(np.random.default_rng(2), 2, 8, 8, 8, "n", dev)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(TypeError):
+        lowp.cgemm_cuda(a.to(torch.complex128), b.to(torch.complex128), 3)
+    with pytest.raises(ValueError, match="row-major"):
+        lowp.cgemm_cuda(a.mT, b, 3)
+    with pytest.raises(ValueError):
+        lowp.cgemm_cuda(a, b[:, :5], 3)
+    with pytest.raises(ValueError):
+        lowp.cgemm_cuda(a, b, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lowp.cgemm(a, b.cpu(), 3)
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("knob", ["tile_precision", "power_precision"])
+@pytest.mark.parametrize("precision", ["high", "bfloat16"])
+def test_reduced_precision_slice_on_card_matches_cpu(dev, knob, precision):
+    """The Gram slice (8 qubits, chi 16, fused split) at a reduced tile or
+    power precision on the card against the CPU (3e-5): K7 launched, no
+    plain version on the card; the power precision keeps K1 off (K3 takes
+    the unfused chain), the tile precision leaves the simulation as it is."""
+    nq = 8
+    X = np.random.default_rng(2).uniform(0.0, 2.0, size=(6, nq))
+    ans = KernelStateAnsatz(nq, 1, 1.0, entanglement_graph(nq, 2))
+    cfg = SimConfig(chi=16, tile_block=2, svd_method="subspace", fused_split=True,
+                    **{knob: precision})
+    _build.reset_counters()
+    K_gpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cuda")
+    assert _build.LAUNCHES["cgemm"] > 0 and sum(_build.PLAIN_ON_CUDA.values()) == 0
+    if knob == "power_precision":
+        assert _build.LAUNCHES["split"] == 0 and _build.LAUNCHES["orth"] > 0
+    else:
+        assert _build.LAUNCHES["split"] > 0 and _build.LAUNCHES["orth"] == 0
+    K_cpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cpu")
+    np.testing.assert_allclose(K_gpu, K_cpu, atol=3e-5)
+    np.testing.assert_allclose(np.diag(K_gpu), 1.0, atol=1e-12)

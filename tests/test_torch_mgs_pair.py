@@ -255,7 +255,7 @@ def _f64_cases():
     }
 
 
-@pytest.mark.parametrize("name", _build.KERNELS)
+@pytest.mark.parametrize("name", _build.PAIR_KERNELS)
 def test_f64_pair_changes_no_bit(name):
     """complex128 has no pair step (the reference's f64 path never reaches a
     kernel): every plain version's outputs are bit-equal with and without
