@@ -71,9 +71,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    256) whose chi-256 stage orthonormalizes every split iterate (272 columns)
    and every center move (256 columns) through the blocked route, K3 on
    panels of 32 (in f32; the f64 runs take the scanned panel step, no K3),
-   held to the port's own f64 run on the card at 1e-5 on v1 data; the same
-   on the tied-spectrum v2 data, whose f32-vs-f64 error is printed, not
-   gated; and a chi-128 run (stages 32, 64, 128), where the
+   held to the port's own f64 run on the card at 1e-5 on v1 data; the
+   tied-spectrum v2 data at cap 128 (its bonds stay below 9 on average),
+   whose f32-vs-f64 error is printed, not gated; and a chi-128 run (stages 32, 64, 128), where the
    default oversampling makes the split 144 columns wide, so that it leaves
    K1 for the blocked route while the center moves stay on K2, held to its
    f64 run likewise. Each of these Grams (v1 and v2, f32 and f64) is also
@@ -101,15 +101,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    run (3e-5); nf 100, one sim batch of 8, through K5 (the square buckets)
    and K1 (the rectangles), against the uncapped run (1e-4), sim seconds
    and launches by kernel beside the uncapped run's.
-8. svd and eigh routes: ``QMLTPU_SVD=svd`` and ``=eigh`` at the headline
-   shape on one sim batch of 8 circuits (the golden's 8 train points,
-   through ``cli._pipeline.build``, the train-Gram call of
-   ``cli.main_no_test``; a batch of 32 takes minutes, cuSOLVER factoring
-   each matrix in turn): cuSOLVER factors every two-site update, K2 every
-   center move, K1 never; the 8x8 block against the golden at 1e-6 and the
-   Gram within 3e-5 of the default route's (eigh in f32, which squares the
-   condition number, is reported and run again in f64 for both bars if it
-   misses either).
+8. svd and eigh routes: ``QMLTPU_SVD=svd`` and ``=eigh`` on one sim batch
+   of 8 circuits (the golden's 8 train points, through
+   ``cli._pipeline.build``, the train-Gram call of ``cli.main_no_test``;
+   cuSOLVER's gesvd costs the same per op for 4 circuits as for 8):
+   cuSOLVER factors every two-site update, K2 every center move, K1 never;
+   eigh at the headline shape, its 8x8 block against the golden at 1e-6 and
+   the Gram within 3e-5 of the default route's (eigh in f32, which squares
+   the condition number, is reported and run again in f64 for both bars if
+   it misses either); svd on one rep of the headline circuit (r 1), its
+   Gram within 3e-5 of the default route's on the same points and rep.
 9. reference routing: ``QMLTPU_ROUTING=reference`` through
    ``cli.main_no_test`` at the headline shape (2803 two-site ops against
    tracked's 1092), golden and tracked-route bars, sim seconds beside the
@@ -152,8 +153,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 13. residency: ``cli.main_no_test`` at the crossover sweep's d-8
    configuration (nf 100, r 2, d 8, chi 256, 5 + 5 points, one sim batch of
    8) with the default ``QMLTPU_STATES_DEVICE_BYTES`` (the states stay on
-   the card) and with 0 (host-resident states, one trimmed upload a tile):
-   the regime each run reports, the two Grams within 1e-7 (bit-equality
+   the card) and with 0 (host-resident states, one trimmed upload a tile;
+   its simulation is the first run's, replayed from a host copy): the
+   regime each run reports, the two Grams within 1e-7 (bit-equality
    printed), and each run's sim, tile and upload seconds, peak memory,
    avg_max_chi and avg_fidelity.
 14. reduced precisions (kernel K7, ``ops/lowp.py``: the bf16 tensor-core
@@ -170,11 +172,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    none on the power route); (c) the golden's 8 points simulated once,
    their tiles by K7, by its plain version and in full f32 against the
    golden. On every other route K7 launches 0 times.
+15. the reduced ambient class (``SimConfig.matmul_precision``: every
+   product of the engine on K7, ``ops/lowp.matmul``): (a) K7 at the
+   engine's shapes (theta, the gate with K = 4, the center moves' products,
+   the split's r, a power product with a broadcast start block, ``vdot``,
+   a single column, the Hadamard layer's batch stride 0) at three passes
+   and one against its plain version and the exact product, two launches
+   bit-equal, timed beside ``torch.matmul`` in f32 and its bound; (b) the
+   golden's 8 points (headline shape, one sim batch, the CLI's config)
+   through ``models/gram.build_kernel_matrix`` at "high", then "bfloat16":
+   K1, K4 and K5 never, K2 on every center move, K3 and K7 as the op stream
+   and the tile say, golden, ``K - K^T`` and the default route's Gram
+   printed, and the same run with K7's plain version held to it; (c) the
+   brick route at 14 qubits, chi 128, "high", likewise (K5 and K1 never).
 
 On every route the launch counters (K1 to K5 and K7) must equal the counts
 worked out from the op stream (the brick layers' chunk plan on the brick
 route, its caps buckets under ``QMLTPU_BRICK_CAPS``; the tiles at a reduced
-tile precision) and the routing rules, every launch of K1 to K5 must come
+tile precision; every product at a reduced ambient class) and the routing
+rules, every launch of K1 to K5 must come
 from the pair libraries exactly when the pair step is on (f32), none of
 K7's, and no plain version may have run on a CUDA tensor. The last three lines of stdout are the card's name and power
 limit, the kernels summary JSON and the result JSON ``{"ok": true,
@@ -207,6 +223,9 @@ ARGV_CHI256 = ["main", "GPU", "16", "2", "1.0", "6", "20", "20", "5", CSV_V1]
 # draw (the golden's 8), one sim batch: cuSOLVER factors each matrix of a
 # batch in turn, so a batch of 32 takes minutes.
 SVD_POINTS = 8
+# The svd route runs one rep (r 1) of the headline circuit: cuSOLVER's gesvd
+# took 145 s for the two reps of 8 circuits, whatever the batch.
+ARGV_SVD = ARGV[:3] + ["1"] + ARGV[4:]
 # The brick route: 14 qubits on one sim batch of 32, and the full width, nf
 # 100 on 5 + 5 points (8 train points, one sim batch of 8).
 ARGV_BRICK14 = ["main", "GPU", "14", "2", "1.0", "6", "20", "20", "5", CSV_V1]
@@ -1239,15 +1258,23 @@ def op_launches(cfg, count):
     launch with the fused split up to ``orth.MAX_K`` columns, else one
     orthonormalization by K3. An orthonormalization of more columns than that
     is one K3 launch per panel of ``blocked_qr.PANEL`` on the fused split in
-    complex64 and none otherwise (the scanned panel step). Also returns
-    ``split(chi, m, k)``, the launches of one truncating split off the gate
-    kernels, keeping ``chi`` columns of a ``[m, k]`` theta (``2 chi``
-    square by default)."""
+    complex64 and none otherwise (the scanned panel step). At a reduced
+    ambient class in complex64 (``cfg.matmul_precision``) every product of
+    the engine is one K7 launch (``ops/lowp.matmul``): theta and the gate of
+    a two-site update, the split's right factor (and the eigh route's Gram),
+    the center move's product and, off K2, its ``r`` where the reference's
+    is a dot (``orth.reference_r_is_dot``), a 1-qubit gate, and on the
+    blocked route 4 projection products a later panel and, on the scanned
+    panel step, 4 a column after a panel's first. Also returns ``split(chi,
+    m, k)``, the launches of one truncating split off the gate kernels,
+    keeping ``chi`` columns of a ``[m, k]`` theta (``2 chi`` square by
+    default)."""
     from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX
     from qml_cutensornet_tpu_torch.ops import blocked_qr, lowp, orth, svd
 
     iters = max(1, cfg.subspace_iters)
     power_passes = lowp.reduced_passes(cfg.resolved_power_precision, cfg.complex_dtype)
+    ambient = bool(lowp.reduced_passes(cfg.matmul_precision, cfg.complex_dtype))
 
     def panels(k):
         if k <= orth.MAX_K:
@@ -1256,8 +1283,18 @@ def op_launches(cfg, count):
             return -(-k // blocked_qr.PANEL)
         return 0
 
+    def blocked_products(k):
+        if not ambient or k <= orth.MAX_K:
+            return 0
+        widths = [min(blocked_qr.PANEL, k - p0) for p0 in range(0, k, blocked_qr.PANEL)]
+        out = 4 * (len(widths) - 1)
+        if not blocked_qr.kernel_panels_used(cfg.fused_split, cfg.complex_dtype):
+            out += sum(4 * (w - 1) for w in widths)
+        return out
+
     def split(chi, m=None, k=None):
         if cfg.svd_method != "subspace":
+            count["cgemm"] += ambient * (2 if cfg.svd_method == "eigh" else 1)
             return
         nc = chi + max(0, cfg.oversample)
         m, k = m or 2 * chi, k or 2 * chi
@@ -1265,45 +1302,55 @@ def op_launches(cfg, count):
             count["split"] += 1
         else:
             count["orth"] += 2 * iters * panels(nc)
-            count["cgemm"] += 2 * iters * bool(power_passes)
+            count["cgemm"] += 2 * iters * (bool(power_passes) + blocked_products(nc)) + ambient
 
     def add(chi, kind):
         if kind >= GATE_RX:
+            count["cgemm"] += ambient
             return
         if kind == GATE_I:
+            count["cgemm"] += ambient
             if cfg.fused_split and chi <= orth.MAX_K:
                 count["orth_r"] += 1
             else:
                 count["orth"] += panels(chi)
+                count["cgemm"] += ambient * (orth.reference_r_is_dot(2 * chi, chi)
+                                             + blocked_products(chi))
         elif svd.gate_split_eligible(dataclasses.replace(cfg, chi=chi), chi):
             count["gate_split"] += 1
         else:
+            count["cgemm"] += 2 * ambient  # theta and the gate
             split(chi)
 
     return add, split
 
 
-def expected_launches(argv, n_batches):
+def expected_launches(argv, n_batches, cfg=None):
     """Kernel launches the simulation of ``n_batches`` sim batches must make
-    under the current environment, from the op stream's chunk plan and the
+    under the current environment (``cfg``: the CLI's config of ``argv``
+    unless given), from the op stream's chunk plan and the
     routing rules (:func:`op_launches`). On the brick route, per chunk of the
     layer plan and per layer, one update per pair chunk: one K5 launch where
-    the stage is brick-split eligible, else the split's K1 or K3 launches;
+    the stage is brick-split eligible, else the split's K1 or K3 launches
+    (at a reduced ambient class also theta, the gate and ``new_a`` on K7);
     with ``QMLTPU_BRICK_CAPS=1`` the pair chunks of each caps bucket
     (``ops/vidal.cap_buckets``), K5 where the bucket's ``(cl, cm, cr)`` is
-    eligible, else the split of ``[2 cr, 2 cl]`` keeping ``cm``."""
+    eligible, else the split of ``[2 cr, 2 cl]`` keeping ``cm``. At a
+    reduced ambient class the Hadamard layer is one K7 launch a batch."""
     from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
     from qml_cutensornet_tpu_torch.models import simulate
     from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX, BrickSchedule
-    from qml_cutensornet_tpu_torch.ops import svd, vidal
+    from qml_cutensornet_tpu_torch.ops import lowp, svd, vidal
 
     params = pipe.parse_argv(list(argv))
-    cfg = pipe.sim_config(params)
+    cfg = cfg or pipe.sim_config(params)
     chunk_len = int(os.environ.get("QMLTPU_CHUNK_LEN", "128"))
     staged = os.environ.get("QMLTPU_STAGED", "1") != "0"
     schedule = pipe.make_ansatz(params).schedule
     count = dict.fromkeys(LAUNCH_NAMES, 0)
     add, split_launches = op_launches(cfg, count)
+    ambient = bool(lowp.reduced_passes(cfg.matmul_precision, cfg.complex_dtype))
+    count["cgemm"] += ambient * schedule.hadamard_init
     if isinstance(schedule, BrickSchedule):
         # Per chunk of the plan (padded to its full length with inactive
         # layers, computed all the same), per layer, one update per pair chunk.
@@ -1326,6 +1373,7 @@ def expected_launches(argv, n_batches):
                         count["brick_split"] += 1
                     else:
                         split_launches(cm, 2 * cr, 2 * cl)
+                        count["cgemm"] += 3 * ambient  # theta, the gate, new_a
         log(f"  brick plan per sim batch of {batch}: {len(chunks2)} chunks of {layers} layers, "
             f"{K} pairs a layer; stage chi -> chunks {by_stage}")
         return {k: n * n_batches for k, n in count.items()}
@@ -1528,7 +1576,9 @@ def phase_unfused_route(smi):
     # orthonormalizations take the scanned panel step (no K3 on panels).
     preprocess_elliptic(dataset_dir=str(RAW_V2), out_csv=str(WORK / "datasets" / CSV_V2))
     dense_grams = {}
-    for chi, data, csv in (("256", "v1", CSV_V1), ("256", "tied-spectrum v2", CSV_V2),
+    # The tied-spectrum v2 points keep every bond far below 128 (avg_max_chi
+    # 7.12 in f32, 8.91 in f64 at cap 256), so they run at cap 128.
+    for chi, data, csv in (("256", "v1", CSV_V1), ("128", "tied-spectrum v2", CSV_V2),
                            ("128", "v1", CSV_V1)):
         argv = ARGV_CHI256[:-1] + [csv]
         info = run_info("train", 16, 2, 1.0, 6, 20, 5, csv)
@@ -1561,7 +1611,7 @@ def phase_unfused_route(smi):
         else:
             # Near-duplicate points: entries near 1, whose rounding the unit
             # diagonal does not absorb; reported, not gated.
-            log(f"tied-spectrum answer (not gated): f32-vs-f64 error {err:.3e} at nq 16, chi 256")
+            log(f"tied-spectrum answer (not gated): f32-vs-f64 error {err:.3e} at nq 16, chi {chi}")
     return total
 
 
@@ -1762,34 +1812,45 @@ def _add_all(total, launches):
 
 
 def phase_svd_methods(smi, golden, K_default, x_train):
-    """QMLTPU_SVD=svd and =eigh at the headline shape, one sim batch: the
-    first SVD_POINTS train points through ``cli._pipeline.build`` (the train
-    Gram of ``cli.main_no_test``): cuSOLVER factors every two-site update,
-    K2 carries every center move, K1 never runs. If eigh in f32 misses the
-    golden bar (it squares the condition number), eigh runs again in f64
-    for the bar."""
+    """QMLTPU_SVD=svd and =eigh, one sim batch: the first SVD_POINTS train
+    points through ``cli._pipeline.build`` (the train Gram of
+    ``cli.main_no_test``): cuSOLVER factors every two-site update, K2
+    carries every center move, K1 never runs. eigh at the headline shape,
+    held to the golden and the default route's Gram; svd on one rep of the
+    headline circuit (``ARGV_SVD``), held to the default route's Gram of the
+    same points and rep, run here. If eigh in f32 misses the golden bar (it
+    squares the condition number), eigh runs again in f64 for the bar."""
     from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
     from qml_cutensornet_tpu_torch.utils.device import environ
 
     total = dict.fromkeys(LAUNCH_NAMES, 0)
-    params = pipe.parse_argv(list(ARGV))
-    ansatz = pipe.make_ansatz(params)
     n = SVD_POINTS
+    params_svd = pipe.parse_argv(list(ARGV_SVD))
+    ansatz_svd = pipe.make_ansatz(params_svd)
+    K_default_r1, _ = count_launches(
+        lambda: pipe.build(params_svd, ansatz_svd, X=x_train[:n], info_file="svd_default_r1"),
+        expected_launches(ARGV_SVD, 1), f"default route, r 1, {n} points")
+    refs = {"svd": (ARGV_SVD, K_default_r1, False),
+            "eigh": (ARGV, K_default[:n, :n], True)}
     runs = [("svd", "f32"), ("eigh", "f32")]
     for method, precision in runs:
-        what = f"QMLTPU_SVD={method}, {precision}, {n} points"
+        argv, K_route, with_golden = refs[method]
+        params = pipe.parse_argv(list(argv))
+        ansatz = pipe.make_ansatz(params)
+        what = f"QMLTPU_SVD={method}, {precision}, {n} points, r {params.reps}"
         info = f"svd_method_{method}_{precision}"
         with environ(QMLTPU_SVD=method, QMLTPU_PRECISION=precision):
             K, launches = count_launches(
                 lambda: pipe.build(params, ansatz, X=x_train[:n], info_file=info),
-                expected_launches(ARGV, -(-n // 32)), what)
+                expected_launches(argv, -(-n // 32)), what)
         assert launches["split"] == 0 and launches["orth_r"] > 0, launches
         _add_all(total, launches)
         check_train_gram(K, n, what)
-        gold_err = float(np.abs(K[:8, :8] - golden["k"]).max())
-        route_err = float(np.abs(K - K_default[:n, :n]).max())
-        log(profile_line(info, smi, what) + f", max_abs_err vs f64 golden {gold_err:.3e} "
-            f"(tol {TOL_GOLDEN}), vs the default route's K {route_err:.3e} (tol {TOL_ROUTES})")
+        gold_err = float(np.abs(K[:8, :8] - golden["k"]).max()) if with_golden else 0.0
+        route_err = float(np.abs(K - K_route).max())
+        log(profile_line(info, smi, what) + (f", max_abs_err vs f64 golden {gold_err:.3e} "
+                                             f"(tol {TOL_GOLDEN})" if with_golden else "")
+            + f", vs the default route's K {route_err:.3e} (tol {TOL_ROUTES})")
         if (method, precision) == ("eigh", "f32") and (gold_err > TOL_GOLDEN
                                                        or route_err > TOL_ROUTES):
             # eigh squares the condition number: in f32 its kept subspace is
@@ -2298,6 +2359,7 @@ def phase_residency(smi):
 
     from qml_cutensornet_tpu_torch.cli import main_no_test
     from qml_cutensornet_tpu_torch.models import gram
+    from qml_cutensornet_tpu_torch.ops.mps import MPS
     from qml_cutensornet_tpu_torch.utils.device import environ
     from qml_cutensornet_tpu_torch.utils.naming import run_info
 
@@ -2305,32 +2367,57 @@ def phase_residency(smi):
     info = run_info("train", 100, 2, 1.0, 8, 5, 5, CSV_V1)
     grams, total = {}, dict.fromkeys(LAUNCH_NAMES, 0)
     t_phase = time.perf_counter()
-    for path, knobs in (("device", RESIDENCY_KNOBS),
-                        ("host", dict(RESIDENCY_KNOBS, QMLTPU_STATES_DEVICE_BYTES="0"))):
-        what = f"residency, {path} path"
-        buf = io.StringIO()
+    # The host path replays the device path's simulation (the same points
+    # and config; the simulation is deterministic: its launches are
+    # bit-equal), so that only the states' residency and the tiles differ.
+    replay, real_make = {}, gram.make_chunked_simulator
 
-        def run():
-            with contextlib.redirect_stdout(buf):
-                return main_no_test.main(list(ARGV_D8))
+    def replaying(schedule, cfg, device, **kw):
+        sim = real_make(schedule, cfg, device, **kw)
 
-        with environ(**knobs):
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            K, launches = count_launches(run, expected_launches(ARGV_D8, 1), what)
-            peak = torch.cuda.max_memory_allocated()
-        _add_all(total, launches)
-        found = re.findall(r"States (\w+)-resident: tiles (\S+) s, of them uploads (\S+) s",
-                           buf.getvalue())
-        assert len(found) == 1, f"{what}: {len(found)} residency lines"
-        regime, _, upload = found[0]
-        assert regime == path, f"{what}: the states were {regime}-resident"
-        check_train_gram(K, 8, what)
-        grams[path] = K
-        log(profile_line(info, smi, what) + f", uploads {float(upload):.3f} s, peak memory "
-            f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB held before the run; default "
-            f"limit {gram.STATES_DEVICE_BYTES:.4g} B)")
+        def run_sim(x):  # a host copy, so that the device path's peak is its own
+            key = np.asarray(x).tobytes()
+            if key in replay:
+                return MPS(*(t.to(device) for t in replay[key]))
+            out = sim(x)
+            replay[key] = tuple(t.cpu() for t in (out.tensors, out.fidelity, out.bond_dims))
+            return out
+
+        return run_sim
+
+    gram.make_chunked_simulator = replaying
+    try:
+        for path, knobs in (("device", RESIDENCY_KNOBS),
+                            ("host", dict(RESIDENCY_KNOBS, QMLTPU_STATES_DEVICE_BYTES="0"))):
+            what = f"residency, {path} path"
+            buf = io.StringIO()
+
+            def run():
+                with contextlib.redirect_stdout(buf):
+                    return main_no_test.main(list(ARGV_D8))
+
+            with environ(**knobs):
+                # the host path's simulation is the device path's, replayed
+                want = (expected_launches(ARGV_D8, 1) if path == "device"
+                        else dict.fromkeys(LAUNCH_NAMES, 0))
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                K, launches = count_launches(run, want, what)
+                peak = torch.cuda.max_memory_allocated()
+            _add_all(total, launches)
+            found = re.findall(r"States (\w+)-resident: tiles (\S+) s, of them uploads (\S+) s",
+                               buf.getvalue())
+            assert len(found) == 1, f"{what}: {len(found)} residency lines"
+            regime, _, upload = found[0]
+            assert regime == path, f"{what}: the states were {regime}-resident"
+            check_train_gram(K, 8, what)
+            grams[path] = K
+            log(profile_line(info, smi, what) + f", uploads {float(upload):.3f} s, peak memory "
+                f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB held before the run; default "
+                f"limit {gram.STATES_DEVICE_BYTES:.4g} B)")
+    finally:
+        gram.make_chunked_simulator = real_make
     diff = float(np.abs(grams["host"] - grams["device"]).max())
     log(f"residency [{smi}]: host-path Gram vs device-path Gram max abs diff {diff:.3e} "
         f"(tol {TOL_RESIDENCY}; bit-equal {np.array_equal(grams['host'], grams['device'])}); "
@@ -2377,9 +2464,10 @@ def cgemm_key(B, M, N, K, op, passes):
     return f"B{B}_M{M}_N{N}_K{K}_{op}_P{passes}"
 
 
-def expected_tile_cgemm(argv, n_points):
+def expected_tile_cgemm(argv, n_points, cfg=None):
     """K7 launches of a symmetric train Gram's tiles (``models/gram``) under
-    the current environment: none at a full tile precision; else per tile
+    the current environment (``cfg``: the CLI's config of ``argv`` unless
+    given): none at a full tile precision; else per tile
     of the block triangle two products a scan step (``n / k`` steps, one
     more for a remainder) and, with a site block ``k > 1``, ``k - 1``
     combining products for each side's whole blocks (``rem - 1`` for its
@@ -2389,7 +2477,7 @@ def expected_tile_cgemm(argv, n_points):
     from qml_cutensornet_tpu_torch.ops import lowp
 
     params = pipe.parse_argv(list(argv))
-    cfg = pipe.sim_config(params)
+    cfg = cfg or pipe.sim_config(params)
     if not lowp.reduced_passes(cfg.resolved_tile_precision, cfg.complex_dtype):
         return 0
     n, k = params.num_features, cfg.tile_block
@@ -2539,6 +2627,166 @@ def phase_reduced_precision(dev, smi, golden, K_default, x_train):
     return summary, by_route
 
 
+# Phase 15, the reduced ambient class (``SimConfig.matmul_precision``):
+# every product of the engine on K7 (``ops/lowp.matmul``). (a) K7 at the
+# engine's shapes against its plain version, elementwise within both f32
+# sums' worst case (as phase 14), and the exact product within the class's
+# bound. (b) and (c) Whole runs through kernel K7 and through its plain
+# version on the card: two roundings of one class, which truncation
+# amplifies (the 32-qubit headline truncates at chi 64). Three passes: the
+# routes' bar, 3e-5. One pass: 2^-8, one class unit (on the CPU, two f32
+# summation orders of the plain version took a truncating 12-qubit chi-16
+# Gram 7.4e-4 apart, 0.19 unit). The golden is printed, not gated: one pass
+# keeps 8 bits a product (the reference expects about 1e-2 in deep
+# circuits, its ``config.py``), three passes about 16.
+AMBIENT_PRECISIONS = ("high", "bfloat16")
+TOL_AMBIENT_K7_PLAIN = {3: TOL_ROUTES, 1: 2.0**-8}
+AMBIENT_BRICK_KNOBS = dict(BRICK_KNOBS, QMLTPU_ROUTING="brick", QMLTPU_FUSED_GATE="1")
+
+
+def ambient_operands(rng, dev):
+    """K7's operands at the engine's shapes on the ambient headline route
+    (chi 64, a sim batch of 32; the scanned panel step at chi 256), as the
+    engine views them: ``(name, a, b, op)``."""
+    def c(*shape):
+        x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(x.astype(np.complex64)).to(dev)
+
+    chi, B = 64, 32
+    state = c(B, 32, chi, 2, chi)  # a state batch; a site is a view
+    site, right = state[:, 1], state[:, 2]
+    r = c(B, chi, chi)
+    theta = c(B, 2 * chi, 2 * chi)
+    panel = c(B, 512, 32)
+    return [
+        ("theta build", site.reshape(B, 2 * chi, chi), right.reshape(B, chi, 2 * chi), "n"),
+        ("gate, K = 4", c(B, 4, 4)[:, None], theta.reshape(B, chi, 4, chi), "n"),
+        ("move right, r b", r, right.reshape(B, chi, 2 * chi), "n"),
+        ("move left, a r^H", site.reshape(B, 2 * chi, chi), r.mH, "n"),
+        ("split r = q^H theta", c(B, 2 * chi, chi), theta, "h"),
+        ("power theta^H v0, batch stride 0", theta, c(2 * chi, chi).expand(B, 2 * chi, chi),
+         "h"),
+        ("vdot t^H (m t)", site.reshape(B, 2 * chi, chi), c(B, 2 * chi, chi), "h"),
+        ("single column q^H x", panel[:, :, :31], panel[:, :, 31:], "h"),
+        ("Hadamard, batch stride 0", c(2, 2), state, "n"),
+    ]
+
+
+def _unique_elements(x):
+    """Elements ``x`` really holds: its broadcast (stride 0) axes count once."""
+    return int(np.prod([d for d, st in zip(x.shape, x.stride()) if st != 0 or d == 1]))
+
+
+def phase_ambient_precision(dev, smi, golden, K_default, x_train):
+    """The reduced ambient class: (a) K7 at the engine's shapes through
+    ``lowp.matmul`` against its plain version and the exact product, two
+    launches bit-equal, timed beside ``torch.matmul`` in f32 and its bound;
+    (b) the golden's 8 points (one sim batch, the headline's CLI config)
+    through ``models/gram.build_kernel_matrix`` with ``matmul_precision``
+    "high", then "bfloat16": K1, K4 and K5 never, K2 on every center move,
+    K3 and K7 as the op stream and the tiles say; golden, ``K - K^T`` and
+    the default route's Gram printed; the same run with K7's plain version,
+    within ``TOL_AMBIENT_K7_PLAIN``; (c) the brick route at 14 qubits, chi
+    128 (one sim batch of 32) at "high" likewise, K5 and K1 never. Returns
+    (K7's times by shape, launches by route)."""
+    from qml_cutensornet_tpu_torch.cli import _pipeline as pipe
+    from qml_cutensornet_tpu_torch.models import gram
+    from qml_cutensornet_tpu_torch.ops import _build, lowp
+    from qml_cutensornet_tpu_torch.utils.device import environ
+
+    t_phase = time.perf_counter()
+    # (a) the products at the engine's shapes
+    by_shape = {}
+    for name, a, b, op in ambient_operands(np.random.default_rng(20261019), dev):
+        a64 = (a.mH if op == "h" else a).to(torch.complex128)
+        b64 = b.to(torch.complex128)
+        exact, scale = a64 @ b64, a64.abs() @ b64.abs()
+        batch = int(np.prod(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])))
+        M, N, K = exact.shape[-2], exact.shape[-1], b.shape[-2]
+        for precision in AMBIENT_PRECISIONS:
+            P = lowp.passes(precision)
+            before = _build.LAUNCHES["cgemm"]
+            got, again = lowp.matmul(a, b, precision, op), lowp.matmul(a, b, precision, op)
+            assert _build.LAUNCHES["cgemm"] == before + 2, f"{name}: one K7 launch a product"
+            real_cgemm, lowp.cgemm = lowp.cgemm, lowp.cgemm_plain
+            try:
+                plain = lowp.matmul(a, b, precision, op)
+                plain_ms = time_ms(lambda: lowp.matmul(a, b, precision, op), 3)
+            finally:
+                lowp.cgemm = real_cgemm
+            torch.cuda.synchronize()
+            what = f"K7 {name} [{batch},{M},{N},{K}] op {op}, {precision}"
+            assert torch.equal(got, again), f"{what}: two launches differ"
+            rel_plain = ((got - plain).abs() / scale).max().item()
+            rel_exact = ((got - exact).abs() / scale).max().item()
+            assert rel_plain <= 2 * (2 * K * P + 2) * 2.0**-24, f"{what}: off its plain version"
+            assert rel_exact <= lowp.rel_bound(P, K), f"{what}: outside its class's bound"
+            kern = lambda: lowp.matmul(a, b, precision, op)
+            full = lambda: lowp.matmul(a, b, "highest", op)
+            k1, lib, k2 = time_ms(kern, 20), time_ms(full, 20), time_ms(kern, 20)
+            nbytes = 8 * (_unique_elements(a) + _unique_elements(b) + batch * M * N)
+            t_ops = 8.0 * batch * M * N * K * P / BF16_PEAK * 1e3
+            bound_ms = max(t_ops, nbytes / HBM_RATE * 1e3)
+            bound_by = "operations" if t_ops >= nbytes / HBM_RATE * 1e3 else "bytes"
+            by_shape[f"{name}_{precision}"] = {
+                "ms": (k1 + k2) / 2, "plain_ms": plain_ms, "library_ms": lib,
+                "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": (got - plain)
+                .abs().max().item()}
+            log(f"  {what} [{smi}]: vs plain {rel_plain:.3e} of |op(a)||b| (tol "
+                f"{2 * (2 * K * P + 2) * 2.0**-24:.3e}), vs exact {rel_exact:.3e} (class bound "
+                f"{lowp.rel_bound(P, K):.3e}); lowp.matmul (K7 and its layout copies) "
+                f"{k1:.4f} / {k2:.4f} ms, torch.matmul f32 {lib:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+    # (b) the golden's 8 points, (c) the brick route at 14 qubits
+    runs = [(f"ambient_{p}", f"ambient {p}, the golden's 8 points", p, ARGV, {}, x_train[:8])
+            for p in AMBIENT_PRECISIONS]
+    with environ(**AMBIENT_BRICK_KNOBS):
+        x_brick = pipe.prepare(pipe.parse_argv(list(ARGV_BRICK14)))[0]
+    runs.append(("ambient_brick14_high", "ambient high, brick route, 14 qubits, chi 128",
+                 "high", ARGV_BRICK14, AMBIENT_BRICK_KNOBS, x_brick))
+    by_route = {}
+    for key, what, precision, argv, knobs, x in runs:
+        P = lowp.passes(precision)
+        info = key
+        with environ(**knobs):
+            params = pipe.parse_argv(list(argv))
+            cfg = dataclasses.replace(pipe.sim_config(params), matmul_precision=precision)
+            ansatz = pipe.make_ansatz(params)
+            want = expected_launches(argv, 1, cfg)
+            want["cgemm"] += expected_tile_cgemm(argv, len(x), cfg)
+
+            def run():
+                return gram.build_kernel_matrix(ansatz, x, cfg=cfg, sim_batch=len(x),
+                                                info_file=info, device="cuda")
+
+            K, launches = count_launches(run, want, what)
+            real_cgemm, lowp.cgemm = lowp.cgemm, lowp.cgemm_plain
+            try:
+                K_plain = run()
+            finally:
+                lowp.cgemm = real_cgemm
+        assert launches["split"] == launches["gate_split"] == launches["brick_split"] == 0, (
+            what, launches)
+        assert launches["orth"] > 0 and launches["cgemm"] > 0, (what, launches)
+        check_train_gram(K, len(x), what, None)
+        plain_err = float(np.abs(K - K_plain).max())
+        line = (profile_line(info, smi, what) + f", K7 launches {launches['cgemm']}, K2 "
+                f"{launches['orth_r']}, K3 {launches['orth']}; K7 vs its plain version on the "
+                f"card {plain_err:.3e} (tol {TOL_AMBIENT_K7_PLAIN[P]:.3e}); K - K^T "
+                f"{np.abs(K - K.T).max():.3e}")
+        if argv is ARGV:
+            line += (f"; golden 8x8 max_abs_err {np.abs(K - golden['k']).max():.3e} (printed);"
+                     f" vs the default route's Gram {np.abs(K - K_default[:8, :8]).max():.3e}")
+        log(line)
+        assert plain_err <= TOL_AMBIENT_K7_PLAIN[P], f"{what}: K7 off its plain version"
+        GRAMS[what] = K
+        by_route[key] = launches
+    _build.reset_counters()
+    log(f"ambient precision phase {time.perf_counter() - t_phase:.1f} s")
+    return by_shape, by_route
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -2599,8 +2847,11 @@ def main() -> int:
     by_path["residency"] = phase_residency(smi)
     log(f"residency done at {time.perf_counter() - t_start:.1f} s")
     k7, lowp_paths = phase_reduced_precision(dev, smi, golden, K_default, x_train)
-    by_path.update(lowp_paths)
     log(f"reduced precision done at {time.perf_counter() - t_start:.1f} s")
+    ambient_ms, ambient_paths = phase_ambient_precision(dev, smi, golden, K_default, x_train)
+    lowp_paths.update(ambient_paths)
+    by_path.update(lowp_paths)
+    log(f"ambient precision done at {time.perf_counter() - t_start:.1f} s")
     log(f"dense verdict (max_abs_err vs the dense statevector Gram): {json.dumps(DENSE_VERDICT)}")
 
     bounds = kernel_bounds(32, 64, 2)
@@ -2637,7 +2888,7 @@ def main() -> int:
         "launches_by_path": {path: p[name] for path, p in lowp_paths.items()},
         "max_abs_err": k7["max_abs_err"], "ms": k7["ms"], "plain_ms": k7["plain_ms"],
         "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"], "library_ms": k7["library_ms"],
-        "ms_by_shape": k7["ms_by_shape"]})
+        "ms_by_shape": k7["ms_by_shape"], "ms_by_engine_shape": ambient_ms})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

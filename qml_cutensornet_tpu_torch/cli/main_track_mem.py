@@ -6,7 +6,10 @@ as ``[DEBUG] MPS size (MiB) = <x>``: the line ``runs/mem_evol/plot.py``
 parses (the value after the '='). Then prints ``Final fidelity:`` and ``Max
 bond dimension:``. The byte count is read back after every op, one device
 sync per op: this is a diagnostic tool. ``QMLTPU_DEVICE`` picks the device
-(default cuda).
+(default cuda). Each op runs at the configuration's ambient class
+(``cfg.matmul_precision``), as the reference runs its op step under
+``jax.default_matmul_precision``; the Hadamard layer, which the reference
+applies outside that context, runs at full precision.
 
     python -m qml_cutensornet_tpu_torch.cli.main_track_mem GPU 100 2 1.0 6 \\
         5 5 5 elliptic_preproc.csv 0

@@ -11,16 +11,27 @@ TPU does (``ops/lowp.py``): full f32 ("highest", "float32"), three bf16
 passes ("high", "bfloat16_3x", "tensorfloat32": each f32 split into a bf16
 high and low part, ``hi*hi + hi*lo + lo*hi`` accumulated in f32) and one
 bf16 pass ("bfloat16", "default"); never TF32, which stays off
-(``utils/device.py``). ``power_precision`` covers the subspace power
-products (``ops/svd._split_subspace``) and ``tile_precision`` the Gram
-tiles' products and the state norms (``models/simulate``,
-:attr:`SimConfig.resolved_tile_precision`); at a reduced class both run on
-kernel K7, a bf16 tensor-core complex product, and "inherit" takes the
-ambient ``matmul_precision``. Under complex128 (``precision="f64"``) every
-class computes in full f64, as XLA computes f64 dots whatever their
-precision. A reduced ambient ``matmul_precision`` (other than "highest" /
-"float32") raises ``NotImplementedError``: it governs every other product
-of the engine and is the next slice of the port (``ROADMAP.md``).
+(``utils/device.py``). ``matmul_precision`` is the ambient class: the
+reference runs every simulator under
+``jax.default_matmul_precision(matmul_precision)``, and the port passes it
+to every product of the engine that is an XLA dot there (the gates, theta,
+the center moves' products, the unfused split's right factor and the
+blocked orthonormalizer's projections, the svd and eigh glue, the brick
+update, the transfer-matrix contractions; ``ops/lowp.matmul``).
+``power_precision`` covers the subspace power products
+(``ops/svd._split_subspace``) and ``tile_precision`` the Gram tiles'
+products and the state norms (``models/simulate``,
+:attr:`SimConfig.resolved_tile_precision`); "inherit" takes the ambient
+class. A reduced class runs on kernel K7, a bf16 tensor-core complex
+product; the factorizations (``torch.linalg`` svd, eigh) and the kernels
+K2 and K3 stay at full precision, as the reference's are not dots or pin
+their dots at HIGHEST, and a configuration with a reduced ambient or power
+class stays off K1, K4 and K5, as in the reference. Under complex128
+(``precision="f64"``) every class computes in full f64, as XLA computes f64
+dots whatever their precision. The CLIs take no ambient class (the
+reference's read none either): set it through :class:`SimConfig`, e.g.
+``build_kernel_matrix(ansatz, X, cfg=SimConfig(..., matmul_precision=
+"high"))``.
 
 ``mgs_pair`` (the block-2 in-panel step of kernels K1 to K5) and
 ``brick_struct_caps`` (the brick engine's structural bond caps) run, off by
@@ -33,9 +44,10 @@ the subspace split through kernel K1 and the center move through K2 (off:
 kernel K3 and matrix products, the reference's unfused chain), and
 ``fused_gate`` on top of it routes the subspace two-site update through K4.
 As in the reference the dataclass default of both is off and the CLI turns
-``fused_split`` on; a ``power_precision`` other than "inherit" keeps a
-configuration off K1, K4 and K5, as in the reference. ``fused_interpret`` (Pallas
-interpret mode) has no counterpart and is dropped;
+``fused_split`` on; a reduced ``matmul_precision`` or a
+``power_precision`` other than "inherit" keeps a configuration off K1, K4
+and K5 (the reference's ``ops/svd.py:199-207``, ``:313``, ``:386``), while
+K2 and K3 stay on. ``fused_interpret`` (Pallas interpret mode) has no counterpart and is dropped;
 :meth:`SimConfig.from_reference` discards it.
 """
 
@@ -49,8 +61,6 @@ _REAL_DTYPES = {"f32": torch.float32, "f64": torch.float64}
 _COMPLEX_DTYPES = {"f32": torch.complex64, "f64": torch.complex128}
 _PRECISIONS = ("highest", "float32", "high", "bfloat16_3x", "tensorfloat32",
                "bfloat16", "default")
-# The ambient matmul precisions the port runs: full f32 accumulation.
-_FULL_PRECISION = ("highest", "float32")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,11 +105,6 @@ class SimConfig:
             raise ValueError("oversample must be >= 0")
         if not 1 <= self.tile_block <= 8:
             raise ValueError("tile_block must be in 1..8")
-        if self.matmul_precision not in _FULL_PRECISION:
-            raise NotImplementedError(
-                f"matmul_precision={self.matmul_precision!r} is not ported yet: the "
-                "reduced ambient precision is the next slice of the port (ROADMAP.md); "
-                "power_precision and tile_precision take every class")
 
     @property
     def real_dtype(self) -> torch.dtype:

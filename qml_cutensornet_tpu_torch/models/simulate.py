@@ -27,6 +27,13 @@ the reference's tuple format (H/Rx/Rz/XXPhase/ZZPhase/SWAP on adjacent
 sites, ``KernelStateAnsatz.circuit_for_data``), lowers it with the ansatz
 compiler's center tracking (:func:`lower_gate_list`) and runs it op by op
 through :func:`apply_schedule_op` at the configuration's bond cap.
+
+Every engine runs its products at the ambient class ``cfg.matmul_precision``
+(the reference wraps each simulator's init, Rz and chunk steps in
+``jax.default_matmul_precision``): the Hadamard layer, each op's products
+(``ops/mps``, ``ops/vidal``, ``ops/svd``), through ``ops/lowp.matmul``.
+The tiles and norms run theirs at the precision their callers pass, the
+resolved tile precision.
 """
 
 from __future__ import annotations
@@ -74,7 +81,7 @@ def apply_schedule_op(state: MPS, site: int, gkind: int, direction: int,
         w_h = 1.0 - w_rx - w_rz
         mat = (w_rx * gates.rx(theta) + w_rz * gates.rz(theta)
                + w_h * gates.hadamard(rdt, theta.device))
-        return mps_ops.apply_1q(state, site, mat)
+        return mps_ops.apply_1q(state, site, mat, cfg.matmul_precision)
     xx = gates.xxphase(theta)
     sw = gates.swap(rdt, theta.device)
     zz = gates.zzphase(theta)
@@ -200,7 +207,8 @@ def make_chunked_simulator(schedule: GateSchedule | BrickSchedule, cfg: SimConfi
         cur_chi = next((st[0] for st in chunk_chis if st), final_chi)
         state = mps_ops.zero_state(batch, n, cfg_for(cur_chi), device)
         if schedule.hadamard_init:
-            state = mps_ops.apply_1q_all(state, gates.hadamard(rdt, device))
+            state = mps_ops.apply_1q_all(state, gates.hadamard(rdt, device),
+                                         cfg.matmul_precision)
         for (pos_to_feature, sites, gk, dirs, fa, fb, n_chunks), stages in zip(
             segs, chunk_chis
         ):
@@ -392,7 +400,8 @@ def make_brick_simulator(schedule: BrickSchedule, cfg: SimConfig, device: torch.
         def init(x):
             state = vidal.zero_state(x.shape[0], n_p, cfg_s, device)
             if schedule.hadamard_init:
-                state = vidal.apply_1q_real_sites(state, gates.hadamard(rdt, device), n)
+                state = vidal.apply_1q_real_sites(state, gates.hadamard(rdt, device), n,
+                                                  cfg.matmul_precision)
             return state
 
         def rz(state, xs):
@@ -507,22 +516,16 @@ def simulate_gate_list(gate_list, num_qubits: int, cfg: SimConfig,
 
 def state_norms_sq(a: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     """``<psi_b|psi_b>`` for ``a [B, n, chi, 2, chi]`` -> real ``[B]``, its
-    products at ``precision`` (kernel K7 at a reduced class in complex64,
-    ``ops/lowp.py``; full precision otherwise, as before)."""
+    products at ``precision`` (``ops/lowp.matmul``: kernel K7 at a reduced
+    class in complex64)."""
     B, n, chi = a.shape[0], a.shape[1], a.shape[2]
-    n_passes = lowp.reduced_passes(precision, a.dtype)
     m = torch.zeros((B, chi, chi), dtype=a.dtype, device=a.device)
     m[:, 0, 0] = 1.0
     for i in range(n):
         t = a[:, i]
-        if n_passes:
-            # tm[z, a, (s d)] = m[z] t[z, a, (s d)]; m'[z] = t[z, (a s), :]^H tm[z, (a s), :]
-            tm = lowp.cgemm(m, t.reshape(B, chi, 2 * chi), n_passes)
-            m = lowp.cgemm(t.reshape(B, 2 * chi, chi), tm.reshape(B, 2 * chi, chi), n_passes,
-                           "h")
-            continue
-        tm = torch.einsum("zab,zbsd->zasd", m, t)
-        m = torch.einsum("zasc,zasd->zcd", t.conj(), tm)
+        # tm[z, a, (s d)] = m[z] t[z, a, (s d)]; m'[z] = t[z, (a s), :]^H tm[z, (a s), :]
+        tm = lowp.matmul(m, t.reshape(B, chi, 2 * chi), precision)
+        m = lowp.matmul(t.reshape(B, 2 * chi, chi), tm.reshape(B, 2 * chi, chi), precision, "h")
     return m[:, 0, 0].real
 
 
@@ -533,17 +536,13 @@ def _combine_sites(a: torch.Tensor, k: int, precision: str = "highest"):
     :func:`state_norms_sq`)."""
     b, n, chi = a.shape[0], a.shape[1], a.shape[2]
     g, rem = n // k, n % k
-    n_passes = lowp.reduced_passes(precision, a.dtype)
 
     def combine(u, t):
-        if n_passes:
-            # [(..., x p), y] @ [y, (t z)] as one batch of the leading dims
-            p = u.shape[-2]
-            lead = u.shape[:-3]
-            out = lowp.cgemm(u.reshape(-1, chi * p, chi), t.reshape(-1, chi, 2 * chi), n_passes)
-            return out.reshape(*lead, chi, p * 2, chi)
-        out = torch.einsum("...xpy,...ytz->...xptz", u, t)
-        return out.reshape(*out.shape[:-4], chi, out.shape[-3] * 2, chi)
+        # [..., (x p), y] @ [..., y, (t z)]
+        p, lead = u.shape[-2], u.shape[:-3]
+        out = lowp.matmul(u.reshape(*lead, chi * p, chi), t.reshape(*lead, chi, 2 * chi),
+                          precision)
+        return out.reshape(*lead, chi, p * 2, chi)
 
     main = None
     if g:
@@ -567,16 +566,14 @@ def tile_step(m: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor, p: int,
     chi]`` (``p`` physical values): two batched complex matmuls, at
     ``precision`` (as :func:`state_norms_sq`)."""
     By, Bx, chi = m.shape[0], m.shape[1], m.shape[2]
-    n_passes = lowp.reduced_passes(precision, m.dtype)
     # T[x, (y a), (s d)] = sum_b M[x, (y a), b] Tx[x, b, (s d)]
     mx = m.transpose(0, 1).reshape(Bx, By * chi, chi)
-    txm = tx.reshape(Bx, chi, p * chi)
-    t1 = lowp.cgemm(mx, txm, n_passes) if n_passes else mx @ txm
+    t1 = lowp.matmul(mx, tx.reshape(Bx, chi, p * chi), precision)
     # regroup [x, (y a), (s d)] -> [y, (a s), (x d)]
     t2 = (t1.reshape(Bx, By, chi, p, chi).permute(1, 2, 3, 0, 4)
           .reshape(By, chi * p, Bx * chi))
     tym = ty.reshape(By, chi * p, chi)
-    m2 = lowp.cgemm(tym, t2, n_passes, "h") if n_passes else tym.mH @ t2  # [By, chi, Bx*chi]
+    m2 = lowp.matmul(tym, t2, precision, "h")  # [By, chi, Bx*chi]
     return m2.reshape(By, chi, Bx, chi).transpose(1, 2)
 
 

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from qml_cutensornet_tpu_torch.ops import lowp
+
 _COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
 _SWAP = ((1.0, 0.0, 0.0, 0.0),
@@ -83,6 +85,10 @@ def swap(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(_SWAP, dtype=_COMPLEX_OF[dtype], device=device)
 
 
-def xxphase_swap(theta: torch.Tensor) -> torch.Tensor:
-    """XXPhase(theta) @ SWAP on one adjacent pair (= SWAP @ XXPhase)."""
-    return xxphase(theta) @ swap(theta.dtype, theta.device)
+def xxphase_swap(theta: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """XXPhase(theta) @ SWAP on one adjacent pair (= SWAP @ XXPhase), the
+    product at ``precision`` (a dot in the reference, so at a reduced class
+    it rounds as the reference's does; ``ops/lowp.matmul``). The engines
+    build the fused gate by exchanging columns 1 and 2 of XXPhase instead,
+    exactly, as the reference's do."""
+    return lowp.matmul(xxphase(theta), swap(theta.dtype, theta.device), precision)

@@ -1,6 +1,7 @@
-"""Reduced-precision complex products: kernel K7 and its plain PyTorch
-version, for the reference's ``SimConfig.power_precision`` and
-``SimConfig.tile_precision``.
+"""Reduced-precision complex products: kernel K7, its plain PyTorch version,
+and :func:`matmul`, the one entry point of every product of the engine, at
+the reference's ``SimConfig.matmul_precision`` (the ambient class),
+``power_precision`` and ``tile_precision``.
 
 The reference names a precision by one of JAX's seven strings and its TPU
 folds them into three classes (``jax.lax.Precision``), which the port
@@ -27,10 +28,36 @@ does and forms the same products as f32 matrix products of the bf16 values
 f32 in the reference's 4M form (``ops/cpx.py:87-106``): four real products
 for each complex product. It and the kernel differ only in the order of
 their f32 sums.
+
+:func:`matmul` ``(a, b, precision, op)`` is ``op(a) @ b`` with
+``torch.matmul``'s broadcasting of the leading dimensions. At a full class
+(and in complex128) it is ``torch.matmul`` itself; at a reduced class it is
+one :func:`cgemm` over the broadcast batch. The reference runs its
+simulators under ``jax.default_matmul_precision(cfg.matmul_precision)``, so
+that every XLA dot without a precision of its own falls to the class; the
+port's engine passes the class to each product that is such a dot in the
+reference, and to no other (the kernels K1 to K5 and their plain versions
+stay at full precision, as the reference pins its Pallas dots at HIGHEST).
+Einsums map onto K7's ``[batch, rows, cols]`` layouts as views where they
+can; where they cannot, :func:`matmul` copies in plain torch:
+
+- an operand whose matrices are not row-major with unit column stride (the
+  conjugate transpose of a second operand, ``r^H`` of a center move and
+  ``V^H`` of the brick update, or ``theta^H`` of the eigh route's Gram) is
+  made contiguous;
+- an operand broadcast over part of the batch (a gate ``[B, 4, 4]`` over
+  the bond index of theta ``[B, chi, 4, chi]``) is expanded into a copy of
+  the small operand; one broadcast over the whole batch is passed with a
+  batch stride 0, no copy;
+- leading dimensions that do not flatten to one stride (a slice of sites)
+  are copied by ``reshape``.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from qml_cutensornet_tpu_torch.ops import _build
@@ -167,3 +194,39 @@ def cgemm(a: torch.Tensor, b: torch.Tensor, n_passes: int, op: str = "n") -> tor
     if a.device.type == "cpu" and b.device.type == "cpu":
         return cgemm_plain(a, b, n_passes, op)
     return cgemm_cuda(a, b, n_passes, op)
+
+
+def _batched(x: torch.Tensor, batch: tuple[int, ...]) -> torch.Tensor:
+    """``x [..., r, c]`` as ``[prod(batch), r, c]`` in a layout K7 takes:
+    its matrices made row-major first if they are not, then a batch stride 0
+    where ``x`` has one matrix, else its leading dimensions broadcast to
+    ``batch`` and flattened (a view where the strides allow, a copy
+    otherwise)."""
+    r, c = x.shape[-2], x.shape[-1]
+    if c > 1 and x.stride(-1) != 1:
+        x = x.contiguous()
+    n = math.prod(batch)
+    if math.prod(x.shape[:-2]) == 1:
+        return x.reshape(1, r, c).expand(n, r, c)
+    return x.expand(*batch, r, c).reshape(n, r, c)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, precision: str, op: str = "n") -> torch.Tensor:
+    """``op(a) @ b`` at ``precision`` (one of the reference's seven strings):
+    ``op`` "n" takes ``a [..., M, K]`` as it is, "h" its conjugate
+    transpose (``a [..., K, M]``); ``b [..., K, N]``; the leading dimensions
+    broadcast as ``torch.matmul``'s do. At a full class, and in complex128
+    at every class, ``torch.matmul`` (full f32, TF32 off); at a reduced one,
+    :func:`cgemm` (kernel K7 on CUDA tensors, its plain version on CPU
+    tensors) over the broadcast batch, in the layouts of the module
+    docstring."""
+    if op not in OPS:
+        raise ValueError(f"matmul: op must be one of {OPS}, got {op!r}")
+    n_passes = reduced_passes(precision, a.dtype)
+    if not n_passes:
+        return (a.mH if op == "h" else a) @ b
+    # numpy's broadcast rule (torch's): torch.broadcast_shapes costs the host
+    # far more, and the op stream pays it for every product
+    batch = np.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    c = cgemm(_batched(a, batch), _batched(b, batch), n_passes, op)
+    return c.reshape(*batch, c.shape[1], c.shape[2])

@@ -12,6 +12,13 @@ state of a batch, so sites and directions are Python ints.
 The update functions write the changed site tensors into ``tensors`` and
 ``bond_dims`` IN PLACE (one full-state copy per op saved) and return an
 ``MPS`` sharing those tensors.
+
+Every product here that is an XLA dot in the reference runs at the ambient
+class, ``precision`` (``cfg.matmul_precision`` where a function takes the
+config) through ``ops/lowp.matmul``: kernel K7 at a reduced class in
+complex64, ``torch.matmul`` otherwise. The center move's ``q`` and ``r``
+come from kernel K2 (or K3 and a product at the class, ``ops/orth.qr``),
+the split from ``ops/svd``.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch
 
 from qml_cutensornet_tpu_torch.config import SimConfig
 from qml_cutensornet_tpu_torch.models.ansatz import DIR_L
-from qml_cutensornet_tpu_torch.ops import orth
+from qml_cutensornet_tpu_torch.ops import lowp, orth
 from qml_cutensornet_tpu_torch.ops.svd import (
     gate_split_eligible,
     truncated_svd,
@@ -51,9 +58,10 @@ def zero_state(batch: int, n: int, cfg: SimConfig, device: torch.device) -> MPS:
     )
 
 
-def apply_1q_all(mps: MPS, u2: torch.Tensor) -> MPS:
-    """The same 1-qubit gate ``u2 [2, 2]`` on every site of every state."""
-    t = torch.einsum("st,znatb->znasb", u2, mps.tensors)
+def apply_1q_all(mps: MPS, u2: torch.Tensor, precision: str = "highest") -> MPS:
+    """The same 1-qubit gate ``u2 [2, 2]`` on every site of every state, at
+    ``precision``."""
+    t = lowp.matmul(u2, mps.tensors, precision)
     return dataclasses.replace(mps, tensors=t)
 
 
@@ -62,9 +70,9 @@ def apply_diag_all(mps: MPS, phases: torch.Tensor) -> MPS:
     return dataclasses.replace(mps, tensors=mps.tensors * phases[:, :, None, :, None])
 
 
-def apply_1q(mps: MPS, site: int, u2: torch.Tensor) -> MPS:
-    """1-qubit gates ``u2 [B, 2, 2]`` at ``site``."""
-    mps.tensors[:, site] = torch.einsum("zst,zatb->zasb", u2, mps.tensors[:, site])
+def apply_1q(mps: MPS, site: int, u2: torch.Tensor, precision: str = "highest") -> MPS:
+    """1-qubit gates ``u2 [B, 2, 2]`` at ``site``, at ``precision``."""
+    mps.tensors[:, site] = lowp.matmul(u2[:, None], mps.tensors[:, site], precision)
     return mps
 
 
@@ -95,10 +103,10 @@ def apply_2site(mps: MPS, site: int, u4: torch.Tensor, cfg: SimConfig,
             new_a = left.reshape(B, 2, chi, chi).transpose(1, 2)
             new_b = right.reshape(B, chi, 2, chi)
         return _write_pair(mps, site, new_a, new_b, kept_fraction, rank)
-    theta = torch.einsum("zasb,zbtc->zastc", a, b)
-    g = u4.reshape(B, 2, 2, 2, 2)
-    theta = torch.einsum("zstuv,zauvc->zastc", g, theta)
-    m = theta.reshape(B, 2 * chi, 2 * chi)
+    p = cfg.matmul_precision
+    theta = lowp.matmul(a.reshape(B, 2 * chi, chi), b.reshape(B, chi, 2 * chi), p)
+    # the gate on the physical pair (s t) of theta [B, a, (s t), c]
+    m = lowp.matmul(u4[:, None], theta.reshape(B, chi, 4, chi), p).reshape(B, 2 * chi, 2 * chi)
     if is_left:
         m = m.transpose(1, 2).contiguous()
     fl, fr, kept_fraction, rank = truncated_svd(m, cfg, keep=chi)
@@ -122,7 +130,7 @@ def move_center(mps: MPS, site: int, direction: int, cfg: SimConfig) -> MPS:
     ``orth.qr``: the fused Q+R (kernel K2) with ``cfg.fused_split`` up to chi
     128, else kernel K3 (the blocked route above chi 128, ``ops/blocked_qr``)
     and a matrix product for r; ``cfg.mgs_pair`` selects their block-2
-    in-panel step.
+    in-panel step. The products outside K2 run at ``cfg.matmul_precision``.
     Exact: no truncation. DIR_R (0)
     leaves the center at ``site+1``, DIR_L (1) at ``site``; a move toward
     where the center already sits is an exact no-op (chunk padding)."""
@@ -130,35 +138,39 @@ def move_center(mps: MPS, site: int, direction: int, cfg: SimConfig) -> MPS:
     B = mps.tensors.shape[0]
     a = mps.tensors[:, site]
     b = mps.tensors[:, site + 1]
+    p = cfg.matmul_precision
     if direction == DIR_L:
         th = b.reshape(B, chi, 2 * chi).mH.contiguous()  # t^H [2chi, chi]
-        q, r = orth.qr(th, fused=cfg.fused_split, pair=cfg.mgs_pair)  # t^H = q r
+        q, r = orth.qr(th, fused=cfg.fused_split, pair=cfg.mgs_pair, precision=p)  # t^H = q r
         new_b = q.mH.reshape(B, chi, 2, chi)  # row-orthonormal
-        new_a = torch.einsum("zasb,zbj->zasj", a, r.mH)
+        new_a = lowp.matmul(a.reshape(B, 2 * chi, chi), r.mH, p).reshape(B, chi, 2, chi)
     else:
         q, r = orth.qr(a.reshape(B, 2 * chi, chi).contiguous(), fused=cfg.fused_split,
-                       pair=cfg.mgs_pair)
+                       pair=cfg.mgs_pair, precision=p)
         new_a = q.reshape(B, chi, 2, chi)
-        new_b = torch.einsum("zij,zjsc->zisc", r, b)
+        new_b = lowp.matmul(r, b.reshape(B, chi, 2 * chi), p).reshape(B, chi, 2, chi)
     mps.tensors[:, site] = new_a
     mps.tensors[:, site + 1] = new_b
     return mps
 
 
-def vdot(a: MPS, b: MPS) -> torch.Tensor:
-    """<a_z|b_z> per batch element by transfer-matrix contraction: ``[B]``."""
+def vdot(a: MPS, b: MPS, precision: str = "highest") -> torch.Tensor:
+    """<a_z|b_z> per batch element by transfer-matrix contraction, its
+    products at ``precision``: ``[B]``."""
     ta, tb = a.tensors, b.tensors
     B, n, chi = ta.shape[0], ta.shape[1], ta.shape[2]
     m = torch.zeros((B, chi, chi), dtype=ta.dtype, device=ta.device)
     m[:, 0, 0] = 1.0
     for i in range(n):
-        t = torch.einsum("zab,zbsd->zasd", m, tb[:, i])
-        m = torch.einsum("zasc,zasd->zcd", ta[:, i].conj(), t)
+        # t[z, a, (s d)] = m[z] tb[z, a, (s d)]; m'[z] = ta[z, (a s), :]^H t[z, (a s), :]
+        t = lowp.matmul(m, tb[:, i].reshape(B, chi, 2 * chi), precision)
+        m = lowp.matmul(ta[:, i].reshape(B, 2 * chi, chi), t.reshape(B, 2 * chi, chi),
+                        precision, "h")
     return m[:, 0, 0]
 
 
-def norm_sq(a: MPS) -> torch.Tensor:
-    return vdot(a, a).real
+def norm_sq(a: MPS, precision: str = "highest") -> torch.Tensor:
+    return vdot(a, a, precision).real
 
 
 def max_bond(mps: MPS) -> torch.Tensor:

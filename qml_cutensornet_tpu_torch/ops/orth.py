@@ -48,7 +48,7 @@ import dataclasses
 
 import torch
 
-from qml_cutensornet_tpu_torch.ops import _block, _build
+from qml_cutensornet_tpu_torch.ops import _block, _build, lowp
 from qml_cutensornet_tpu_torch.utils import device as _device  # noqa: F401  (full-f32 matmuls)
 
 PANEL = 16
@@ -144,30 +144,48 @@ def orth(v: torch.Tensor, pair: bool = False) -> torch.Tensor:
     return orth_cuda(v, pair)
 
 
-def qr_orth(v: torch.Tensor, fused: bool, pair: bool = False) -> torch.Tensor:
+def qr_orth(v: torch.Tensor, fused: bool, pair: bool = False,
+            precision: str = "highest") -> torch.Tensor:
     """Orthonormal basis of the columns of ``v [B, m, k]`` at any k: K3 up
     to 128 columns, the blocked route above, whose panels go through K3 with
     ``fused`` in complex64 and through the scanned MGS2 step otherwise
     (``ops/blocked_qr.py``; the reference's ``cpx.qr_orth(v, fused, pair)``;
-    ``pair`` reaches K3 only, as in the reference)."""
+    ``pair`` reaches K3 only, as in the reference). K3 runs at full
+    precision; the blocked route's products, which are XLA dots in the
+    reference, at ``precision``."""
     if v.shape[-1] <= MAX_K:
         return orth(v.contiguous(), pair)
     from qml_cutensornet_tpu_torch.ops import blocked_qr
 
-    return blocked_qr.qr_orth_blocked(v, kernel_panels=fused, pair=pair)
+    return blocked_qr.qr_orth_blocked(v, kernel_panels=fused, pair=pair, precision=precision)
 
 
-def qr(v: torch.Tensor, fused: bool, pair: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def reference_r_is_dot(m: int, k: int) -> bool:
+    """Whether the reference forms ``r = q^H v`` of an unfused QR of an
+    ``[m, k]`` f32 input by an XLA dot (``ops/cpx.py:245``, :253): where its
+    Pallas basis kernel takes the shape (``pallas_qr.pallas_qr_supported``:
+    k a multiple of 16 up to 128, m a multiple of 8 from 32) and on the
+    blocked route above 128 columns. Elsewhere (the chi-8 stage) it factors
+    by Householder QR, whose r is no dot."""
+    return k > MAX_K or (k % PANEL == 0 and m % 8 == 0 and m >= 32)
+
+
+def qr(v: torch.Tensor, fused: bool, pair: bool = False,
+       precision: str = "highest") -> tuple[torch.Tensor, torch.Tensor]:
     """``v [B, m, k] -> (q [B, m, k], r [B, k, k])`` with ``q r == v``. Up to
     128 columns with ``fused``: K2, one launch for both (its plain version
-    for CPU tensors). Otherwise the basis from :func:`qr_orth` (``fused``
-    and ``pair`` passed on) and ``r = q^H v`` as a batched matrix product."""
+    for CPU tensors), at full precision. Otherwise the basis from
+    :func:`qr_orth` (``fused``, ``pair`` and ``precision`` passed on) and
+    ``r = q^H v`` as a batched matrix product, at ``precision`` where the
+    reference's r is a dot (:func:`reference_r_is_dot`; ``ops/lowp.matmul``)
+    and at full precision where it is not."""
     if fused and v.shape[-1] <= MAX_K:
         if v.device.type == "cpu":
             return orth_r_plain(v, pair)
         return orth_r_cuda(v, pair)
-    q = qr_orth(v, fused, pair)
-    return q, q.mH @ v
+    q = qr_orth(v, fused, pair, precision)
+    m, k = v.shape[-2], v.shape[-1]
+    return q, lowp.matmul(q, v, precision if reference_r_is_dot(m, k) else "highest", "h")
 
 
 def _check_input(v: torch.Tensor, name: str) -> bool:

@@ -31,14 +31,16 @@ reference iterate from the same v0. Three routes run that chain:
 - fused split (``cfg.fused_split`` and a shape kernel K1 takes: nc <= 128,
   m, k <= 256): one launch of K1 (``ops/split.py``);
 - unfused split (``cfg.fused_split`` off, a shape K1 does not take, such
-  as chi 128 with the default oversampling of 16, nc = 144, or a
-  ``cfg.power_precision`` other than "inherit"): the products as
-  ``torch.matmul`` (at a reduced ``power_precision``, the two power
-  products through kernel K7, ``ops/lowp.py``; complex128 stays full f64)
-  and every orthonormalization through ``orth.qr_orth`` (kernel K3; above
-  128 columns the blocked route, K3 on its panels with ``cfg.fused_split``
-  in complex64, the scanned panel step otherwise), at full precision as in
-  the reference;
+  as chi 128 with the default oversampling of 16, nc = 144, a reduced
+  ``cfg.matmul_precision`` or a ``cfg.power_precision`` other than
+  "inherit"): the two power products at ``cfg.resolved_power_precision``
+  and ``r = q^H theta`` at ``cfg.matmul_precision`` (``ops/lowp.matmul``:
+  kernel K7 at a reduced class, ``torch.matmul`` otherwise; complex128
+  stays full f64), and every orthonormalization through ``orth.qr_orth``
+  (kernel K3, at full precision as in the reference; above 128 columns
+  the blocked route, K3 on its panels with ``cfg.fused_split`` in
+  complex64, the scanned panel step otherwise, its products at the
+  ambient class);
 - fused gate (``truncated_svd_gate``, taken by ``ops/mps.apply_2site`` when
   :func:`gate_split_eligible`): one launch of K4 builds theta from the two
   site tensors and the gate, and runs the chain; theta is never formed by
@@ -52,7 +54,23 @@ The brick engine (``ops/vidal.py``) factors from the right:
 :func:`truncated_split_right` is :func:`truncated_svd` of ``theta^H``, and
 :func:`fused_brick_update` runs the whole Hastings pair update through kernel
 K5 where :func:`brick_split_eligible`. The kernels of the subspace method
-serve only full-precision configurations, as in the reference.
+serve only full-precision configurations, as in the reference: a reduced
+ambient or power class keeps K1, K4 and K5 off (:func:`_kernel_precision`,
+the reference's ``ops/svd.py:199-207``, ``:313``, ``:386``).
+
+At a reduced ambient class (``cfg.matmul_precision``) every product that is
+an XLA dot in the reference falls to it: the right factor of every method
+(``:244``, ``:515``) and the eigh route's Gram (``:462``). The
+factorizations themselves (``torch.linalg.svd``, ``eigh``, the kernels'
+orthonormalizations) are not dots in the reference and stay at full
+precision. The reference's eigh Gram is the real product ``E E^T`` of the
+embedding ``E = [[Re, -Im], [Im, Re]]`` of theta; splitting ``E`` splits
+theta's real and imaginary parts, so at the class it is the complex
+product ``theta theta^H`` at the same class, which the port forms by K7
+before rotating it (``Q G Q^H``, full precision; the rotation of
+:func:`_left_vectors` is the port's own, exact in exact arithmetic). The
+reference's greedy basis scan (``:112-113``) has no counterpart here:
+torch's complex factorizations give the basis directly.
 
 On the subspace routes the per-direction squared singular values are the row
 norms of ``r``; the truncation mask is the reference's sorted-threshold eps
@@ -117,17 +135,16 @@ def _split_subspace(theta: torch.Tensor, cfg: SimConfig, keep: int):
     if cfg.fused_split and _kernel_precision(cfg) and fused_split_supported(m, k, nc):
         q, r = split.subspace_factor(theta, v0, iters, cfg.mgs_pair)
     else:
-        # The power products at cfg.power_precision (kernel K7 at a reduced
-        # class); the orthonormalizations and r at full precision, so the
-        # reduced class perturbs only which subspace is kept.
-        n_passes = lowp.reduced_passes(cfg.resolved_power_precision, theta.dtype)
+        # The power products at the power precision, r at the ambient class
+        # (kernel K7 at a reduced class); the orthonormalizations at full
+        # precision (K3), so a reduced power class perturbs only which
+        # subspace is kept.
+        p, pp = cfg.matmul_precision, cfg.resolved_power_precision
         v = v0.expand(B, m, nc)
         for _ in range(iters):
-            w = lowp.cgemm(theta, v, n_passes, "h") if n_passes else theta.mH @ v
-            w = orth.qr_orth(w, cfg.fused_split, cfg.mgs_pair)
-            v = lowp.cgemm(theta, w, n_passes) if n_passes else theta @ w
-            v = orth.qr_orth(v, cfg.fused_split, cfg.mgs_pair)
-        q, r = v, v.mH @ theta
+            w = orth.qr_orth(lowp.matmul(theta, v, pp, "h"), cfg.fused_split, cfg.mgs_pair, p)
+            v = orth.qr_orth(lowp.matmul(theta, w, pp), cfg.fused_split, cfg.mgs_pair, p)
+        q, r = v, lowp.matmul(v, theta, p, "h")
     total = orth.abs2(theta).sum((1, 2))
     return _finish_subspace(q, r, total, cfg, keep, nc)
 
@@ -219,7 +236,7 @@ def _rotation(m: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return q
 
 
-def _left_vectors(theta: torch.Tensor, method: str, keep: int):
+def _left_vectors(theta: torch.Tensor, method: str, keep: int, precision: str = "highest"):
     """Leading left singular vectors ``u [B, m, keep]``, their singular
     values ``s [B, keep]`` and trailing weights ``tail [B, keep]`` (both
     computed over the whole spectrum), and the total weight ``[B]``, by
@@ -235,11 +252,20 @@ def _left_vectors(theta: torch.Tensor, method: str, keep: int):
     fixed random unitary ``Q`` and maps the vectors back by ``Q^H``: the
     same eigenpairs, but dense. On theta theta^H itself, whose bond padding
     leaves exactly-zero rows and a many-fold null block, the libraries'
-    eigensolvers fail (cuSOLVER: no convergence; MKL: NaN vectors)."""
+    eigensolvers fail (cuSOLVER: no convergence; MKL: NaN vectors). At a
+    reduced ``precision`` the Gram ``theta theta^H`` is formed at that class
+    (the reference's ``E E^T``) and then rotated, ``Q G Q^H``, at full
+    precision; at full precision the rotated theta's Gram is formed
+    directly, which on an H100 kept the f32 route's Gram 3x closer to the
+    f64 golden than ``Q (theta theta^H) Q^H`` (PERF.md)."""
     if method == "eigh":
         q = _rotation(theta.shape[1], theta.dtype, theta.device)
-        t = q @ theta
-        w, vecs = torch.linalg.eigh(t @ t.mH)
+        if lowp.reduced_passes(precision, theta.dtype):
+            g = q @ lowp.matmul(theta, theta.mH, precision) @ q.mH
+        else:
+            t = q @ theta
+            g = t @ t.mH
+        w, vecs = torch.linalg.eigh(g)
         p = torch.clamp(torch.flip(w, [1]), min=0.0)
         u, s = q.mH @ torch.flip(vecs, [2]), torch.sqrt(p)
     else:
@@ -260,10 +286,10 @@ def truncated_svd(theta: torch.Tensor, cfg: SimConfig, keep: int):
     Returns ``(left, right, kept_fraction [B], rank [B])``."""
     if cfg.svd_method == "subspace":
         return _split_subspace(theta, cfg, keep)
-    u, s, tail, total = _left_vectors(theta, cfg.svd_method, keep)
+    u, s, tail, total = _left_vectors(theta, cfg.svd_method, keep, cfg.matmul_precision)
     mask, kept_fraction = _truncation_mask(s, tail, total, cfg, keep)
     left = u * mask.to(s.dtype)[:, None, :]
-    right = left.mH @ theta
+    right = lowp.matmul(left, theta, cfg.matmul_precision, "h")
     if cfg.renormalize:
         inv = torch.rsqrt(torch.where(kept_fraction > 0, kept_fraction,
                                       torch.ones_like(kept_fraction)))

@@ -41,6 +41,11 @@ the 43 interior pairs at the cap); the rectangles and the squares it
 refuses take the unfused update, whose split is K1 at ``m = 2 cr``, ``k = 2
 cl``, ``nc = cm`` (below one panel at the chain's ends).
 
+The products outside the kernels (the Hadamard layer, theta, the gate,
+``new_a``) run at the ambient class, ``cfg.matmul_precision``, through
+``ops/lowp.matmul`` (kernel K7 at a reduced class, which keeps K5 off, as
+in the reference).
+
 Unlike the reference, whose arrays are immutable, the layer writes the
 updated pairs into ``tensors``, ``lams`` and ``bond_dims`` IN PLACE (one
 state-sized copy per pair chunk saved) and returns a state sharing them.
@@ -54,7 +59,7 @@ import numpy as np
 import torch
 
 from qml_cutensornet_tpu_torch.config import SimConfig
-from qml_cutensornet_tpu_torch.ops import gates
+from qml_cutensornet_tpu_torch.ops import gates, lowp
 from qml_cutensornet_tpu_torch.ops.svd import (
     brick_split_eligible,
     fused_brick_update,
@@ -87,11 +92,12 @@ def zero_state(batch: int, n_p: int, cfg: SimConfig, device: torch.device) -> Vi
     )
 
 
-def apply_1q_real_sites(state: VidalState, u2: torch.Tensor, n: int) -> VidalState:
+def apply_1q_real_sites(state: VidalState, u2: torch.Tensor, n: int,
+                        precision: str = "highest") -> VidalState:
     """The same 1-qubit gate ``u2 [2, 2]`` on every REAL site (padded sites
-    1..n); 1-qubit unitaries leave the lambdas alone."""
+    1..n), at ``precision``; 1-qubit unitaries leave the lambdas alone."""
     t = state.tensors.clone()
-    t[:, 1:n + 1] = torch.einsum("st,znatc->znasc", u2, t[:, 1:n + 1])
+    t[:, 1:n + 1] = lowp.matmul(u2, t[:, 1:n + 1], precision)
     return dataclasses.replace(state, tensors=t)
 
 
@@ -178,15 +184,17 @@ def update_pairs(a: torch.Tensor, b: torch.Tensor, lam_l: torch.Tensor, thetas: 
         return (new_a.reshape(B, K, cl, 2, cm), new_b.reshape(B, K, cm, 2, cr),
                 s.reshape(B, K, cm), kf.reshape(B, K), rank.reshape(B, K))
 
-    theta0 = torch.einsum("bkasc,bkctd->bkastd", a, b)
-    theta_t = torch.einsum("bkstuv,bkauvc->bkastc", g.reshape(B, K, 2, 2, 2, 2), theta0)
+    p = cfg.matmul_precision
+    theta0 = lowp.matmul(a.reshape(B, K, cl * 2, cm), b.reshape(B, K, cm, 2 * cr), p)
+    # the gate on the physical pair (s t) of theta [B, K, a, (s t), c]
+    theta_t = lowp.matmul(g[:, :, None], theta0.reshape(B, K, cl, 4, cr), p)
     # Weight by the left lambda: the Schmidt matrix of the middle bond.
-    theta_w = theta_t * lam_l[:, :, :, None, None, None]
+    theta_w = theta_t * lam_l[:, :, :, None, None]
     th_w = theta_w.reshape(B * K, cl * 2, 2 * cr)
     th_t = theta_t.reshape(B * K, cl * 2, 2 * cr)
     v, s, kf, rank = truncated_split_right(th_w, cfg, cm)
     # Hastings: the new left tensor from the UNWEIGHTED theta, no inverse.
-    new_a = th_t @ v.mH  # [B*K, cl*2, cm]
+    new_a = lowp.matmul(th_t, v.mH, p)  # [B*K, cl*2, cm]
     return (new_a.reshape(B, K, cl, 2, cm), v.reshape(B, K, cm, 2, cr),
             s.reshape(B, K, cm), kf.reshape(B, K), rank.reshape(B, K))
 

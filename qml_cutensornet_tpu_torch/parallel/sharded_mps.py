@@ -37,7 +37,9 @@ always inactive, because ``n_p`` is odd and so ``n_s > n_p``: the halo that
 returns to rank 0 is its own first site, unchanged.
 
 Stage plans, chunk plans and the per-pair update (``ops/vidal.update_pairs``:
-kernel K5 where the stage takes it, else the pair product and K1) are the
+kernel K5 where the stage takes it, else the pair product and K1; at a
+reduced ambient class ``cfg.matmul_precision`` the products on kernel K7
+and the split's orthonormalizations on K3, as in the whole chain) are the
 whole-chain engine's, driven by the same ``models/simulate.
 drive_brick_schedule``, so the two engines do identical per-pair arithmetic.
 
@@ -65,7 +67,7 @@ from qml_cutensornet_tpu_torch.models.simulate import (
     drive_brick_schedule,
     tile_step,
 )
-from qml_cutensornet_tpu_torch.ops import gates, vidal
+from qml_cutensornet_tpu_torch.ops import gates, lowp, vidal
 from qml_cutensornet_tpu_torch.ops.mps import MPS
 from qml_cutensornet_tpu_torch.parallel.gram import _sendrecv
 from qml_cutensornet_tpu_torch.parallel.mesh import (
@@ -181,9 +183,8 @@ def make_sharded_brick_simulator(schedule: BrickSchedule, cfg: SimConfig, mesh: 
             lams = torch.zeros((B, n_loc, chi_s), dtype=rdt, device=dev)
             lams[:, :, 0] = 1.0
             if schedule.hadamard_init and real_lo < real_hi:
-                t[:, real_lo:real_hi] = torch.einsum("st,znatc->znasc",
-                                                     gates.hadamard(rdt, dev),
-                                                     t[:, real_lo:real_hi])
+                t[:, real_lo:real_hi] = lowp.matmul(gates.hadamard(rdt, dev),
+                                                    t[:, real_lo:real_hi], cfg.matmul_precision)
             return ShardedVidalState(
                 tensors=t, lams=lams, fidelity=torch.ones(B, dtype=rdt, device=dev),
                 bond_dims=torch.ones((B, n_loc), dtype=torch.int32, device=dev))

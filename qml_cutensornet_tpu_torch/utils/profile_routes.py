@@ -4,9 +4,12 @@ one NVIDIA GPU:
     python3 -m qml_cutensornet_tpu_torch.utils.profile_routes [ROUTE ...]
 
 ROUTE is any of ``default`` (K1 + K2), ``fused_gate`` (K4 + K2), ``unfused``
-(K3 + matrix products), ``brick_k5``, ``brick_k1``, ``brick_k5_sharded``,
-``brick14_k5`` and ``brick14_k5_sharded`` (default: the first five).
-The first three simulate one sim batch of 32 circuits at the headline shape
+(K3 + matrix products), ``ambient_high`` and ``ambient_bfloat16`` (the
+CLI's config at ``SimConfig.matmul_precision`` "high" or "bfloat16": K2,
+K3 and every product on K7), ``brick_k5``, ``brick_k1``,
+``brick_k5_sharded``, ``brick14_k5`` and ``brick14_k5_sharded`` (default:
+``default``, ``fused_gate``, ``unfused``, ``brick_k5`` and ``brick_k1``).
+The tracked routes simulate one sim batch of 32 circuits at the headline shape
 (32 qubits, r=2, d=6, chi 64, f32, the pinned v1 data); the brick routes
 one sim batch of 8 circuits of the full-width brick configuration (100
 qubits, r=2, d=6, chi 128, oversampling 0, ``QMLTPU_ROUTING=brick``), every
@@ -25,6 +28,7 @@ under ``build/profile/``.
 
 from __future__ import annotations
 
+import dataclasses
 import pathlib
 import sys
 import time
@@ -51,11 +55,13 @@ ARGV_BRICK14 = ["profile", "GPU", "14", "2", "1.0", "6", "20", "20", "5",
 BRICK = {"QMLTPU_ROUTING": "brick", "QMLTPU_CHI": "128", "QMLTPU_OVERSAMPLE": "0"}
 K5 = {**BRICK, "QMLTPU_FUSED_GATE": "1"}
 SHARD = {"QMLTPU_SHARD_MPS": "all"}
-# route -> (argv, knobs, circuits in the sim batch)
+# route -> (argv, knobs, circuits in the sim batch[, the ambient class])
 ROUTES = {
     "default": (ARGV, {}, 32),
     "fused_gate": (ARGV, {"QMLTPU_FUSED_GATE": "1"}, 32),
     "unfused": (ARGV, {"QMLTPU_FUSED_SPLIT": "0"}, 32),
+    "ambient_high": (ARGV, {}, 32, "high"),
+    "ambient_bfloat16": (ARGV, {}, 32, "bfloat16"),
     "brick_k5": (ARGV_BRICK, K5, 8),
     "brick_k1": (ARGV_BRICK, {**BRICK, "QMLTPU_FUSED_GATE": "0"}, 8),
     "brick_k5_sharded": (ARGV_BRICK, {**K5, **SHARD}, 8),
@@ -113,10 +119,11 @@ def main(argv=None) -> int:
     preprocess_elliptic(str(ROOT / "datasets/elliptic_bitcoin_dataset_v1"), str(csv))
 
     for route in routes:
-        argv_r, knobs, batch = ROUTES[route]
+        argv_r, knobs, batch, *ambient = ROUTES[route]
         with environ(**knobs):
             params = pipe.parse_argv(list(argv_r))
-            cfg = pipe.sim_config(params)
+            cfg = dataclasses.replace(pipe.sim_config(params),
+                                      matmul_precision=(ambient or ["highest"])[0])
             schedule = pipe.make_ansatz(params).schedule
             site_mesh = pipe.engine_kwargs().get("site_mesh")
             n_ops, ops_text = _op_count(schedule, cfg, batch, site_mesh is not None)
@@ -137,7 +144,8 @@ def main(argv=None) -> int:
                    for e in events if "cuda" in str(getattr(e, "device_type", "")).lower()]
         kernels.sort(key=lambda t: -t[2])
         dev_ms = sum(t[2] for t in kernels)
-        print(f"[{route}] fused_split={cfg.fused_split} fused_gate={cfg.fused_gate}, "
+        print(f"[{route}] fused_split={cfg.fused_split} fused_gate={cfg.fused_gate} "
+              f"matmul_precision={cfg.matmul_precision}, "
               f"{len(x)} circuits: unprofiled wall per batch {walls[0]:.3f} / {walls[1]:.3f} s; "
               f"profiled {wall_prof:.3f} s; ops {ops_text}; launches of the port's kernels "
               f"{dict(_build.LAUNCHES)}; cudaLaunchKernel calls {launches} "

@@ -90,18 +90,22 @@ def test_config_from_reference_and_unported_fields():
     assert SimConfig().svd_method == RefConfig().svd_method == "svd"
     for method in ("svd", "eigh", "subspace"):
         assert SimConfig(svd_method=method).svd_method == method
-    # The power and tile precisions take every string the reference takes
-    # (ops/lowp.py), and the tile precision resolves as the reference's; a
-    # reduced ambient matmul_precision is not ported yet.
-    for s in ("inherit", "highest", "float32", "high", "bfloat16_3x", "tensorfloat32",
-              "bfloat16", "default"):
-        port = SimConfig(power_precision=s, tile_precision=s)
-        ref = RefConfig(power_precision=s, tile_precision=s)
-        assert port.resolved_tile_precision == ref.resolved_tile_precision
-        assert SimConfig.from_reference(dataclasses.asdict(ref)) == port
-    for bad in ("high", "bfloat16"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            SimConfig(matmul_precision=bad)
+    # The three precision fields take every string the reference takes
+    # (ops/lowp.py), the ambient matmul_precision included; every
+    # combination round-trips through from_reference, and both resolved
+    # precisions resolve as the reference's ("inherit" takes the ambient
+    # class).
+    strings = ("highest", "float32", "high", "bfloat16_3x", "tensorfloat32", "bfloat16",
+               "default")
+    for m in strings:
+        for s in ("inherit",) + strings:
+            port = SimConfig(matmul_precision=m, power_precision=s, tile_precision=s)
+            ref = RefConfig(matmul_precision=m, power_precision=s, tile_precision=s)
+            assert SimConfig.from_reference(dataclasses.asdict(ref)) == port
+            assert port.resolved_tile_precision == ref.resolved_tile_precision
+            assert port.resolved_power_precision == (m if s == "inherit" else s)
+    with pytest.raises(ValueError):
+        SimConfig(matmul_precision="tf32")
     # The pair step and the brick caps run; both default off, as in the reference.
     assert not (SimConfig().mgs_pair or SimConfig().brick_struct_caps)
     for field in ("mgs_pair", "brick_struct_caps"):

@@ -9,7 +9,9 @@ caps and the pair step), and the multi-device ring at world size 1 over
 NCCL against the single-device Gram; kernel K7 (the bf16 tensor-core
 complex product of the reduced precisions) against its plain version and
 the exact product, its refusals, and the reduced power and tile
-precisions' slice on the card against the CPU.
+precisions' slice on the card against the CPU; K7 through ``lowp.matmul``
+at the engine's shapes of the reduced ambient class (``matmul_precision``)
+and the ambient slice on the tracked and brick engines against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no card. This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -1048,4 +1050,84 @@ def test_reduced_precision_slice_on_card_matches_cpu(dev, knob, precision):
         assert _build.LAUNCHES["split"] > 0 and _build.LAUNCHES["orth"] == 0
     K_cpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=4, tile=4, device="cpu")
     np.testing.assert_allclose(K_gpu, K_cpu, atol=3e-5)
+    np.testing.assert_allclose(np.diag(K_gpu), 1.0, atol=1e-12)
+
+
+def _ambient_operands(rng, dev):
+    """K7's operands at the engine's shapes on the ambient route (headline
+    chi 64, batch 32), as the engine views them: ``(name, a, b, op)``."""
+    def c(*shape):
+        x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(x.astype(np.complex64)).to(dev)
+
+    chi, B = 64, 32
+    state = c(B, 32, chi, 2, chi)  # a state batch of 32 sites; a site is a view
+    site, right = state[:, 1], state[:, 2]
+    r = c(B, chi, chi)
+    theta = c(B, 2 * chi, 2 * chi)
+    v0 = c(2 * chi, chi).expand(B, 2 * chi, chi)  # the start block, batch stride 0
+    panel = c(B, 512, 32)  # the scanned panel step at chi 256: a 31-column prefix
+    return [
+        ("theta build", site.reshape(B, 2 * chi, chi), right.reshape(B, chi, 2 * chi), "n"),
+        ("gate, K = 4", c(B, 4, 4)[:, None], theta.reshape(B, chi, 4, chi), "n"),
+        ("move right, r b", r, right.reshape(B, chi, 2 * chi), "n"),
+        ("move left, a r^H", site.reshape(B, 2 * chi, chi), r.mH, "n"),
+        ("r = q^H v", site.reshape(B, 2 * chi, chi), site.reshape(B, 2 * chi, chi), "h"),
+        ("power theta^H v0", theta, v0, "h"),
+        ("vdot, m t", r, right.reshape(B, chi, 2 * chi), "n"),
+        ("single column, q^H x", panel[:, :, :31], panel[:, :, 31:], "h"),
+        ("Hadamard, batch stride 0", c(2, 2), state, "n"),
+    ]
+
+
+@pytest.mark.parametrize("precision", ["high", "bfloat16"])
+def test_ambient_products_at_engine_shapes(dev, monkeypatch, precision):
+    """``lowp.matmul`` on the engine's views at a reduced ambient class:
+    K7 against its plain version on the same card inputs (both f32 sums'
+    worst case, ``2 (2 K P + 2) 2^-24`` of ``|op(a)| |b|``) and against the
+    exact product (``lowp.rel_bound``), two launches bit-equal, one launch a
+    product (the Hadamard's batch of 65536 matrices loops past the grid's
+    65535)."""
+    P = lowp.passes(precision)
+    for name, a, b, op in _ambient_operands(np.random.default_rng(7), dev):
+        before = _build.LAUNCHES["cgemm"]
+        got, again = lowp.matmul(a, b, precision, op), lowp.matmul(a, b, precision, op)
+        assert _build.LAUNCHES["cgemm"] == before + 2, name
+        with monkeypatch.context() as m:
+            m.setattr(lowp, "cgemm", lowp.cgemm_plain)
+            plain = lowp.matmul(a, b, precision, op)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), name
+        a64 = (a.mH if op == "h" else a).to(torch.complex128)
+        b64 = b.to(torch.complex128)
+        scale = a64.abs() @ b64.abs()
+        K = b.shape[-2]
+        assert ((got - plain).abs() / scale).max().item() <= 2 * (2 * K * P + 2) * 2.0**-24, name
+        assert ((got - a64 @ b64).abs() / scale).max().item() <= lowp.rel_bound(P, K), name
+
+
+@pytest.mark.parametrize("routing", ["tracked", "brick"])
+@pytest.mark.parametrize("precision", ["high", "bfloat16"])
+def test_ambient_slice_on_card_matches_cpu(dev, routing, precision):
+    """The Gram slice (8 qubits, chi 16, the CLI's kernel settings) at a
+    reduced ambient class on the card against the CPU: K1, K4 and K5 never
+    launch, K3 (the unfused split) and K7 do, K2 on the tracked center
+    moves; no plain version on the card. Kernel and plain version are two
+    roundings of one class: within the routes' bar of 3e-5 at three passes,
+    and 4 class units (``2^-8``, as the CPU test holds the port to the
+    reference) at one."""
+    nq = 8
+    X = np.random.default_rng(2).uniform(0.0, 2.0, size=(6, nq))
+    ans = KernelStateAnsatz(nq, 2, 1.0, entanglement_graph(nq, 2), routing=routing)
+    cfg = SimConfig(chi=16, tile_block=2, svd_method="subspace", fused_split=True,
+                    fused_gate=True, matmul_precision=precision)
+    _build.reset_counters()
+    K_gpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=8, device="cuda")
+    launches = dict(_build.LAUNCHES)
+    assert launches["split"] == launches["gate_split"] == launches["brick_split"] == 0, launches
+    assert launches["orth"] > 0 and launches["cgemm"] > 0, launches
+    assert (launches["orth_r"] > 0) == (routing == "tracked"), launches
+    assert sum(_build.PLAIN_ON_CUDA.values()) == 0
+    K_cpu = build_kernel_matrix(ans, X, cfg=cfg, sim_batch=8, device="cpu")
+    np.testing.assert_allclose(K_gpu, K_cpu, atol=3e-5 if precision == "high" else 4 * 2.0**-8)
     np.testing.assert_allclose(np.diag(K_gpu), 1.0, atol=1e-12)
