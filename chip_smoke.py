@@ -160,12 +160,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    avg_max_chi and avg_fidelity.
 14. reduced precisions (kernel K7, ``ops/lowp.py``: the bf16 tensor-core
    complex product of ``QMLTPU_POWER_PRECISION`` and
-   ``QMLTPU_TILE_PRECISION``): (a) K7 at three passes and at one against
-   its plain version and the exact product, both ops, at the headline
-   tile's two products of a site block ([32,2048,64] . [32,64,256] and
-   [32,256,64]^H . [32,256,2048]), the chi-64 power products and ragged
-   shapes, two launches bit-equal; its times beside ``torch.matmul`` in
-   full f32 and its bound; (b) ``cli.main_no_test`` at the headline shape
+   ``QMLTPU_TILE_PRECISION``): (a) every plan's registers, local and shared
+   bytes; K7 at three passes and at one against its plain version and the
+   exact product at the headline tile's two products of a site block
+   ([32,2048,64] . [32,64,256] and [32,256,64]^H . [32,256,2048]), the
+   chi-64 power products, ragged shapes and each side of every plan
+   boundary (op "h" on a, on b and on both), two launches bit-equal; at
+   the main shapes its plan, device time (``graph_ms``: a CUDA graph of 20
+   launches), call time and host time beside ``torch.matmul`` in full f32
+   (device and call) and its bound; (b) ``cli.main_no_test`` at the headline shape
    with the tile precision "high", then "bfloat16", and the power precision
    "high": golden 8x8 parity (printed), the Gram against the default
    route's, K7 launches equal to the op stream's and the tiles' count (K1
@@ -174,11 +177,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    golden. On every other route K7 launches 0 times.
 15. the reduced ambient class (``SimConfig.matmul_precision``: every
    product of the engine on K7, ``ops/lowp.matmul``): (a) K7 at the
-   engine's shapes (theta, the gate with K = 4, the center moves' products,
-   the split's r, a power product with a broadcast start block, ``vdot``,
-   a single column, the Hadamard layer's batch stride 0) at three passes
-   and one against its plain version and the exact product, two launches
-   bit-equal, timed beside ``torch.matmul`` in f32 and its bound; (b) the
+   engine's shapes as the engine lays them out (theta, the gate with K = 4
+   at an inner stride 0, the center moves' products with ``a r^H`` as ``r``
+   and ``op_b`` "h", the split's r, a power product with a broadcast start
+   block, ``vdot``, a single column, the Hadamard layer's batch stride 0
+   and on a slice of sites, two levels) at three passes and one against
+   its plain version and the exact product, two launches bit-equal, its
+   plan, device, call and host times beside ``torch.matmul`` in f32 and its
+   bound; (b) the
    golden's 8 points (headline shape, one sim batch, the CLI's config)
    through ``models/gram.build_kernel_matrix`` at "high", then "bfloat16":
    K1, K4 and K5 never, K2 on every center move, K3 and K7 as the op stream
@@ -483,6 +489,47 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, launches=20, replays=5):
+    """Device time of one call of ``fn`` alone, without its host path: the
+    mean over ``replays`` replays of a CUDA graph that captures ``launches``
+    calls, by CUDA events (``fn`` allocates through the graph's pool)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (launches * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_ms(fn, reps=50):
+    """Host time of one call of ``fn``: the host clock around ``reps``
+    calls that are only enqueued (the device may still be busy)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
 def plan_text(plan):
     """One launch plan of K1 or K2 (``ops/split.split_plan``,
     ``ops/orth.orth_r_plan``) as a log fragment: blocks, threads, shared
@@ -706,7 +753,11 @@ def phase_build(dev):
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    log(f"build: {build_s:.2f} s -> {_build.BUILD_INFO['path']}")
+    log(f"build: {build_s:.2f} s -> {_build.BUILD_INFO['path']}; each library's nvcc ended at "
+        + ", ".join(f"{name} {sec:.1f} s" for name, sec in sorted(
+            _build.BUILD_INFO["seconds_by_library"].items(), key=lambda kv: kv[1]))
+        + f" (K7, bf16_cgemm: {_build.BUILD_INFO['seconds_by_library'].get('bf16_cgemm', 0):.1f}"
+        " s)")
     for line in _build.BUILD_INFO["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
@@ -2446,6 +2497,13 @@ HBM_RATE = 3.35e12
 CGEMM_MAIN = ((32, 2048, 256, 64, "n"), (32, 64, 2048, 256, "h"),
               (32, 128, 64, 128, "h"), (32, 128, 64, 128, "n"))
 CGEMM_RAGGED = ((3, 17, 33, 70, "n"), (3, 17, 33, 70, "h"), (2, 65, 130, 1, "h"))
+# K7's plans on each side of their boundaries (``csrc/bf16_cgemm.cu``; ragged
+# M, N and K, op "h" on a, on b and on both): [B, M, N, K], op, op_b, plan.
+CGEMM_BOUNDARY = ((3, 5, 7, 8, "h", "h", "thin_k"), (3, 5, 7, 9, "n", "h", "small"),
+                  (5, 9, 2, 40, "h", "n", "thin_n"), (5, 9, 3, 40, "n", "h", "small"),
+                  (264, 64, 64, 16, "n", "h", "large_m"), (263, 64, 64, 16, "h", "h", "small"),
+                  (264, 64, 65, 16, "h", "n", "large_n"), (64, 300, 70, 33, "h", "h", "large_m"),
+                  (64, 70, 300, 33, "n", "h", "large_n"))
 LOWP_ROUTES = (("tile high", {"QMLTPU_TILE_PRECISION": "high"}),
                ("tile bfloat16", {"QMLTPU_TILE_PRECISION": "bfloat16"}),
                ("power high", {"QMLTPU_POWER_PRECISION": "high"}))
@@ -2510,25 +2568,38 @@ def phase_reduced_precision(dev, smi, golden, K_default, x_train):
     t_phase = time.perf_counter()
     rng = np.random.default_rng(20261018)
 
-    def operands(B, M, N, K, op):
+    def operands(B, M, N, K, op, op_b="n"):
         def c(*shape):
             x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
             return torch.from_numpy(x.astype(np.complex64)).to(dev)
-        return (c(B, K, M) if op == "h" else c(B, M, K)), c(B, K, N)
+        return (c(B, K, M) if op == "h" else c(B, M, K)), (c(B, N, K) if op_b == "h" else
+                                                            c(B, K, N))
 
-    # (a) the kernel
-    err = 0.0
-    for B, M, N, K, op in CGEMM_MAIN + CGEMM_RAGGED:
-        a, b = operands(B, M, N, K, op)
-        a64 = (a.mH if op == "h" else a).to(torch.complex128)
-        exact = a64 @ b.to(torch.complex128)
-        scale = a64.abs() @ b.to(torch.complex128).abs()
-        full = (a.mH if op == "h" else a) @ b
+    # (a) the kernel: every plan's registers, local (spill) and shared bytes
+    plans = {}
+    for name in lowp.PLANS:
         for P in (3, 1):
-            got, again = lowp.cgemm(a, b, P, op), lowp.cgemm(a, b, P, op)
-            plain = lowp.cgemm_plain(a, b, P, op)
+            at = {ops: lowp.plan_attrs(name, P, *ops) for ops in ("nn", "hn", "nh", "hh")}
+            plans[f"{name}_P{P}"] = at
+            log(f"  K7 plan {name}, {P} pass{'es' if P > 1 else ''}: " + "; ".join(
+                f"{ops} {x['threads']} threads, {x['registers']} registers, {x['local_bytes']} B "
+                f"local, {x['static_smem'] + x['dynamic_smem']} B shared" for ops, x in at.items()))
+    err = 0.0
+    for B, M, N, K, op, op_b, want in ([(*x, "n", None) for x in CGEMM_MAIN + CGEMM_RAGGED]
+                                       + list(CGEMM_BOUNDARY)):
+        plan = lowp.plan(B, M, N, K)
+        assert want is None or plan == want, f"K7 [{B},{M},{N},{K}]: plan {plan}, not {want}"
+        a, b = operands(B, M, N, K, op, op_b)
+        a64 = (a.mH if op == "h" else a).to(torch.complex128)
+        b64 = (b.mH if op_b == "h" else b).to(torch.complex128)
+        exact, scale = a64 @ b64, a64.abs() @ b64.abs()
+        full = (a.mH if op == "h" else a) @ (b.mH if op_b == "h" else b)
+        for P in (3, 1):
+            got, again = lowp.cgemm(a, b, P, op, op_b), lowp.cgemm(a, b, P, op, op_b)
+            plain = lowp.cgemm_plain(a, b, P, op, op_b)
             torch.cuda.synchronize()
-            what = f"K7 [{B},{M},{N},{K}] op {op}, {P} pass{'es' if P > 1 else ''}"
+            what = (f"K7 [{B},{M},{N},{K}] op {op}{op_b} plan {plan}, "
+                    f"{P} pass{'es' if P > 1 else ''}")
             assert torch.equal(got, again), f"{what}: two launches differ"
             rel_plain = ((got - plain).abs() / scale).max().item()
             rel_exact = ((got - exact).abs() / scale).max().item()
@@ -2541,25 +2612,33 @@ def phase_reduced_precision(dev, smi, golden, K_default, x_train):
                 f"vs torch.matmul in f32 max abs {abs_full:.3e}")
             assert rel_plain <= 2 * (2 * K * P + 2) * 2.0**-24, f"{what}: off its plain version"
             assert rel_exact <= lowp.rel_bound(P, K), f"{what}: outside its class's bound"
+    # device time (a CUDA graph of 20 launches, the kernel alone) and call
+    # time (back-to-back calls, host path included) of K7 and torch.matmul
     by_shape = {}
     for B, M, N, K, op in CGEMM_MAIN:
         a, b = operands(B, M, N, K, op)
         am = a.mH if op == "h" else a
+        plan = lowp.plan(B, M, N, K)
         for P in (3, 1):
-            kern = lambda: lowp.cgemm(a, b, P, op)
-            k1, lib, k2 = time_ms(kern, 20), time_ms(lambda: am @ b, 20), time_ms(kern, 20)
+            kern, lib = (lambda: lowp.cgemm(a, b, P, op)), (lambda: am @ b)
+            d1, dl, d2 = graph_ms(kern), graph_ms(lib), graph_ms(kern)
+            c1, cl, c2 = time_ms(kern, 20), time_ms(lib, 20), time_ms(kern, 20)
+            host = host_ms(kern)
             plain_ms = time_ms(lambda: lowp.cgemm_plain(a, b, P, op), 3)
             bound_ms, bound_by = cgemm_bound(B, M, N, K, P)
             by_shape[cgemm_key(B, M, N, K, op, P)] = {
-                "ms": (k1 + k2) / 2, "plain_ms": plain_ms, "library_ms": lib,
+                "plan": plan, "ms": (d1 + d2) / 2, "call_ms": (c1 + c2) / 2, "host_ms": host,
+                "plain_ms": plain_ms, "library_ms": dl, "library_call_ms": cl,
                 "bound_ms": bound_ms, "bound_by": bound_by}
-            log(f"  time K7 [{B},{M},{N},{K}] op {op}, {P} pass{'es' if P > 1 else ''} "
-                f"[{smi}]: kernel {k1:.4f} / {k2:.4f} ms, torch.matmul f32 {lib:.4f} ms (turns "
-                f"kernel, matmul, kernel), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}; {8.0 * B * M * N * K * P / 1e9:.2f} GFLOP)")
+            log(f"  time K7 [{B},{M},{N},{K}] op {op}, {P} pass{'es' if P > 1 else ''}, plan "
+                f"{plan} [{smi}]: device {d1:.4f} / {d2:.4f} ms, torch.matmul f32 device "
+                f"{dl:.4f} ms (turns kernel, matmul, kernel); call {c1:.4f} / {c2:.4f} ms, "
+                f"torch.matmul f32 call {cl:.4f} ms; host {host:.4f} ms a call; plain "
+                f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{8.0 * B * M * N * K * P / 1e9:.2f} GFLOP)")
     # the main shape: the tile route's first product at tile "high"
     summary = {"max_abs_err": err, **by_shape[cgemm_key(*CGEMM_MAIN[0], 3)],
-               "ms_by_shape": by_shape}
+               "ms_by_shape": by_shape, "plans": plans}
 
     # (b) the routes, each through cli.main_no_test
     info = run_info("train", int(ARGV[2]), int(ARGV[3]), float(ARGV[4]), int(ARGV[5]),
@@ -2647,7 +2726,7 @@ AMBIENT_BRICK_KNOBS = dict(BRICK_KNOBS, QMLTPU_ROUTING="brick", QMLTPU_FUSED_GAT
 def ambient_operands(rng, dev):
     """K7's operands at the engine's shapes on the ambient headline route
     (chi 64, a sim batch of 32; the scanned panel step at chi 256), as the
-    engine views them: ``(name, a, b, op)``."""
+    engine views them: ``(name, a, b, op, op_b)``."""
     def c(*shape):
         x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
         return torch.from_numpy(x.astype(np.complex64)).to(dev)
@@ -2659,16 +2738,18 @@ def ambient_operands(rng, dev):
     theta = c(B, 2 * chi, 2 * chi)
     panel = c(B, 512, 32)
     return [
-        ("theta build", site.reshape(B, 2 * chi, chi), right.reshape(B, chi, 2 * chi), "n"),
-        ("gate, K = 4", c(B, 4, 4)[:, None], theta.reshape(B, chi, 4, chi), "n"),
-        ("move right, r b", r, right.reshape(B, chi, 2 * chi), "n"),
-        ("move left, a r^H", site.reshape(B, 2 * chi, chi), r.mH, "n"),
-        ("split r = q^H theta", c(B, 2 * chi, chi), theta, "h"),
+        ("theta build", site.reshape(B, 2 * chi, chi), right.reshape(B, chi, 2 * chi), "n", "n"),
+        ("gate, K = 4, inner stride 0", c(B, 4, 4)[:, None], theta.reshape(B, chi, 4, chi), "n",
+         "n"),
+        ("move right, r b", r, right.reshape(B, chi, 2 * chi), "n", "n"),
+        ("move left, a r^H", site.reshape(B, 2 * chi, chi), r, "n", "h"),
+        ("split r = q^H theta", c(B, 2 * chi, chi), theta, "h", "n"),
         ("power theta^H v0, batch stride 0", theta, c(2 * chi, chi).expand(B, 2 * chi, chi),
-         "h"),
-        ("vdot t^H (m t)", site.reshape(B, 2 * chi, chi), c(B, 2 * chi, chi), "h"),
-        ("single column q^H x", panel[:, :, :31], panel[:, :, 31:], "h"),
-        ("Hadamard, batch stride 0", c(2, 2), state, "n"),
+         "h", "n"),
+        ("vdot t^H (m t)", site.reshape(B, 2 * chi, chi), c(B, 2 * chi, chi), "h", "n"),
+        ("single column q^H x", panel[:, :, :31], panel[:, :, 31:], "h", "n"),
+        ("Hadamard, batch stride 0", c(2, 2), state, "n", "n"),
+        ("Hadamard on sites 1..30, two levels", c(2, 2), state[:, 1:31], "n", "n"),
     ]
 
 
@@ -2697,46 +2778,52 @@ def phase_ambient_precision(dev, smi, golden, K_default, x_train):
     t_phase = time.perf_counter()
     # (a) the products at the engine's shapes
     by_shape = {}
-    for name, a, b, op in ambient_operands(np.random.default_rng(20261019), dev):
+    for name, a, b, op, op_b in ambient_operands(np.random.default_rng(20261019), dev):
         a64 = (a.mH if op == "h" else a).to(torch.complex128)
-        b64 = b.to(torch.complex128)
+        b64 = (b.mH if op_b == "h" else b).to(torch.complex128)
         exact, scale = a64 @ b64, a64.abs() @ b64.abs()
         batch = int(np.prod(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])))
-        M, N, K = exact.shape[-2], exact.shape[-1], b.shape[-2]
+        M, N, K = exact.shape[-2], exact.shape[-1], a64.shape[-1]
+        plan = lowp.plan(batch, M, N, K)
         for precision in AMBIENT_PRECISIONS:
             P = lowp.passes(precision)
             before = _build.LAUNCHES["cgemm"]
-            got, again = lowp.matmul(a, b, precision, op), lowp.matmul(a, b, precision, op)
+            got = lowp.matmul(a, b, precision, op, op_b)
+            again = lowp.matmul(a, b, precision, op, op_b)
             assert _build.LAUNCHES["cgemm"] == before + 2, f"{name}: one K7 launch a product"
             real_cgemm, lowp.cgemm = lowp.cgemm, lowp.cgemm_plain
             try:
-                plain = lowp.matmul(a, b, precision, op)
-                plain_ms = time_ms(lambda: lowp.matmul(a, b, precision, op), 3)
+                plain = lowp.matmul(a, b, precision, op, op_b)
+                plain_ms = time_ms(lambda: lowp.matmul(a, b, precision, op, op_b), 3)
             finally:
                 lowp.cgemm = real_cgemm
             torch.cuda.synchronize()
-            what = f"K7 {name} [{batch},{M},{N},{K}] op {op}, {precision}"
+            what = f"K7 {name} [{batch},{M},{N},{K}] op {op}{op_b} plan {plan}, {precision}"
             assert torch.equal(got, again), f"{what}: two launches differ"
             rel_plain = ((got - plain).abs() / scale).max().item()
             rel_exact = ((got - exact).abs() / scale).max().item()
             assert rel_plain <= 2 * (2 * K * P + 2) * 2.0**-24, f"{what}: off its plain version"
             assert rel_exact <= lowp.rel_bound(P, K), f"{what}: outside its class's bound"
-            kern = lambda: lowp.matmul(a, b, precision, op)
-            full = lambda: lowp.matmul(a, b, "highest", op)
-            k1, lib, k2 = time_ms(kern, 20), time_ms(full, 20), time_ms(kern, 20)
+            kern = lambda: lowp.matmul(a, b, precision, op, op_b)
+            full = lambda: lowp.matmul(a, b, "highest", op, op_b)
+            d1, dl, d2 = graph_ms(kern), graph_ms(full), graph_ms(kern)
+            c1, cl, c2 = time_ms(kern, 20), time_ms(full, 20), time_ms(kern, 20)
+            host, host_full = host_ms(kern), host_ms(full)
             nbytes = 8 * (_unique_elements(a) + _unique_elements(b) + batch * M * N)
             t_ops = 8.0 * batch * M * N * K * P / BF16_PEAK * 1e3
             bound_ms = max(t_ops, nbytes / HBM_RATE * 1e3)
             bound_by = "operations" if t_ops >= nbytes / HBM_RATE * 1e3 else "bytes"
             by_shape[f"{name}_{precision}"] = {
-                "ms": (k1 + k2) / 2, "plain_ms": plain_ms, "library_ms": lib,
-                "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": (got - plain)
-                .abs().max().item()}
-            log(f"  {what} [{smi}]: vs plain {rel_plain:.3e} of |op(a)||b| (tol "
+                "plan": plan, "ms": (d1 + d2) / 2, "call_ms": (c1 + c2) / 2, "host_ms": host,
+                "plain_ms": plain_ms, "library_ms": dl, "library_call_ms": cl,
+                "library_host_ms": host_full, "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": (got - plain).abs().max().item()}
+            log(f"  {what} [{smi}]: vs plain {rel_plain:.3e} of |op(a)||op_b(b)| (tol "
                 f"{2 * (2 * K * P + 2) * 2.0**-24:.3e}), vs exact {rel_exact:.3e} (class bound "
-                f"{lowp.rel_bound(P, K):.3e}); lowp.matmul (K7 and its layout copies) "
-                f"{k1:.4f} / {k2:.4f} ms, torch.matmul f32 {lib:.4f} ms, plain {plain_ms:.4f} "
-                f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+                f"{lowp.rel_bound(P, K):.3e}); lowp.matmul device {d1:.4f} / {d2:.4f} ms, "
+                f"torch.matmul f32 device {dl:.4f} ms; call {c1:.4f} / {c2:.4f} ms, "
+                f"torch.matmul f32 call {cl:.4f} ms; host {host:.4f} ms a call (torch.matmul "
+                f"{host_full:.4f}); plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
 
     # (b) the golden's 8 points, (c) the brick route at 14 qubits
     runs = [(f"ambient_{p}", f"ambient {p}, the golden's 8 points", p, ARGV, {}, x_train[:8])
@@ -2792,6 +2879,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
               file=sys.stderr)
         return 2
+    from qml_cutensornet_tpu_torch.ops import _build
     from qml_cutensornet_tpu_torch.utils.data import load_and_prepare, preprocess_elliptic
     from qml_cutensornet_tpu_torch.utils.device import nvidia_smi
 
@@ -2878,6 +2966,7 @@ def main() -> int:
             **({"yardstick_ms": stage_ms[name]["chi128_Bn408"]["k1_same_theta_ms"]}
                if name == "brick_split" else {})})
     name, source, replaces = K7
+    k7_build_s = _build.BUILD_INFO["seconds_by_library"].get("bf16_cgemm")
     launches = sum(p.get(name, 0) for p in by_path.values())
     assert launches > 0, "K7 never launched on a reduced-precision path"
     assert all(p.get(name, 0) == 0 for path, p in by_path.items() if path not in lowp_paths), (
@@ -2888,7 +2977,9 @@ def main() -> int:
         "launches_by_path": {path: p[name] for path, p in lowp_paths.items()},
         "max_abs_err": k7["max_abs_err"], "ms": k7["ms"], "plain_ms": k7["plain_ms"],
         "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"], "library_ms": k7["library_ms"],
-        "ms_by_shape": k7["ms_by_shape"], "ms_by_engine_shape": ambient_ms})
+        "plan": k7["plan"], "call_ms": k7["call_ms"], "library_call_ms": k7["library_call_ms"],
+        "build_s": k7_build_s, "plans": k7["plans"], "ms_by_shape": k7["ms_by_shape"],
+        "ms_by_engine_shape": ambient_ms})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -43,7 +43,9 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 PAIR_LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
 # Filled by the first load(): {"seconds": build time (0 if cached),
-# "path": the libraries' directory, "log": nvcc output}.
+# "path": the libraries' directory, "log": nvcc output,
+# "seconds_by_library": {source stem, "_pair" for a pair library: seconds
+# from the start until its nvcc ended} for the libraries built}.
 BUILD_INFO: dict = {}
 
 _LIBS: dict = {}  # pair (bool) -> the namespace of that library's entry points
@@ -75,7 +77,9 @@ SOURCES = {
         "qk_brick_split_launch": ([_vp] * 10 + [_i] * 8 + [_ll, _vp], _i),
     },
     "bf16_cgemm.cu": {
-        "qk_cgemm_launch": ([_vp] * 3 + [_i] * 4 + [_ll] * 4 + [_i, _i, _vp], _i),
+        "qk_cgemm_plan": ([_ll, _i, _i, _i], _i),
+        "qk_cgemm_launch": ([_vp] * 3 + [_ll] * 2 + [_i] * 3 + [_ll] * 6 + [_i] * 3 + [_vp], _i),
+        "qk_cgemm_attrs": ([_i] * 4 + [_vp], _i),
     },
 }
 # Sources built once, without a pair library.
@@ -136,14 +140,24 @@ def load(pair: bool = False):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *_flags(p), "-o", str(tmp), str(CSRC / src)]
-        procs.append((cmd, tmp, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        out = open(so.with_suffix(f".{os.getpid()}.log"), "w+")  # closed once nvcc ends
+        procs.append((f"{pathlib.Path(src).stem}{'_pair' if p else ''}", cmd, tmp, so, out,
+                      subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, text=True)))
+    seconds, pending = {}, list(procs)
+    while pending:  # wait for every process before raising; note when each ends
+        for item in [item for item in pending if item[-1].poll() is not None]:
+            seconds[item[0]] = time.perf_counter() - t0
+            pending.remove(item)
+        time.sleep(0.05 if pending else 0)
     log, failed = "", []
-    for cmd, tmp, so, proc in procs:  # wait for every process before raising
-        out = proc.communicate()[0]
-        log += out
+    for _, cmd, tmp, so, out, proc in procs:
+        out.seek(0)
+        text = out.read()
+        out.close()
+        os.remove(out.name)
+        log += text
         if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
         else:
             os.replace(tmp, so)
     if failed:
@@ -162,7 +176,8 @@ def load(pair: bool = False):
         cdll.qk_pair_step.restype = _i
         if cdll.qk_pair_step() != int(p):
             raise RuntimeError(f"{so.name}: built {'without' if p else 'with'} {PAIR_FLAG}")
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(BUILD_DIR), log=log)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(BUILD_DIR), log=log,
+                      seconds_by_library=seconds)
     _LIBS.update(libs)
     return libs[pair]
 

@@ -143,7 +143,7 @@ def move_center(mps: MPS, site: int, direction: int, cfg: SimConfig) -> MPS:
         th = b.reshape(B, chi, 2 * chi).mH.contiguous()  # t^H [2chi, chi]
         q, r = orth.qr(th, fused=cfg.fused_split, pair=cfg.mgs_pair, precision=p)  # t^H = q r
         new_b = q.mH.reshape(B, chi, 2, chi)  # row-orthonormal
-        new_a = lowp.matmul(a.reshape(B, 2 * chi, chi), r.mH, p).reshape(B, chi, 2, chi)
+        new_a = lowp.matmul(a.reshape(B, 2 * chi, chi), r, p, op_b="h").reshape(B, chi, 2, chi)
     else:
         q, r = orth.qr(a.reshape(B, 2 * chi, chi).contiguous(), fused=cfg.fused_split,
                        pair=cfg.mgs_pair, precision=p)

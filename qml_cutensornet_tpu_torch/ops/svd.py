@@ -261,7 +261,7 @@ def _left_vectors(theta: torch.Tensor, method: str, keep: int, precision: str = 
     if method == "eigh":
         q = _rotation(theta.shape[1], theta.dtype, theta.device)
         if lowp.reduced_passes(precision, theta.dtype):
-            g = q @ lowp.matmul(theta, theta.mH, precision) @ q.mH
+            g = q @ lowp.matmul(theta, theta, precision, op_b="h") @ q.mH
         else:
             t = q @ theta
             g = t @ t.mH

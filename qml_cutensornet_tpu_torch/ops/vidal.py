@@ -194,7 +194,7 @@ def update_pairs(a: torch.Tensor, b: torch.Tensor, lam_l: torch.Tensor, thetas: 
     th_t = theta_t.reshape(B * K, cl * 2, 2 * cr)
     v, s, kf, rank = truncated_split_right(th_w, cfg, cm)
     # Hastings: the new left tensor from the UNWEIGHTED theta, no inverse.
-    new_a = lowp.matmul(th_t, v.mH, p)  # [B*K, cl*2, cm]
+    new_a = lowp.matmul(th_t, v, p, op_b="h")  # [B*K, cl*2, cm]
     return (new_a.reshape(B, K, cl, 2, cm), v.reshape(B, K, cm, 2, cr),
             s.reshape(B, K, cm), kf.reshape(B, K), rank.reshape(B, K))
 

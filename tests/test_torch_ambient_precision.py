@@ -88,9 +88,9 @@ def products(monkeypatch):
     """The port's reduced-class products: one entry a ``lowp.cgemm`` call."""
     calls = []
 
-    def counting(a, b, n_passes, op="n"):
-        calls.append((tuple(a.shape), tuple(b.shape), op))
-        return lowp.cgemm_plain(a, b, n_passes, op)
+    def counting(a, b, n_passes, op="n", op_b="n"):
+        calls.append((tuple(a.shape), tuple(b.shape), op, op_b))
+        return lowp.cgemm_plain(a, b, n_passes, op, op_b)
 
     monkeypatch.setattr(lowp, "cgemm", counting)
     return calls
@@ -334,12 +334,13 @@ def test_apply_2site(products, monkeypatch, precision, direction):
 @pytest.mark.parametrize("direction", [0, 1])
 @pytest.mark.parametrize("precision", REDUCED)
 def test_move_center(products, monkeypatch, precision, direction, fused):
-    """The move's product (r into the neighbour; ``r^H`` copied for K7 on a
-    left move) at the class; r from K2 at full precision with the fused
-    split, else K3 and ``r = q^H v`` at the class (the reference's
-    ``ops/cpx.py:245``). The chi-8 state is padded to chi 16 with exact
-    zeros, a shape the reference's Pallas basis kernel takes (at chi 8 it
-    factors by Householder, no dot: ``orth.reference_r_is_dot``)."""
+    """The move's product (r into the neighbour; ``r^H`` passed as ``r``
+    with ``op_b`` "h" on a left move) at the class; r from K2 at full
+    precision with the fused split, else K3 and ``r = q^H v`` at the class
+    (the reference's ``ops/cpx.py:245``). The chi-8 state is padded to chi
+    16 with exact zeros, a shape the reference's Pallas basis kernel takes
+    (at chi 8 it factors by Householder, no dot:
+    ``orth.reference_r_is_dot``)."""
     t, bd = _random_mps(np.random.default_rng(5 + direction), 2)
     t = np.pad(t, ((0, 0), (0, 0), (0, CHI), (0, 0), (0, CHI)))
     rcfg, cfg = _cfgs(precision, fused_split=fused, chi=2 * CHI)
@@ -457,7 +458,7 @@ def test_xxphase_swap(products, monkeypatch, precision):
 @pytest.mark.parametrize("precision", REDUCED)
 def test_brick_update(products, monkeypatch, precision):
     """theta, the gate, the split (2 x 2 power products and the right
-    factor) and ``new_a = theta V^H`` (``V^H`` copied for K7): 8 products,
+    factor) and ``new_a = theta V^H`` (``V`` passed as stored): 8 products,
     off K5 and K1. Untruncated (chi 8), ``new_a new_b`` is the gated theta
     and ``s`` its singular values."""
     rng = np.random.default_rng(13)
@@ -481,6 +482,73 @@ def test_brick_update(products, monkeypatch, precision):
     np.testing.assert_array_equal(rank.numpy(), np.asarray(rrank))
     assert 4 * len(products) == ref_dots(
         monkeypatch, precision, lambda *x: jvidal.update_pairs(*x, rcfg), *rargs)
+
+
+@pytest.mark.parametrize("precision", REDUCED)
+def test_transposes_and_gates_reach_cgemm_as_views(monkeypatch, precision):
+    """``lowp.matmul`` hands ``cgemm`` the ``r`` of a left center move and
+    the ``V`` of the brick update as they are stored, with ``op_b`` "h"
+    (``V``, a lazy conjugate ``q^H``, as its ``q`` with ``op_b`` "n"), and
+    the gate broadcast over theta's bond index with an inner stride 0: the
+    callers' data pointers and strides, no copy."""
+    seen = []
+
+    def spy(a, b, n_passes, op="n", op_b="n"):
+        seen.append((a, b, op, op_b))
+        return lowp.cgemm_plain(a, b, n_passes, op, op_b)
+
+    monkeypatch.setattr(lowp, "cgemm", spy)
+    factors = []
+    real_qr, real_split = orth.qr, vidal.truncated_split_right
+    monkeypatch.setattr(orth, "qr", lambda *a, **k: factors.append(real_qr(*a, **k)) or factors[-1])
+    monkeypatch.setattr(vidal, "truncated_split_right",
+                        lambda *a, **k: factors.append(real_split(*a, **k)) or factors[-1])
+    t, bd = _random_mps(np.random.default_rng(5), 2)
+    t = np.pad(t, ((0, 0), (0, 0), (0, CHI), (0, 0), (0, CHI)))
+    _, cfg = _cfgs(precision, fused_split=True, chi=2 * CHI)
+    mps.move_center(_port_mps(t, bd), SITE, 1, cfg)  # new_a = a r^H
+    (_, b, op, op_b), = seen
+    r = factors[0][1]
+    assert (op, op_b) == ("n", "h") and b.data_ptr() == r.data_ptr()
+    assert b.stride()[0] == r.stride(0) and b.stride()[-2:] == r.stride()[-2:]
+
+    seen.clear()
+    rng = np.random.default_rng(13)
+    a, b = _crandn(rng, 2, 2, CHI, 2, CHI) / 4, _crandn(rng, 2, 2, CHI, 2, CHI) / 4
+    lam = np.abs(rng.standard_normal((2, 2, CHI))).astype(np.float32)
+    th = rng.uniform(0, 3, size=(2, 2)).astype(np.float32)
+    vidal.update_pairs(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(lam),
+                       torch.from_numpy(th), 1.0, _cfgs(precision, fused_gate=True)[1])
+    v = factors[-1][0]  # new_a = theta V^H
+    _, b, op, op_b = seen[-1]
+    assert v.is_conj() and (op, op_b) == ("n", "n") and not b.is_conj()
+    assert b.data_ptr() == v.mH.data_ptr() and b.stride()[-2:] == v.mH.stride()[-2:]
+
+    seen.clear()
+    u4 = gates.xxphase(torch.tensor([0.7, 2.1]))
+    mps.apply_2site(_port_mps(t[:, :, :CHI, :, :CHI], bd), SITE, u4, _cfgs(precision)[1], 0)
+    a, _, _, _ = seen[1]  # the gate on theta [B, chi, 4, chi]
+    assert a.data_ptr() == u4.data_ptr() and a.shape == (2, CHI, 4, 4)
+    assert a.stride() == (16, 0, 4, 1)
+
+
+@pytest.mark.parametrize("routing", ["tracked", "brick"])
+def test_slice_products_reach_cgemm_as_views(monkeypatch, routing):
+    """Every product of the slice at "high" (simulation and tiles) reaches
+    ``cgemm`` as views of its caller's tensors: ``lowp.matmul`` copies no
+    operand."""
+    real, copies, calls = lowp._batched, [], []
+
+    def spy(a, b, batch):
+        out = real(a, b, batch)
+        calls.append(batch)
+        copies.extend((tuple(x.shape), x.stride()) for x, y in zip((a, b), out)
+                      if x.data_ptr() != y.data_ptr())
+        return out
+
+    monkeypatch.setattr(lowp, "_batched", spy)
+    _port_slice("high", routing)
+    assert calls and not copies
 
 
 # ------------------------------------------------------------ the slice

@@ -1011,17 +1011,126 @@ def test_cgemm_strides(dev):
                                   lowp.cgemm(mx.contiguous(), b[:, :8], 3).cpu().numpy())
 
 
+def _check_cgemm(a, b, n_passes, op="n", op_b="n"):
+    """K7 on ``a``, ``b`` against its plain version (both f32 sums' worst
+    case, ``2 (2 K P + 2) 2^-24`` of ``|op(a)| |op_b(b)|``) and the exact
+    product (``lowp.rel_bound``); one launch a call, two launches
+    bit-equal. Returns the kernel's product."""
+    before = _build.LAUNCHES["cgemm"]
+    got, again = lowp.cgemm(a, b, n_passes, op, op_b), lowp.cgemm(a, b, n_passes, op, op_b)
+    assert _build.LAUNCHES["cgemm"] == before + 2
+    plain = lowp.cgemm_plain(a, b, n_passes, op, op_b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    a64 = (a.mH if op == "h" else a).to(torch.complex128)
+    b64 = (b.mH if op_b == "h" else b).to(torch.complex128)
+    K = a64.shape[-1]
+    scale = a64.abs() @ b64.abs()
+    assert ((got - plain).abs() / scale).max().item() <= 2 * (2 * K * n_passes + 2) * 2.0**-24
+    assert ((got - a64 @ b64).abs() / scale).max().item() <= lowp.rel_bound(n_passes, K)
+    return got
+
+
+# K7's plans on each side of every boundary (``csrc/bf16_cgemm.cu``: THIN_K
+# up to K 8, before THIN_N up to N 2; LARGE from M and N 64, K 16 and 264
+# tiles of 128 x 64, or 64 x 128 where N > M), ragged M, N and K included:
+# [B, M, N, K] and the plan.
+CGEMM_PLAN_SHAPES = [
+    (3, 5, 7, 8, "thin_k"), (3, 5, 7, 9, "small"), (2, 300, 1, 8, "thin_k"),
+    (5, 9, 2, 40, "thin_n"), (5, 9, 3, 40, "small"), (5, 70, 1, 9, "thin_n"),
+    (264, 64, 64, 16, "large_m"), (263, 64, 64, 16, "small"), (264, 64, 64, 15, "small"),
+    (264, 63, 64, 16, "small"), (264, 64, 65, 16, "large_n"),
+    (64, 300, 70, 33, "large_m"), (64, 70, 300, 33, "large_n"),
+]
+
+
+@pytest.mark.parametrize("ops", ["nn", "hn", "nh", "hh"])
+@pytest.mark.parametrize("B,M,N,K,plan", CGEMM_PLAN_SHAPES)
+def test_cgemm_plans(dev, B, M, N, K, plan, ops):
+    """Each plan of K7 at the shapes on either side of its boundaries, with
+    ``op`` "h" on ``a``, on ``b`` and on both, at three passes and one."""
+    op, op_b = ops
+    assert lowp.plan(B, M, N, K) == plan
+    rng = np.random.default_rng(B + M + N + K)
+    a, b = _cgemm_operands(rng, B, M, N, K, op, dev)
+    if op_b == "h":
+        b = b.mH.resolve_conj().contiguous()
+    for n_passes in (3, 1):
+        _check_cgemm(a, b, n_passes, op, op_b)
+
+
+@pytest.mark.parametrize("n_passes", [3, 1])
+def test_cgemm_two_level_batch(dev, n_passes):
+    """The two-level batch: a gate broadcast over theta's bond index (inner
+    stride 0; THIN_K) and a slice of sites of a state batch (an outer
+    stride of its own, inner stride > 0; THIN_K and, as ``b`` of a chi-16
+    product, SMALL) equal the dense copies to the bit (the plan depends on
+    the shape only)."""
+    rng = np.random.default_rng(11)
+
+    def c(*shape):
+        x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(x.astype(np.complex64)).to(dev)
+
+    u4, theta = c(6, 4, 4), c(6, 16, 4, 16)
+    a4, b4 = lowp._batched(u4[:, None], theta, (6, 16))
+    assert lowp._layout(a4) == (16, 0, 4) and a4.data_ptr() == u4.data_ptr()
+    got = _check_cgemm(a4, b4, n_passes)
+    dense = lowp.cgemm(u4[:, None].expand(6, 16, 4, 4).reshape(96, 4, 4).contiguous(),
+                       theta.reshape(96, 4, 16), n_passes)
+    assert torch.equal(got.reshape(96, 4, 16), dense)
+    state = c(3, 7, 16, 2, 16)
+    sites = state[:, 1:5]
+    a4, b4 = lowp._batched(c(2, 2), sites, (3, 4, 16))
+    assert lowp._layout(b4) == (7 * 16 * 32, 32, 16) and b4.data_ptr() == sites.data_ptr()
+    got = _check_cgemm(a4, b4, n_passes)
+    assert torch.equal(got.reshape(192, 2, 16),
+                       lowp.cgemm(a4.reshape(192, 2, 2).contiguous(),
+                                  sites.reshape(192, 2, 16), n_passes))
+    m = c(3, 4, 32, 16)
+    a4, b4 = lowp._batched(m, sites.reshape(3, 4, 16, 32), (3, 4))
+    assert lowp._layout(b4)[:2] == (7 * 16 * 32, 16 * 32) and lowp.plan(12, 32, 32, 16) == "small"
+    got = _check_cgemm(a4, b4, n_passes)
+    assert torch.equal(got.reshape(12, 32, 32),
+                       lowp.cgemm(m.reshape(12, 32, 16), sites.reshape(12, 16, 32), n_passes))
+
+
+@pytest.mark.parametrize("B,M,N,K,op", [(65539, 2, 64, 2, "n"), (70000, 9, 2, 20, "h"),
+                                        (70000, 2, 16, 16, "n")])
+def test_cgemm_batch_past_the_grid(dev, B, M, N, K, op):
+    """A batch past 65535 (the Hadamard layer's 65536 matrices and more) on
+    THIN_K, THIN_N and SMALL: every matrix computed."""
+    a, b = _cgemm_operands(np.random.default_rng(B), B, M, N, K, op, dev)
+    if K == 2:
+        a = a[:1].expand(B, M, K)  # the Hadamard's batch stride 0
+    for n_passes in (3, 1):
+        _check_cgemm(a, b, n_passes, op)
+
+
 def test_cgemm_refusals(dev):
-    """complex128, a matrix that is not row-major and dense, a bad shape, a
-    bad pass count and a CPU operand raise and launch nothing."""
+    """complex128, a matrix that is not row-major and dense (a layout no plan
+    takes), a lazy conjugate, a bad shape, rank or op, a bad pass count, two
+    batch shapes and a CPU operand raise and launch nothing."""
     a, b = _cgemm_operands(np.random.default_rng(2), 2, 8, 8, 8, "n", dev)
     before = dict(_build.LAUNCHES)
     with pytest.raises(TypeError):
         lowp.cgemm_cuda(a.to(torch.complex128), b.to(torch.complex128), 3)
     with pytest.raises(ValueError, match="row-major"):
         lowp.cgemm_cuda(a.mT, b, 3)
+    with pytest.raises(ValueError, match="row-major"):
+        lowp.cgemm_cuda(a, b.mT, 3, "n", "h")
+    with pytest.raises(ValueError, match="lazy conjugate"):
+        lowp.cgemm_cuda(a, b.conj(), 3)
     with pytest.raises(ValueError):
         lowp.cgemm_cuda(a, b[:, :5], 3)
+    with pytest.raises(ValueError):
+        lowp.cgemm_cuda(a, b[:, :, :5], 3, "n", "h")
+    with pytest.raises(ValueError):
+        lowp.cgemm_cuda(a[None, None], b[None, None], 3)
+    with pytest.raises(ValueError):
+        lowp.cgemm_cuda(a, b, 3, "t")
+    with pytest.raises(ValueError):
+        lowp.cgemm_cuda(a.reshape(1, 2, 8, 8), b, 3)
     with pytest.raises(ValueError):
         lowp.cgemm_cuda(a, b, 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -1055,7 +1164,8 @@ def test_reduced_precision_slice_on_card_matches_cpu(dev, knob, precision):
 
 def _ambient_operands(rng, dev):
     """K7's operands at the engine's shapes on the ambient route (headline
-    chi 64, batch 32), as the engine views them: ``(name, a, b, op)``."""
+    chi 64, batch 32), as the engine views them: ``(name, a, b, op,
+    op_b)``."""
     def c(*shape):
         x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
         return torch.from_numpy(x.astype(np.complex64)).to(dev)
@@ -1068,15 +1178,15 @@ def _ambient_operands(rng, dev):
     v0 = c(2 * chi, chi).expand(B, 2 * chi, chi)  # the start block, batch stride 0
     panel = c(B, 512, 32)  # the scanned panel step at chi 256: a 31-column prefix
     return [
-        ("theta build", site.reshape(B, 2 * chi, chi), right.reshape(B, chi, 2 * chi), "n"),
-        ("gate, K = 4", c(B, 4, 4)[:, None], theta.reshape(B, chi, 4, chi), "n"),
-        ("move right, r b", r, right.reshape(B, chi, 2 * chi), "n"),
-        ("move left, a r^H", site.reshape(B, 2 * chi, chi), r.mH, "n"),
-        ("r = q^H v", site.reshape(B, 2 * chi, chi), site.reshape(B, 2 * chi, chi), "h"),
-        ("power theta^H v0", theta, v0, "h"),
-        ("vdot, m t", r, right.reshape(B, chi, 2 * chi), "n"),
-        ("single column, q^H x", panel[:, :, :31], panel[:, :, 31:], "h"),
-        ("Hadamard, batch stride 0", c(2, 2), state, "n"),
+        ("theta build", site.reshape(B, 2 * chi, chi), right.reshape(B, chi, 2 * chi), "n", "n"),
+        ("gate, K = 4", c(B, 4, 4)[:, None], theta.reshape(B, chi, 4, chi), "n", "n"),
+        ("move right, r b", r, right.reshape(B, chi, 2 * chi), "n", "n"),
+        ("move left, a r^H", site.reshape(B, 2 * chi, chi), r, "n", "h"),
+        ("r = q^H v", site.reshape(B, 2 * chi, chi), site.reshape(B, 2 * chi, chi), "h", "n"),
+        ("power theta^H v0", theta, v0, "h", "n"),
+        ("vdot, m t", r, right.reshape(B, chi, 2 * chi), "n", "n"),
+        ("single column, q^H x", panel[:, :, :31], panel[:, :, 31:], "h", "n"),
+        ("Hadamard, batch stride 0", c(2, 2), state, "n", "n"),
     ]
 
 
@@ -1084,24 +1194,25 @@ def _ambient_operands(rng, dev):
 def test_ambient_products_at_engine_shapes(dev, monkeypatch, precision):
     """``lowp.matmul`` on the engine's views at a reduced ambient class:
     K7 against its plain version on the same card inputs (both f32 sums'
-    worst case, ``2 (2 K P + 2) 2^-24`` of ``|op(a)| |b|``) and against the
-    exact product (``lowp.rel_bound``), two launches bit-equal, one launch a
-    product (the Hadamard's batch of 65536 matrices loops past the grid's
-    65535)."""
+    worst case, ``2 (2 K P + 2) 2^-24`` of ``|op(a)| |op_b(b)|``) and
+    against the exact product (``lowp.rel_bound``), two launches bit-equal,
+    one launch a product (the Hadamard's batch of 65536 matrices past the
+    65535 of a grid dimension)."""
     P = lowp.passes(precision)
-    for name, a, b, op in _ambient_operands(np.random.default_rng(7), dev):
+    for name, a, b, op, op_b in _ambient_operands(np.random.default_rng(7), dev):
         before = _build.LAUNCHES["cgemm"]
-        got, again = lowp.matmul(a, b, precision, op), lowp.matmul(a, b, precision, op)
+        got, again = (lowp.matmul(a, b, precision, op, op_b),
+                      lowp.matmul(a, b, precision, op, op_b))
         assert _build.LAUNCHES["cgemm"] == before + 2, name
         with monkeypatch.context() as m:
             m.setattr(lowp, "cgemm", lowp.cgemm_plain)
-            plain = lowp.matmul(a, b, precision, op)
+            plain = lowp.matmul(a, b, precision, op, op_b)
         torch.cuda.synchronize()
         assert torch.equal(got, again), name
         a64 = (a.mH if op == "h" else a).to(torch.complex128)
-        b64 = b.to(torch.complex128)
+        b64 = (b.mH if op_b == "h" else b).to(torch.complex128)
         scale = a64.abs() @ b64.abs()
-        K = b.shape[-2]
+        K = a64.shape[-1]
         assert ((got - plain).abs() / scale).max().item() <= 2 * (2 * K * P + 2) * 2.0**-24, name
         assert ((got - a64 @ b64).abs() / scale).max().item() <= lowp.rel_bound(P, K), name
 

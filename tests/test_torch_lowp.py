@@ -150,17 +150,75 @@ def test_plain_is_complex64_only_and_kernel_refuses():
         lowp.cgemm_cuda(a, b, 3)  # a CPU tensor never reaches the kernel
     assert _build.LAUNCHES == before and "cgemm" in _build.KERNELS
     assert "cgemm" not in _build.PAIR_KERNELS and "bf16_cgemm.cu" in _build.SINGLE_BUILD
-    # a broadcast batch (stride 0), a sliced batch and strided rows (the tile
-    # step's view of a transposed carry) are layouts the kernel takes; a
-    # transposed matrix is not, on either device
-    assert lowp._layout(a[:1].expand(4, 4, 3)) == (0, 3)
-    assert lowp._layout(torch.zeros((3, 2, 4, 3), dtype=torch.complex64)[:, 1]) == (24, 3)
+    # a broadcast batch (stride 0), a sliced batch, strided rows (the tile
+    # step's view of a transposed carry) and a two-level batch with a
+    # broadcast inner level (a gate over theta's bond index) are layouts the
+    # kernel takes, as (outer, inner, row) strides; a transposed matrix is
+    # not, on either device
+    assert lowp._layout(a[:1].expand(4, 4, 3)) == (0, 0, 3)
+    assert lowp._layout(torch.zeros((3, 2, 4, 3), dtype=torch.complex64)[:, 1]) == (24, 0, 3)
     carry = torch.zeros((4, 8, 4, 8), dtype=torch.complex64).transpose(1, 2)  # [y, x, a, b]
-    assert lowp._layout(carry.transpose(0, 1).reshape(4, 32, 8)) == (8, 32)
+    assert lowp._layout(carry.transpose(0, 1).reshape(4, 32, 8)) == (8, 0, 32)
+    gate = torch.zeros((3, 4, 4), dtype=torch.complex64)[:, None].expand(3, 5, 4, 4)
+    assert lowp._layout(gate) == (16, 0, 4)
     with pytest.raises(ValueError, match="row-major"):
         lowp._layout(b.mT)
     with pytest.raises(ValueError, match="row-major"):
         lowp.cgemm(b.mT.contiguous().mT, b.mT.contiguous(), 3)
+
+
+@pytest.mark.parametrize("n_passes", [3, 1])
+@pytest.mark.parametrize("op", lowp.OPS)
+def test_plain_op_b_matches_dense_and_emulation(op, n_passes):
+    """``op_b`` "h" (``b`` stored ``[N, K]``, its conjugate transpose in the
+    product, the layout of ``r^H`` and ``V^H``): the plain version gives the
+    bits of the same call on the dense copy ``b^H``, and the numpy emulation
+    within 1e-6 of ``|a||b|``; the exact product within the class's bound."""
+    B, M, N, K = 2, 17, 33, 70
+    rng = np.random.default_rng(N + K + n_passes)
+    a = _crandn(rng, B, K, M) if op == "h" else _crandn(rng, B, M, K)
+    b = _crandn(rng, B, N, K)
+    bh = b.conj().transpose(0, 2, 1)
+    got = lowp.cgemm(torch.from_numpy(a), torch.from_numpy(b), n_passes, op, "h").numpy()
+    dense = lowp.cgemm(torch.from_numpy(a), torch.from_numpy(bh.copy()), n_passes, op).numpy()
+    np.testing.assert_array_equal(got, dense)
+    assert np.abs(got - _emulate(a, bh, n_passes, op)).max() <= (
+        1e-6 * np.linalg.norm(a) * np.linalg.norm(b))
+    a64 = a.astype(np.complex128)
+    a64 = a64.conj().transpose(0, 2, 1) if op == "h" else a64
+    scale = np.abs(a64) @ np.abs(bh.astype(np.complex128))
+    err = np.abs(got - a64 @ bh.astype(np.complex128)) / scale
+    assert err.max() <= lowp.rel_bound(n_passes, K)
+
+
+@pytest.mark.parametrize("n_passes", [3, 1])
+def test_plain_two_level_batch_matches_dense(n_passes):
+    """K7's two-level batch, as ``lowp.matmul`` lays it out: a gate broadcast
+    over theta's bond index (inner stride 0), a slice of sites of a state
+    batch (an outer stride of its own, inner stride > 0) and one matrix over
+    the whole batch (strides 0) are views of the callers' tensors, and give
+    the bits of the dense copies."""
+    rng = np.random.default_rng(5 + n_passes)
+    u4 = torch.from_numpy(_crandn(rng, 3, 4, 4))
+    theta = torch.from_numpy(_crandn(rng, 3, 6, 4, 6))
+    a4, b4 = lowp._batched(u4[:, None], theta, (3, 6))
+    assert a4.shape == (3, 6, 4, 4) and lowp._layout(a4) == (16, 0, 4)
+    assert lowp._layout(b4) == (144, 24, 6)
+    assert a4.data_ptr() == u4.data_ptr() and b4.data_ptr() == theta.data_ptr()
+    dense = lowp.cgemm(u4[:, None].expand(3, 6, 4, 4).reshape(18, 4, 4).contiguous(),
+                       theta.reshape(18, 4, 6), n_passes)
+    np.testing.assert_array_equal(lowp.cgemm(a4, b4, n_passes).reshape(18, 4, 6).numpy(),
+                                  dense.numpy())
+    state = torch.from_numpy(_crandn(rng, 2, 7, 6, 2, 6))
+    sites, u2 = state[:, 1:5], torch.from_numpy(_crandn(rng, 2, 2))
+    a4, b4 = lowp._batched(u2, sites, (2, 4, 6))
+    assert lowp._layout(a4) == (0, 0, 2) and lowp._layout(b4) == (7 * 72, 12, 6)
+    assert a4.data_ptr() == u2.data_ptr() and b4.data_ptr() == sites.data_ptr()
+    dense = lowp.cgemm(u2.expand(48, 2, 2).contiguous(), sites.reshape(48, 2, 6), n_passes)
+    np.testing.assert_array_equal(lowp.cgemm(a4, b4, n_passes).reshape(48, 2, 6).numpy(),
+                                  dense.numpy())
+    np.testing.assert_array_equal(lowp.matmul(u2, sites, ("high", "bfloat16")[n_passes == 1])
+                                  .reshape(48, 2, 6).numpy(), dense.numpy())
 
 
 # ------------------------------------------------------------ the power step
@@ -300,7 +358,8 @@ def test_main_no_test_matches_reference(tmp_path, monkeypatch):
         monkeypatch.setenv(key, value)
     passes, real_plain = [], lowp.cgemm_plain
     monkeypatch.setattr(lowp, "cgemm_plain",
-                        lambda a, b, n, op="n": passes.append(n) or real_plain(a, b, n, op))
+                        lambda a, b, n, op="n", op_b="n": passes.append(n)
+                        or real_plain(a, b, n, op, op_b))
     K = {}
     for side, entry in (("port", main_no_test), ("ref", ref_main_no_test)):
         work = tmp_path / side
