@@ -49,6 +49,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    = (2 cr, 2 cl, cm); in complex128 ``pair`` changes no output bit; then
    the pair kernels' times beside the single-column ones (CUDA events,
    turns single, pair, pair, single).
+3c. K8, the scanned MGS2 panel step of the blocked orthonormalizer
+   (``csrc/mgs2_panel.cu``, built once like K7): against its plain version
+   at m 256 to 2048, 32 columns and a last panel of 16, batch 32, complex64
+   and complex128, each at its cutoff (1e-10, 1e-24: ``orth.dep_tol2``),
+   full and degenerate panels (the same exact-zero columns,
+   projectors within 1e-5 and 1e-12), two launches bit-equal, on both launch
+   plans (the rows in shared memory or in global scratch); a launch over the
+   shared-memory limit raises uncounted; its device time at each shape (a
+   CUDA graph of 20 launches), call time, the plain version's time,
+   ``torch.linalg.qr(a, mode="reduced")``'s (the library call) and its
+   bound.
 4. default route: the port's ``cli.main_no_test`` at the repo's headline
    shape (32 qubits, r=2, d=6, chi 64, f32, 102 train points of the pinned v1
    data): kernels K1 and K2 carry it; K symmetric with unit diagonal, its
@@ -70,7 +81,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    chi-256 run (16 qubits, r=2, d=6, one sim batch; stages chi 32, 64 and
    256) whose chi-256 stage orthonormalizes every split iterate (272 columns)
    and every center move (256 columns) through the blocked route, K3 on
-   panels of 32 (in f32; the f64 runs take the scanned panel step, no K3),
+   panels of 32 (in f32; the f64 runs take the scanned panel step, K8 once a
+   panel, their sim seconds printed beside the host loop's before K8),
    held to the port's own f64 run on the card at 1e-5 on v1 data; the
    tied-spectrum v2 data at cap 128 (its bonds stay below 9 on average),
    whose f32-vs-f64 error is printed, not gated; and a chi-128 run (stages 32, 64, 128), where the
@@ -79,7 +91,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    f64 run likewise. Each of these Grams (v1 and v2, f32 and f64) is also
    held against the dense statevector Gram ``|<psi_i|psi_j>|^2`` of the same
    points, each state built once by the port's ``ops/dense`` (complex128, on
-   the host): the errors are printed (the dense verdict), not gated.
+   the host): the errors are printed (the dense verdict), not gated. Last,
+   the chi-128 v1 run with ``QMLTPU_FUSED_SPLIT=0`` (K3 up to 128 columns,
+   the 144-column split iterates on K8 in complex64) within 3e-5 of the
+   fused run's Gram.
 7. brick route (``QMLTPU_ROUTING=brick``, chi 128, oversampling 0, so that
    every stage from chi 16 is one K5 takes): (a) 14 qubits, r=2, d=6, one sim
    batch of 32, with ``QMLTPU_FUSED_GATE=1`` (K5, and K1 on the chi-8 stage),
@@ -192,13 +207,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    printed, and the same run with K7's plain version held to it; (c) the
    brick route at 14 qubits, chi 128, "high", likewise (K5 and K1 never).
 
-On every route the launch counters (K1 to K5 and K7) must equal the counts
-worked out from the op stream (the brick layers' chunk plan on the brick
-route, its caps buckets under ``QMLTPU_BRICK_CAPS``; the tiles at a reduced
-tile precision; every product at a reduced ambient class) and the routing
-rules, every launch of K1 to K5 must come
-from the pair libraries exactly when the pair step is on (f32), none of
-K7's, and no plain version may have run on a CUDA tensor. The last three lines of stdout are the card's name and power
+On every route the launch counters (K1 to K5, K7 and K8) must equal the
+counts worked out from the op stream (the brick layers' chunk plan on the
+brick route, its caps buckets under ``QMLTPU_BRICK_CAPS``; the tiles at a
+reduced tile precision; every product at a reduced ambient class; one K8
+launch a scanned panel at a full class) and the routing rules, every launch
+of K1 to K5 must come from the pair libraries exactly when the pair step is
+on (f32), none of K7's or K8's, and no plain version may have run on a CUDA
+tensor. The last three lines of stdout are the card's name and power
 limit, the kernels summary JSON and the result JSON ``{"ok": true,
 "device": {...}}``.
 """
@@ -294,7 +310,12 @@ KERNEL_NAMES = tuple(row[0] for row in KERNEL_TABLE)
 K7 = ("cgemm", "qml_cutensornet_tpu_torch/csrc/bf16_cgemm.cu",
       "qml_cutensornet_tpu/ops/svd.py:236, :240 and qml_cutensornet_tpu/models/simulate.py:931 "
       "(XLA dots under HIGH and DEFAULT, not Pallas kernels)")
-LAUNCH_NAMES = KERNEL_NAMES + (K7[0],)
+# K8, the scanned MGS2 panel step of the blocked orthonormalizer, built once
+# like K7 (``ops/_build.SINGLE_BUILD``).
+K8 = ("mgs2_panel", "qml_cutensornet_tpu_torch/csrc/mgs2_panel.cu",
+      "qml_cutensornet_tpu/ops/blocked_qr.py:58 (_mgs2_panel, a lax.scan that XLA compiles, "
+      "called at :157; not a Pallas kernel)")
+LAUNCH_NAMES = KERNEL_NAMES + (K7[0], K8[0])
 
 
 def log(msg: str) -> None:
@@ -1114,6 +1135,134 @@ def phase_kernels(dev, parent_built):
     return err, times, stage_ms
 
 
+# K8 against its plain version: projectors within 1e-5 in complex64 (f32
+# sums in another order, the routes' bar on q) and 1e-12 in complex128, the
+# same exact-zero columns.
+TOL_K8 = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+# The scanned step's panels: m = 2 chi for chi 128, 256, 512 and 1024, 32
+# columns and a last panel of 16 (a split of chi + 16 columns), batch 32 (the
+# smoke's sim batch); the main path's shape is the chi-256 f64 run's.
+K8_SHAPES = tuple((m, p) for m in (256, 512, 1024, 2048) for p in (32, 16))
+K8_MAIN = (512, 32, torch.complex128)
+
+
+def mgs2_bound(B, m, p, dtype):
+    """K8's least time in ms: the larger of its operations (each column
+    projected twice against its prefix, normed and scaled: ``_orth_ops``)
+    over the card's peak for the type (``utils/flops.PEAKS``: f32 outside
+    the tensor cores, f64 on them) and its bytes (the panel read
+    once, its norms read once, q written once) over the memory rate."""
+    from qml_cutensornet_tpu_torch.utils.flops import PEAKS
+
+    cx = 16 if dtype == torch.complex128 else 8
+    peak = PEAKS["h100"]["f64_flops" if dtype == torch.complex128 else "f32_flops"]
+    t_ops = B * _orth_ops(m, p) / peak * 1e3
+    t_bytes = B * (2 * m * p * cx + p * cx // 2) / PEAKS["h100"]["hbm_bytes_per_s"] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def mgs2_panel_input(rng, B, m, p, dtype, kind, dev, collapsed=True):
+    """A panel, its columns' squared norms and how many of its columns must
+    come out zero: "full", random; "degenerate", its second half exact
+    duplicates of its first, with an exact-zero column, an exact duplicate,
+    one column at residual ratio^2 about 1e-6 (kept) and, with
+    ``collapsed``, one at about 1e-15 (zeroed at complex64's cutoff of
+    1e-10): every ratio far from the cutoff in f32 too. Under complex128's
+    cutoff of 1e-24 the 1e-15 column would be kept as a direction that f64
+    fixes only to about 1e-8, so it is left out there."""
+    x = _crandn(rng, B, m, p)
+    zeros = 0
+    if kind == "degenerate":
+        r = p // 2
+        x[:, :, 3] = 0.0
+        x[:, :, 7] = x[:, :, 1]
+        fresh = _crandn(rng, B, m, 2)
+        fresh *= np.linalg.norm(x[:, :, 2:3], axis=1, keepdims=True) / np.linalg.norm(
+            fresh, axis=1, keepdims=True)  # the scale of column 2
+        if collapsed:
+            x[:, :, 5] = x[:, :, 2] + 3e-8 * fresh[:, :, 0]
+        x[:, :, r:] = x[:, :, :p - r]
+        x[:, :, p - 1] = x[:, :, 2] + 1e-3 * fresh[:, :, 1]
+        zeros = 2 + int(collapsed) + (r - 1)
+    a = torch.from_numpy(x).to(dev, dtype)
+    return a, (a.real ** 2 + a.imag ** 2).sum(1), zeros
+
+
+def phase_mgs2_kernel(dev, smi):
+    """K8, the scanned panel step (``ops/blocked_qr.mgs2_panel_cuda``):
+    against its plain version at every shape of ``K8_SHAPES`` in complex64
+    and complex128, each at its cutoff (``orth.dep_tol2``), full and
+    degenerate panels (the same exact-zero columns, projectors within
+    ``TOL_K8``), two launches bit-equal, each launch plan named; a launch
+    refused for too much shared memory raises and counts nothing; then at
+    each shape (full panels) its device time (a CUDA graph of 20
+    launches, ``graph_ms``), call time, the plain version's time,
+    ``torch.linalg.qr(a, mode="reduced")``'s (the library call) and its
+    bound. Returns the kernel's summary for the kernels line."""
+    from qml_cutensornet_tpu_torch.ops import _build, blocked_qr, orth
+
+    rng = np.random.default_rng(20261019)
+    optin = _build.smem_optin(dev.index)
+    err, plans = {}, set()
+    for dtype in (torch.complex64, torch.complex128):
+        tol2 = orth.dep_tol2(dtype)
+        for m, p in K8_SHAPES:
+            plan = blocked_qr.mgs2_plan(m, p, dtype, optin)
+            plans.add((str(dtype)[6:], plan.panel_smem))
+            for kind in ("full", "degenerate"):
+                a, n2, zeros = mgs2_panel_input(rng, 32, m, p, dtype, kind, dev,
+                                                collapsed=dtype == torch.complex64)
+                qk = blocked_qr.mgs2_panel_cuda(a, n2)
+                again = blocked_qr.mgs2_panel_cuda(a, n2)
+                qp = blocked_qr.mgs2_panel_plain(a, n2)
+                torch.cuda.synchronize()
+                what = (f"K8 [32,{m},{p}] {str(dtype)[6:]} cutoff {tol2:g} {kind} (rows in "
+                        f"{'shared memory' if plan.panel_smem else 'global scratch'}, "
+                        f"{plan.smem_bytes} B dynamic shared)")
+                assert torch.equal(qk, again), f"{what}: two launches differ"
+                zk, zp = (qk == 0).all(1), (qp == 0).all(1)
+                assert torch.equal(zk, zp), f"{what}: other exact-zero columns than the plain"
+                assert int(zk.sum()) == 32 * zeros, f"{what}: {int(zk.sum())} zero columns"
+                perr = (qk @ qk.mH - qp @ qp.mH).abs().max().item()
+                err[str(dtype)[6:]] = max(err.get(str(dtype)[6:], 0.0), perr)
+                log(f"  {what}: projector vs plain {perr:.3e} (tol {TOL_K8[dtype]}), exact-zero "
+                    f"columns {int(zk.sum())} on both, two launches bit-equal")
+                assert perr <= TOL_K8[dtype], f"{what}: projector off the plain's by {perr}"
+    assert len(plans) == 4, f"K8 plans reached: {plans}"
+    a, n2, _ = mgs2_panel_input(rng, 2, 512, 32, torch.complex64, "full", dev)
+    before = dict(_build.LAUNCHES)
+    try:
+        blocked_qr.mgs2_panel_cuda(a, n2, smem_bytes=optin + 4096)
+    except RuntimeError as exc:
+        log(f"  K8 negative control: refused launch raised: {exc}")
+    else:
+        raise AssertionError("a K8 launch over the shared-memory limit did not raise")
+    assert _build.LAUNCHES == before, "a refused K8 launch was counted"
+    by_shape = {}
+    for dtype in (torch.complex64, torch.complex128):
+        for m, p in K8_SHAPES:
+            a, n2, _ = mgs2_panel_input(rng, 32, m, p, dtype, "full", dev)
+            kern = lambda: blocked_qr.mgs2_panel_cuda(a, n2)
+            d1, d2 = graph_ms(kern), graph_ms(kern)
+            call = time_ms(kern, 20)
+            plain_ms = time_ms(lambda: blocked_qr.mgs2_panel_plain(a, n2), 2)
+            lib_ms = time_ms(lambda: torch.linalg.qr(a, mode="reduced"), 3)
+            bound_ms, bound_by = mgs2_bound(32, m, p, dtype)
+            key = f"B32_m{m}_P{p}_{str(dtype)[6:]}"
+            by_shape[key] = {"ms": (d1 + d2) / 2, "call_ms": call, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                             "panel_smem": blocked_qr.mgs2_plan(m, p, dtype, optin).panel_smem}
+            log(f"  time K8 [32,{m},{p}] {str(dtype)[6:]} [{smi}]: device {d1:.4f} / {d2:.4f} ms "
+                f"(a CUDA graph of 20 launches), call {call:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"torch.linalg.qr {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{32 * _orth_ops(m, p) / 1e9:.3f} GFLOP)")
+    main = by_shape[f"B32_m{K8_MAIN[0]}_P{K8_MAIN[1]}_{str(K8_MAIN[2])[6:]}"]
+    return {"max_abs_err": max(err.values()), "max_abs_err_by_dtype": err,
+            **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by")},
+            "ms_by_shape": by_shape}
+
+
 # The caps buckets' K1 shapes at nf 100, chi 128, oversampling 0: (m, k, nc)
 # = (2 cr, 2 cl, cm) of (64, 128, 128), (128, 64, 32), (4, 8, 16), (16, 32,
 # 64), (32, 16, 8), (4, 4, 4) and (8, 4, 4); the (128, 128, 128) bucket is
@@ -1309,7 +1458,8 @@ def op_launches(cfg, count):
     launch with the fused split up to ``orth.MAX_K`` columns, else one
     orthonormalization by K3. An orthonormalization of more columns than that
     is one K3 launch per panel of ``blocked_qr.PANEL`` on the fused split in
-    complex64 and none otherwise (the scanned panel step). At a reduced
+    complex64 and otherwise one K8 launch per panel (the scanned panel step)
+    at a full class, none at a reduced one. At a reduced
     ambient class in complex64 (``cfg.matmul_precision``) every product of
     the engine is one K7 launch (``ops/lowp.matmul``): theta and the gate of
     a two-site update, the split's right factor (and the eigh route's Gram),
@@ -1334,6 +1484,12 @@ def op_launches(cfg, count):
             return -(-k // blocked_qr.PANEL)
         return 0
 
+    def scanned(k):
+        if (k <= orth.MAX_K or ambient
+                or blocked_qr.kernel_panels_used(cfg.fused_split, cfg.complex_dtype)):
+            return 0
+        return -(-k // blocked_qr.PANEL)
+
     def blocked_products(k):
         if not ambient or k <= orth.MAX_K:
             return 0
@@ -1353,6 +1509,7 @@ def op_launches(cfg, count):
             count["split"] += 1
         else:
             count["orth"] += 2 * iters * panels(nc)
+            count["mgs2_panel"] += 2 * iters * scanned(nc)
             count["cgemm"] += 2 * iters * (bool(power_passes) + blocked_products(nc)) + ambient
 
     def add(chi, kind):
@@ -1365,6 +1522,7 @@ def op_launches(cfg, count):
                 count["orth_r"] += 1
             else:
                 count["orth"] += panels(chi)
+                count["mgs2_panel"] += scanned(chi)
                 count["cgemm"] += ambient * (orth.reference_r_is_dot(2 * chi, chi)
                                              + blocked_products(chi))
         elif svd.gate_split_eligible(dataclasses.replace(cfg, chi=chi), chi):
@@ -1466,7 +1624,7 @@ def count_launches(run, want, what):
     pair_k, launches_k = ({k: d[k] for k in KERNEL_NAMES} for d in (pair, launches))
     assert pair_k == (launches_k if pair_mode else dict.fromkeys(KERNEL_NAMES, 0)), (
         f"{what}: pair launches {pair} (pair step {'on' if pair_mode else 'off'})")
-    assert pair[K7[0]] == 0, f"{what}: a K7 launch counted as a pair library's"
+    assert pair[K7[0]] == pair[K8[0]] == 0, f"{what}: a K7 or K8 launch counted as a pair's"
     PAIR_BY_RUN[what] = pair
     return out, launches
 
@@ -1624,9 +1782,11 @@ def phase_unfused_route(smi):
     # Cap 128 (stages 32, 64, 128): the split iterates (144 columns) are
     # blocked, the center moves stay on K2. Each f32 run is held to the
     # port's own f64 run on the card at the same cap, whose blocked
-    # orthonormalizations take the scanned panel step (no K3 on panels).
+    # orthonormalizations take the scanned panel step (K8, no K3 on panels);
+    # each f64 run's sim seconds are printed beside those of the step run
+    # from the host (HOST_LOOP_F64_SIM).
     preprocess_elliptic(dataset_dir=str(RAW_V2), out_csv=str(WORK / "datasets" / CSV_V2))
-    dense_grams = {}
+    dense_grams, K32_by_run = {}, {}
     # The tied-spectrum v2 points keep every bond far below 128 (avg_max_chi
     # 7.12 in f32, 8.91 in f64 at cap 256), so they run at cap 128.
     for chi, data, csv in (("256", "v1", CSV_V1), ("128", "tied-spectrum v2", CSV_V2),
@@ -1640,8 +1800,13 @@ def phase_unfused_route(smi):
             assert launches["orth"] > 0
             add(launches)
             with environ(QMLTPU_PRECISION="f64"):
-                K64, _ = run_counted(main_no_test, argv, 1, f"{what}, f64")
+                K64, launches = run_counted(main_no_test, argv, 1, f"{what}, f64")
                 log(profile_line(info, smi, f"{what}, f64"))
+            assert launches["mgs2_panel"] > 0 and launches["cgemm"] == 0
+            add(launches)
+        K32_by_run[what] = K32
+        log(f"{what}, f64 sim [{smi}]: {SIM_SECONDS[f'{what}, f64']:.3f} s with K8; with the "
+            f"scanned step from the host: {HOST_LOOP_F64_SIM[what]}")
         if csv not in dense_grams:
             dense_grams[csv] = dense_gram(str(WORK / "datasets" / csv), 16, 20, 20, 5)
         K_dense = dense_grams[csv]
@@ -1663,7 +1828,31 @@ def phase_unfused_route(smi):
             # Near-duplicate points: entries near 1, whose rounding the unit
             # diagonal does not absorb; reported, not gated.
             log(f"tied-spectrum answer (not gated): f32-vs-f64 error {err:.3e} at nq 16, chi {chi}")
+
+    # (c) chi 128 on v1 with the fused split off: K3 on every
+    # orthonormalization up to 128 columns and the split iterates (144
+    # columns) through the scanned panel step, K8 in complex64, held to the
+    # fused run's Gram of (b) at the routes' bar.
+    what = "chi 128, v1 data, f32, fused split off"
+    with environ(QMLTPU_CHI="128", QMLTPU_FUSED_SPLIT="0"):
+        K, launches = run_counted(main_no_test, ARGV_CHI256, 1, what)
+        log(profile_line(run_info("train", 16, 2, 1.0, 6, 20, 5, CSV_V1), smi, what))
+    assert launches["mgs2_panel"] > 0 and launches["split"] == launches["orth_r"] == 0
+    add(launches)
+    check_train_gram(K, 32, what)
+    err = float(np.abs(K - K32_by_run["chi 128, v1 data"]).max())
+    log(f"{what}: vs the fused split's f32 Gram max_abs_err {err:.3e} (tol {TOL_ROUTES})")
+    assert err <= TOL_ROUTES, f"{what}: off the fused split's Gram by {err}"
     return total
+
+
+# Sim seconds of phase 6's f64 runs when the scanned panel step ran from
+# the host, before K8 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5).
+HOST_LOOP_F64_SIM = {
+    "chi 256, v1 data": "62.252 s",
+    "chi 128, tied-spectrum v2 data": "60.775 s (then at cap 256)",
+    "chi 128, v1 data": "30.216 s",
+}
 
 
 DENSE_VERDICT: dict = {}  # run -> {"f32": err, "f64": err} against the dense Gram
@@ -2893,6 +3082,8 @@ def main() -> int:
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f} s")
     pair_err, pair_ms = phase_pair_kernels(dev)
     log(f"pair kernels phase done at {time.perf_counter() - t_start:.1f} s")
+    k8 = phase_mgs2_kernel(dev, smi)
+    log(f"K8 phase done at {time.perf_counter() - t_start:.1f} s")
 
     (WORK / "datasets").mkdir(parents=True, exist_ok=True)
     csv = WORK / "datasets" / CSV_V1
@@ -2980,6 +3171,15 @@ def main() -> int:
         "plan": k7["plan"], "call_ms": k7["call_ms"], "library_call_ms": k7["library_call_ms"],
         "build_s": k7_build_s, "plans": k7["plans"], "ms_by_shape": k7["ms_by_shape"],
         "ms_by_engine_shape": ambient_ms})
+    name, source, replaces = K8
+    launches = sum(p.get(name, 0) for p in by_path.values())
+    assert launches > 0, "K8 never launched on a main path"
+    kernels.append({
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        "launches_by_path": {path: p[name] for path, p in by_path.items() if p.get(name)},
+        "build_s": _build.BUILD_INFO["seconds_by_library"].get("mgs2_panel"),
+        "shape": f"[32,{K8_MAIN[0]},{K8_MAIN[1]}] {str(K8_MAIN[2])[6:]}", **k8})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

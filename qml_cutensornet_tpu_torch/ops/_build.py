@@ -6,11 +6,13 @@ two shared libraries in ``build/kernels/`` next to the package
 (``.gitignore`` lists ``build/``): the single-column one, and the pair
 library, the same source with ``-DQK_PAIR`` (the block-2 in-panel step of
 the reference's ``mgs_pair``, complex64 kernels only). K7
-(``bf16_cgemm.cu``, :data:`SINGLE_BUILD`) has no in-panel step and is built
-once; its entry point is in both namespaces :func:`load` returns. One
-``nvcc`` process per library, all eleven started together. Each is named by
-a hash of the sources, headers and flags, so a fresh checkout builds on
-first use and a rebuilt source never loads a stale library.
+(``bf16_cgemm.cu``) and K8 (``mgs2_panel.cu``, the scanned panel step,
+which ignores ``pair`` as the reference's does), :data:`SINGLE_BUILD`, are
+built once; their entry points are in both namespaces :func:`load`
+returns. One ``nvcc`` process per library, all twelve started together.
+Each is named by a hash of the sources, headers and flags, so a fresh
+checkout builds on first use and a rebuilt source never loads a stale
+library.
 
 Launch bookkeeping lives here too: ``LAUNCHES`` counts kernel launches per
 kernel (incremented by each wrapper right after its launch succeeded),
@@ -38,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 PAIR_KERNELS = ("split", "orth_r", "orth", "gate_split", "brick_split")  # K1 to K5
-KERNELS = PAIR_KERNELS + ("cgemm",)  # and K7
+KERNELS = PAIR_KERNELS + ("cgemm", "mgs2_panel")  # and K7, K8
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PAIR_LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
@@ -51,7 +53,7 @@ BUILD_INFO: dict = {}
 _LIBS: dict = {}  # pair (bool) -> the namespace of that library's entry points
 PAIR_FLAG = "-DQK_PAIR"
 
-_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_vp, _i, _ll, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 # source -> {C entry point: (argtypes, restype)}
 SOURCES = {
     "orth_r.cu": {
@@ -81,9 +83,13 @@ SOURCES = {
         "qk_cgemm_launch": ([_vp] * 3 + [_ll] * 2 + [_i] * 3 + [_ll] * 6 + [_i] * 3 + [_vp], _i),
         "qk_cgemm_attrs": ([_i] * 4 + [_vp], _i),
     },
+    "mgs2_panel.cu": {
+        "qk_mgs2_smem": ([_i] * 4, _ll),
+        "qk_mgs2_launch": ([_vp] * 4 + [_i] * 4 + [_d, _i, _ll, _vp], _i),
+    },
 }
 # Sources built once, without a pair library.
-SINGLE_BUILD = ("bf16_cgemm.cu",)
+SINGLE_BUILD = ("bf16_cgemm.cu", "mgs2_panel.cu")
 
 
 def reset_counters() -> None:

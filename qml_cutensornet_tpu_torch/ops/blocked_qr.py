@@ -1,6 +1,6 @@
 """Orthonormalization above 128 columns: blocked BCGS2 over panels of 32
 (port of ``qml_cutensornet_tpu/ops/blocked_qr.py``: ``qr_orth_blocked``,
-``_mgs2_panel``).
+``_mgs2_panel``), and kernel K8, the scanned panel step.
 
 Kernel K3 (``ops/orth.py``) takes at most 128 columns; wider inputs (the
 split's ``[B, 2chi, nc]`` iterates and the center move's ``[B, 2chi, chi]``
@@ -24,10 +24,20 @@ above chi 128) are orthonormalized panel by panel:
     be orthogonalized against junk. Inside the panel the kernel judges
     collapse against the column's norm after that projection;
   - otherwise (``kernel_panels`` off, or complex128) the scanned MGS2 panel
-    step :func:`mgs2_panel`, in torch ops, which judges every column's
-    collapse against its norm BEFORE the projection against earlier panels;
-    its projections are single-column products at ``precision``, as the
-    reference's scan leaves them to XLA.
+    step :func:`mgs2_panel`, which judges every column's collapse against
+    its norm BEFORE the projection against earlier panels: kernel K8
+    (``csrc/mgs2_panel.cu``) on CUDA tensors and its plain version on CPU
+    tensors at a full class; at a reduced ambient class in complex64 a chain
+    of single-column products on K7 (:func:`mgs2_panel_lowp`), as the
+    reference's scan sends its dots to the class.
+
+Every step cuts at ``orth.dep_tol2``: the reference scan's 1e-10 in
+complex64, and 1e-24 in complex128 as K2 and K3 cut. The reference never
+runs the scan in f64 (its blocked route takes f32 only,
+``cpx._blocked_orth_eligible``): it orthonormalizes f64 input of any width
+by Householder QR with no cutoff, and 1e-10 here would drop directions
+whose singular-value ratio lies between about 1e-5 and f64's floor of
+1e-10 in the truncation mask, which the reference keeps.
 
 ``pair`` (``SimConfig.mgs_pair``) reaches the K3 panels only; the scanned
 panel step ignores it, as the reference's ``_mgs2_panel`` does.
@@ -38,9 +48,11 @@ zeros. The basis is defined up to a unitary mixing within the span.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from qml_cutensornet_tpu_torch.ops import lowp, orth
+from qml_cutensornet_tpu_torch.ops import _block, _build, lowp, orth
 
 PANEL = 32  # complex columns per panel
 
@@ -50,32 +62,124 @@ def kernel_panels_used(kernel_panels: bool, dtype: torch.dtype) -> bool:
     return kernel_panels and dtype == torch.complex64
 
 
-def mgs2_panel(a: torch.Tensor, n2_orig: torch.Tensor, precision: str = "highest"
-               ) -> torch.Tensor:
-    """The reference's scanned panel step: orthonormalize the columns of one
-    panel ``a [B, m, P]`` one at a time by MGS2 (two passes against the
-    panel's finished prefix, each a pair of single-column products at
-    ``precision``), zeroing a column whose residual squared norm is not above
-    ``orth.dep_tol2`` times ``n2_orig [B, P]``, its squared norm before any
-    projection. At a full class the products stay the elementwise sums they
-    were, so that the f64 runs this step serves keep their numerics."""
+def _scan(a: torch.Tensor, n2_orig: torch.Tensor, project) -> torch.Tensor:
+    """The scan over the columns of ``a [B, m, P]``: each column projected
+    twice by ``project(q_prefix, x)`` against the panel's finished prefix,
+    then scaled to unit norm or zeroed (not above ``orth.dep_tol2`` times
+    ``n2_orig [B, P]``)."""
     tol = orth.dep_tol2(a.dtype)
-    reduced = lowp.reduced_passes(precision, a.dtype)
     q = torch.zeros_like(a)
     for t in range(a.shape[2]):
         x = a[:, :, t]
         if t:
             qp = q[:, :, :t]
             for _ in range(2):
-                if reduced:
-                    c = lowp.matmul(qp, x[:, :, None], precision, "h")
-                    x = x - lowp.matmul(qp, c, precision)[:, :, 0]
-                else:
-                    c = (qp.conj() * x[:, :, None]).sum(1)  # [B, t]
-                    x = x - (qp * c[:, None, :]).sum(2)
-        n2 = orth.abs2(x).sum(1)
-        keep = (n2 > tol * n2_orig[:, t]).to(n2.dtype)
-        q[:, :, t] = x * (torch.rsqrt(n2 + orth.TINY) * keep)[:, None]
+                x = project(qp, x)
+        q[:, :, t] = orth._finish_column(x, n2_orig[:, t], tol)
+    return q
+
+
+def mgs2_panel_plain(a: torch.Tensor, n2_orig: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: the reference's scanned panel step on one panel
+    ``a [B, m, P]``, its products the elementwise sums they are in the
+    kernel."""
+    if a.is_cuda:
+        _build.PLAIN_ON_CUDA["mgs2_panel"] += 1
+
+    def project(qp, x):
+        c = (qp.conj() * x[:, :, None]).sum(1)  # [B, t]
+        return x - (qp * c[:, None, :]).sum(2)
+
+    return _scan(a, n2_orig, project)
+
+
+def mgs2_panel_lowp(a: torch.Tensor, n2_orig: torch.Tensor, precision: str) -> torch.Tensor:
+    """The scanned panel step at a reduced ambient class in complex64: each
+    projection a pair of single-column products on K7 at ``precision``
+    (``ops/lowp.matmul``), as the reference sends its scan's dots to the
+    class. Not K8's plain version: K8 runs at a full class only."""
+    def project(qp, x):
+        c = lowp.matmul(qp, x[:, :, None], precision, "h")
+        return x - lowp.matmul(qp, c, precision)[:, :, 0]
+
+    return _scan(a, n2_orig, project)
+
+
+def mgs2_panel(a: torch.Tensor, n2_orig: torch.Tensor, precision: str = "highest"
+               ) -> torch.Tensor:
+    """The reference's scanned panel step on ``a [B, m, P]`` (P <= 32) with
+    its columns' squared norms before any projection ``n2_orig [B, P]``: at
+    a reduced class in complex64 :func:`mgs2_panel_lowp`; else kernel K8 for
+    CUDA tensors and its plain version for CPU tensors."""
+    if lowp.reduced_passes(precision, a.dtype):
+        return mgs2_panel_lowp(a, n2_orig, precision)
+    if a.device.type == "cpu":
+        return mgs2_panel_plain(a, n2_orig)
+    return mgs2_panel_cuda(a, n2_orig)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mgs2Plan:
+    """How K8 is launched (``csrc/mgs2_panel.cu``): one block of
+    ``_block.NT`` threads per batch element; the rows ``W [P][m + 1]`` in
+    shared memory (``panel_smem``, ``smem_bytes`` of dynamic shared memory)
+    or in a per-element global scratch buffer of ``scratch_cx`` complex
+    elements."""
+
+    panel_smem: bool
+    smem_bytes: int
+    scratch_cx: int
+
+
+def mgs2_static_bytes(dtype: torch.dtype) -> int:
+    """K8's static shared memory: the reduction's two buffers of 16 warps x
+    32 values and each warp's copy of 2 x ``PANEL`` coefficient values."""
+    return (2 * _block.NW * 32 + _block.NW * 2 * PANEL) * (_block.cx_bytes(dtype) // 2)
+
+
+def mgs2_plan(m: int, p: int, dtype: torch.dtype, smem_optin: int) -> Mgs2Plan:
+    """K8's launch plan, a pure function of the panel's shape, the dtype and
+    the shared memory a block may opt in to: the rows in shared memory where
+    they fit beside the static slots, else in global scratch."""
+    rows = p * (m + 1) * _block.cx_bytes(dtype)
+    if rows + mgs2_static_bytes(dtype) <= smem_optin:
+        return Mgs2Plan(True, rows, 0)
+    return Mgs2Plan(False, 0, p * (m + 1))
+
+
+def mgs2_panel_cuda(a: torch.Tensor, n2_orig: torch.Tensor,
+                    smem_bytes: int | None = None) -> torch.Tensor:
+    """Launch K8 on the panel ``a [B, m, P]`` (P <= 32, contiguous) with
+    ``n2_orig [B, P]`` (contiguous, of ``a``'s real dtype) and the cutoff
+    ``orth.dep_tol2`` as :func:`mgs2_plan` says. ``smem_bytes`` overrides the
+    plan's dynamic shared memory request (used only to test the
+    launch-error path)."""
+    if a.dtype not in (torch.complex64, torch.complex128):
+        raise TypeError(f"mgs2_panel: expected complex64 or complex128, got {a.dtype}")
+    if a.dim() != 3 or not a.is_contiguous():
+        raise ValueError(f"mgs2_panel: expected a contiguous [B, m, P] tensor, got shape "
+                         f"{tuple(a.shape)}, strides {a.stride()}")
+    B, m, p = a.shape
+    if not (1 <= p <= PANEL and m >= 1 and B >= 1):
+        raise ValueError(f"mgs2_panel: kernel takes 1 <= P <= {PANEL}; got m={m}, P={p}")
+    if (n2_orig.device != a.device or n2_orig.dtype != a.real.dtype
+            or tuple(n2_orig.shape) != (B, p) or not n2_orig.is_contiguous()):
+        raise ValueError(f"mgs2_panel: n2_orig must be a contiguous [{B}, {p}] "
+                         f"{a.real.dtype} tensor on {a.device}")
+    if a.device.type != "cuda":
+        raise ValueError(f"mgs2_panel: expected a CUDA tensor, got device {a.device}")
+    dbl = a.dtype == torch.complex128
+    lib = _build.load()
+    plan = mgs2_plan(m, p, a.dtype, _build.smem_optin(a.device.index))
+    q = torch.empty_like(a)
+    scratch = torch.empty((B, plan.scratch_cx), dtype=a.dtype, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = lib.qk_mgs2_launch(a.data_ptr(), n2_orig.data_ptr(), q.data_ptr(), scratch.data_ptr(),
+                            B, m, p, int(dbl), orth.dep_tol2(a.dtype),
+                            int(plan.panel_smem),
+                            plan.smem_bytes if smem_bytes is None else smem_bytes, stream)
+    _build.check(rc, "mgs2_panel kernel launch")
+    _build.count_launch("mgs2_panel", False)
     return q
 
 
@@ -100,5 +204,5 @@ def qr_orth_blocked(v: torch.Tensor, kernel_panels: bool, pair: bool = False,
             a = a * cross_keep[:, None, :].to(a.real.dtype)
             q[:, :, p0:p0 + PANEL] = orth.orth(a.contiguous(), pair)
         else:
-            q[:, :, p0:p0 + PANEL] = mgs2_panel(a, n2_orig, precision)
+            q[:, :, p0:p0 + PANEL] = mgs2_panel(a.contiguous(), n2_orig, precision)
     return q

@@ -37,7 +37,8 @@ reference's):
   subspace route.
 
 ``PEAKS`` holds the card only: one H100 SXM at its full 700 W power limit,
-f32 outside the tensor cores (TF32 stays off) and HBM3 bandwidth.
+f32 outside the tensor cores (TF32 stays off), IEEE f64 on the tensor cores
+(DMMA, twice the 34e12 outside them) and HBM3 bandwidth.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from qml_cutensornet_tpu_torch.models.ansatz import GATE_I, GATE_RX, GateSchedul
 PEAKS = {
     "h100": {
         "f32_flops": 67e12,
+        "f64_flops": 67e12,
         "hbm_bytes_per_s": 3.35e12,
     }
 }

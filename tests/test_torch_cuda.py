@@ -2,8 +2,9 @@
 against its plain PyTorch version at the main paths' shapes (the basis-only
 kernel also at the blocked route's panel shapes), the double instantiations
 and the global-scratch layouts, the launch-error path, the pair variants
-(``mgs_pair``) of all five and K1 at the brick caps' shapes, and the Gram
-slice on the card against the same slice on the CPU on the fused,
+(``mgs_pair``) of all five and K1 at the brick caps' shapes, kernel K8 (the
+scanned panel step of the blocked orthonormalizer) and its routing, and the
+Gram slice on the card against the same slice on the CPU on the fused,
 fused-gate, unfused, blocked and brick routes (the brick route also with
 caps and the pair step), and the multi-device ring at world size 1 over
 NCCL against the single-device Gram; kernel K7 (the bf16 tensor-core
@@ -172,13 +173,107 @@ def test_orth_double_and_blocked_route(dev):
     assert _build.LAUNCHES["orth"] == before + 5  # 144 columns: 5 panels of 32
     q_cpu = blocked_qr.qr_orth_blocked(wide, True)
     assert (q_gpu.cpu() @ q_gpu.cpu().mH - q_cpu @ q_cpu.mH).abs().max().item() <= TOL
-    q_scan = blocked_qr.qr_orth_blocked(wide.to(dev), False)  # the scanned panels: no K3
+    k8_before = _build.LAUNCHES["mgs2_panel"]
+    q_scan = blocked_qr.qr_orth_blocked(wide.to(dev), False)  # the scanned panels: K8, no K3
     assert _build.LAUNCHES["orth"] == before + 5
+    assert _build.LAUNCHES["mgs2_panel"] == k8_before + 5
     assert (q_scan.cpu() @ q_scan.cpu().mH - q_cpu @ q_cpu.mH).abs().max().item() <= TOL
     q, r = orth.qr(wide.to(dev), fused=True)  # above 128 columns: blocked, then q^H v
     assert (q @ r - wide.to(dev)).abs().max().item() <= TOL
     with pytest.raises(ValueError):
         orth.orth_cuda(wide.to(dev))
+
+
+def _mgs2_input(rng, B, m, p, dtype, kind, collapsed=True):
+    """A panel for K8 and its columns' squared norms: "full", random;
+    "degenerate", its second half exact duplicates of its first, with an
+    exact-zero column, an exact duplicate, one column at residual ratio^2
+    about 1e-6 (kept) and, with ``collapsed``, one at about 1e-15 (zeroed at
+    complex64's cutoff of 1e-10): every ratio far from the cutoff in f32 too
+    (a rank-deficient random product is not: its dependent columns' f32
+    residuals reach ratios^2 near 1e-10). Without ``collapsed`` (complex128)
+    column 5 stays random: under complex128's cutoff of 1e-24 the 1e-15
+    column would be kept as a direction that f64 fixes only to about 1e-8,
+    a projector no two summation orders agree on to 1e-12. Returns the
+    panel, its norms and its count of columns that must come out zero."""
+    x = rng.standard_normal((B, m, p)) + 1j * rng.standard_normal((B, m, p))
+    zeros = 0
+    if kind == "degenerate":
+        r = p // 2
+        x[:, :, 3] = 0.0
+        x[:, :, 7] = x[:, :, 1]
+        fresh = rng.standard_normal((B, m, 2)) + 1j * rng.standard_normal((B, m, 2))
+        fresh *= np.linalg.norm(x[:, :, 2:3], axis=1, keepdims=True) / np.linalg.norm(
+            fresh, axis=1, keepdims=True)  # the scale of column 2
+        if collapsed:
+            x[:, :, 5] = x[:, :, 2] + 3e-8 * fresh[:, :, 0]
+        x[:, :, r:] = x[:, :, :p - r]
+        x[:, :, p - 1] = x[:, :, 2] + 1e-3 * fresh[:, :, 1]
+        zeros = 2 + int(collapsed) + (r - 1)
+    a = torch.from_numpy(x.astype(dtype))
+    return a, (a.real ** 2 + a.imag ** 2).sum(1), zeros
+
+
+@pytest.mark.parametrize("m", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("p", [32, 16])
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("kind", ["full", "degenerate"])
+def test_mgs2_panel_kernel_matches_plain(dev, m, p, dtype, kind):
+    """K8 (the scanned panel step) against its plain version at the blocked
+    route's panel shapes (m = 2 chi for chi 128 to 1024, a panel of 32 and a
+    last panel of 16), batch 32, each dtype at its cutoff
+    (``orth.dep_tol2``): the same exact-zero columns, projectors within
+    1e-5 (complex64) and 1e-12 (complex128), two launches bit-equal, one
+    launch counted each."""
+    a, n2, zeros = _mgs2_input(np.random.default_rng(m + p), 32, m, p, dtype, kind,
+                               collapsed=dtype == np.complex64)
+    a, n2 = a.to(dev), n2.to(dev)
+    before = _build.LAUNCHES["mgs2_panel"]
+    qk = blocked_qr.mgs2_panel_cuda(a, n2)
+    again = blocked_qr.mgs2_panel_cuda(a, n2)
+    assert _build.LAUNCHES["mgs2_panel"] == before + 2
+    qp = blocked_qr.mgs2_panel_plain(a, n2)
+    torch.cuda.synchronize()
+    assert torch.equal(qk, again)
+    assert torch.equal((qk == 0).all(1), (qp == 0).all(1))
+    assert (qk == 0).all(1).sum().item() == 32 * zeros
+    tol = 1e-5 if dtype == np.complex64 else 1e-12
+    assert (qk @ qk.mH - qp @ qp.mH).abs().max().item() <= tol
+
+
+def test_mgs2_panel_refusals_and_routing(dev):
+    """K8's wrapper on CUDA tensors refuses a non-contiguous panel, a real
+    dtype, more than 32 columns and norms of another dtype, and a launch
+    over the shared-memory limit raises uncounted; ``qr_orth_blocked`` on
+    CUDA tensors at a full class sends every scanned panel to K8 (complex128
+    whatever ``kernel_panels`` says; complex64 with it off), no plain version
+    on the card, and matches the CPU."""
+    a, n2, _ = _mgs2_input(np.random.default_rng(1), 2, 512, 32, np.complex64, "full")
+    a, n2 = a.to(dev), n2.to(dev)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="contiguous"):
+        blocked_qr.mgs2_panel_cuda(torch.cat([a, a], 2)[:, :, :32], n2)
+    with pytest.raises(TypeError):
+        blocked_qr.mgs2_panel_cuda(a.real.contiguous(), n2)
+    with pytest.raises(ValueError, match="P <= 32"):
+        blocked_qr.mgs2_panel_cuda(torch.cat([a, a], 2), torch.cat([n2, n2], 1))
+    with pytest.raises(ValueError, match="n2_orig"):
+        blocked_qr.mgs2_panel_cuda(a, n2.double())
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        blocked_qr.mgs2_panel_cuda(a, n2, smem_bytes=_build.smem_optin(dev.index) + 4096)
+    assert _build.LAUNCHES == before
+    rng = np.random.default_rng(2)
+    for dtype, kernel_panels in ((np.complex128, True), (np.complex128, False),
+                                 (np.complex64, False)):
+        wide = torch.from_numpy(_input(rng, "zero_padded", 4, 288, 144, dtype))
+        _build.reset_counters()
+        q = blocked_qr.qr_orth_blocked(wide.to(dev), kernel_panels)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["mgs2_panel"] == 5 and _build.LAUNCHES["orth"] == 0
+        assert sum(_build.PLAIN_ON_CUDA.values()) == 0
+        q_cpu = blocked_qr.qr_orth_blocked(wide, kernel_panels)
+        tol = 1e-12 if dtype == np.complex128 else TOL
+        assert (q.cpu() @ q.cpu().mH - q_cpu @ q_cpu.mH).abs().max().item() <= tol
 
 
 def test_double_and_global_scratch_layouts(dev):

@@ -110,7 +110,8 @@ def test_per_op_counts_equal_reference(chi):
 
 
 def test_peaks_hold_the_h100_only():
-    assert flops.PEAKS == {"h100": {"f32_flops": 67e12, "hbm_bytes_per_s": 3.35e12}}
+    assert flops.PEAKS == {"h100": {"f32_flops": 67e12, "f64_flops": 67e12,
+                                    "hbm_bytes_per_s": 3.35e12}}
 
 
 def test_roofline_and_floors_against_h100():
