@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # needs one CUDA card
+    python3 chip_smoke.py       # needs one CUDA card
+    python3 chip_smoke.py k8    # phases 1, 2 and 3c only (K8 beside the parent's)
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -54,12 +55,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    at m 256 to 2048, 32 columns and a last panel of 16, batch 32, complex64
    and complex128, each at its cutoff (1e-10, 1e-24: ``orth.dep_tol2``),
    full and degenerate panels (the same exact-zero columns,
-   projectors within 1e-5 and 1e-12), two launches bit-equal, on both launch
-   plans (the rows in shared memory or in global scratch); a launch over the
-   shared-memory limit raises uncounted; its device time at each shape (a
-   CUDA graph of 20 launches), call time, the plain version's time,
-   ``torch.linalg.qr(a, mode="reduced")``'s (the library call) and its
-   bound.
+   projectors within 1e-5 and 1e-12), two launches bit-equal, on every
+   launch plan in both dtypes (the panel in registers; its columns past the
+   registers' in shared memory or in global scratch; and, at m 2560, the
+   whole panel in global scratch); a launch over the shared-memory limit
+   raises uncounted; its device time at each shape (a CUDA graph of 20
+   launches; beside the parent commit's K8 where its sources were unpacked
+   into ``build/parent``, turns parent, kernel, kernel, parent), call time,
+   the plain version's time, ``torch.linalg.qr(a, mode="reduced")``'s (the
+   library call) and its bound.
 4. default route: the port's ``cli.main_no_test`` at the repo's headline
    shape (32 qubits, r=2, d=6, chi 64, f32, 102 train points of the pinned v1
    data): kernels K1 and K2 carry it; K symmetric with unit diagonal, its
@@ -564,7 +568,7 @@ def plan_text(plan):
 PARENT = ROOT / "build" / "parent" / "qml_cutensornet_tpu_torch" / "csrc"
 
 
-PARENT_SOURCES = ("subspace_split", "orth_r", "gate_split", "brick_split", "orth")
+PARENT_SOURCES = ("subspace_split", "orth_r", "gate_split", "brick_split", "orth", "mgs2_panel")
 PARENT_LIBS = ROOT / "build" / "parent_kernels"
 
 
@@ -589,7 +593,7 @@ def parent_build_start():
 
 
 def parent_kernels(dev, built):
-    """The parent commit's K1 to K5 (single-column), once
+    """The parent commit's K1 to K5 (single-column) and K8, once
     :func:`phase_build` has ``built`` them, called through their own C
     interfaces with the current launch plans, or None where there is no
     parent. Timing only: each is checked once against the current kernel on
@@ -602,7 +606,7 @@ def parent_kernels(dev, built):
     if built is None:
         return None
     out, srcs = PARENT_LIBS, PARENT_SOURCES
-    ks, kr, kg, kb, ko = (ctypes.CDLL(str(out / f"lib{src}.so")) for src in srcs)
+    ks, kr, kg, kb, ko, km = (ctypes.CDLL(str(out / f"lib{src}.so")) for src in srcs)
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ks.qk_split_launch.argtypes = [vp] * 5 + [i] * 7 + [ll, vp, i, i]
     ks.qk_split_launch.restype = i
@@ -613,6 +617,8 @@ def parent_kernels(dev, built):
     kb.qk_brick_split_launch.argtypes = [vp] * 10 + [i] * 8 + [ll, vp]
     kb.qk_brick_split_launch.restype = i
     ko.qk_orth_launch.argtypes, ko.qk_orth_launch.restype = [vp] * 3 + [i] * 7 + [ll, vp], i
+    km.qk_mgs2_launch.argtypes = [vp] * 4 + [i] * 4 + [ctypes.c_double, i, ll, vp]
+    km.qk_mgs2_launch.restype = i
     optin = _build.smem_optin(dev.index)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
 
@@ -692,9 +698,25 @@ def parent_kernels(dev, built):
         assert rc == 0, f"parent orth launch: CUDA error {rc}"
         return q
 
+    def mgs2(a, n2):
+        # The parent's K8 with its own plan (the first version's): the rows
+        # [P][m + 1] in shared memory where they fit beside its 2048 values
+        # of static slots, else in global scratch.
+        B, m, p = a.shape
+        cx = 16 if a.dtype == torch.complex128 else 8
+        rows = p * (m + 1) * cx
+        in_smem = rows + 2048 * cx // 2 <= optin
+        q = torch.empty_like(a)
+        scratch = torch.empty((B, 0 if in_smem else p * (m + 1)), dtype=a.dtype, device=dev)
+        rc = km.qk_mgs2_launch(a.data_ptr(), n2.data_ptr(), q.data_ptr(), scratch.data_ptr(), B,
+                               m, p, int(cx == 16), orth_mod.dep_tol2(a.dtype), int(in_smem),
+                               rows if in_smem else 0, stream())
+        assert rc == 0, f"parent mgs2_panel launch: CUDA error {rc}"
+        return q
+
     log(f"parent kernels built from {PARENT}")
     return types.SimpleNamespace(split=split, orth_r=orth_r, gate_split=gate_split,
-                                 brick_split=brick_split, orth=orth)
+                                 brick_split=brick_split, orth=orth, mgs2=mgs2)
 
 
 # ------------------------------------------------------------------ bounds
@@ -1132,7 +1154,7 @@ def phase_kernels(dev, parent_built):
         f" ms, torch.linalg.qr {time_ms(lambda: torch.linalg.qr(panel), 5):.4f} ms")
     log(f"  context only (another function: the full decomposition): torch.linalg.svd of theta "
         f"[32,128,128] {time_ms(lambda: torch.linalg.svd(th), 3):.4f} ms")
-    return err, times, stage_ms
+    return err, times, stage_ms, parent
 
 
 # K8 against its plain version: projectors within 1e-5 in complex64 (f32
@@ -1144,6 +1166,9 @@ TOL_K8 = {torch.complex64: 1e-5, torch.complex128: 1e-12}
 # smoke's sim batch); the main path's shape is the chi-256 f64 run's.
 K8_SHAPES = tuple((m, p) for m in (256, 512, 1024, 2048) for p in (32, 16))
 K8_MAIN = (512, 32, torch.complex128)
+# Past m 2048 (chi 1024) the whole panel stays in global scratch: checked,
+# not timed (no path of the smoke reaches it).
+K8_MEMORY_SHAPE = (2560, 32)
 
 
 def mgs2_bound(B, m, p, dtype):
@@ -1188,17 +1213,21 @@ def mgs2_panel_input(rng, B, m, p, dtype, kind, dev, collapsed=True):
     return a, (a.real ** 2 + a.imag ** 2).sum(1), zeros
 
 
-def phase_mgs2_kernel(dev, smi):
+def phase_mgs2_kernel(dev, smi, parent):
     """K8, the scanned panel step (``ops/blocked_qr.mgs2_panel_cuda``):
-    against its plain version at every shape of ``K8_SHAPES`` in complex64
-    and complex128, each at its cutoff (``orth.dep_tol2``), full and
-    degenerate panels (the same exact-zero columns, projectors within
-    ``TOL_K8``), two launches bit-equal, each launch plan named; a launch
-    refused for too much shared memory raises and counts nothing; then at
-    each shape (full panels) its device time (a CUDA graph of 20
-    launches, ``graph_ms``), call time, the plain version's time,
-    ``torch.linalg.qr(a, mode="reduced")``'s (the library call) and its
-    bound. Returns the kernel's summary for the kernels line."""
+    against its plain version at every shape of ``K8_SHAPES`` and
+    ``K8_MEMORY_SHAPE`` in complex64 and complex128, each at its cutoff
+    (``orth.dep_tol2``), full and degenerate panels (the same exact-zero
+    columns, projectors within ``TOL_K8``), two launches bit-equal, each
+    launch plan named and every plan of ``blocked_qr.MGS2_KINDS`` reached
+    in both dtypes; a launch refused for too much shared memory raises and
+    counts nothing; then at each shape of ``K8_SHAPES`` (full panels) its
+    device time (a CUDA graph of 20 launches, ``graph_ms``; with ``parent``,
+    the parent commit's K8 in turns parent, kernel, kernel, parent, its
+    projector checked once against the kernel's), call time, the plain
+    version's time, ``torch.linalg.qr(a, mode="reduced")``'s (the library
+    call) and its bound. Returns the kernel's summary for the kernels
+    line."""
     from qml_cutensornet_tpu_torch.ops import _build, blocked_qr, orth
 
     rng = np.random.default_rng(20261019)
@@ -1206,9 +1235,9 @@ def phase_mgs2_kernel(dev, smi):
     err, plans = {}, set()
     for dtype in (torch.complex64, torch.complex128):
         tol2 = orth.dep_tol2(dtype)
-        for m, p in K8_SHAPES:
+        for m, p in K8_SHAPES + (K8_MEMORY_SHAPE,):
             plan = blocked_qr.mgs2_plan(m, p, dtype, optin)
-            plans.add((str(dtype)[6:], plan.panel_smem))
+            plans.add((str(dtype)[6:], plan.kind))
             for kind in ("full", "degenerate"):
                 a, n2, zeros = mgs2_panel_input(rng, 32, m, p, dtype, kind, dev,
                                                 collapsed=dtype == torch.complex64)
@@ -1216,9 +1245,9 @@ def phase_mgs2_kernel(dev, smi):
                 again = blocked_qr.mgs2_panel_cuda(a, n2)
                 qp = blocked_qr.mgs2_panel_plain(a, n2)
                 torch.cuda.synchronize()
-                what = (f"K8 [32,{m},{p}] {str(dtype)[6:]} cutoff {tol2:g} {kind} (rows in "
-                        f"{'shared memory' if plan.panel_smem else 'global scratch'}, "
-                        f"{plan.smem_bytes} B dynamic shared)")
+                what = (f"K8 [32,{m},{p}] {str(dtype)[6:]} cutoff {tol2:g} {kind} (plan "
+                        f"{plan.kind}, {plan.epl} elements a lane, {plan.reg_cols} columns in "
+                        f"registers, {plan.smem_bytes} B dynamic shared)")
                 assert torch.equal(qk, again), f"{what}: two launches differ"
                 zk, zp = (qk == 0).all(1), (qp == 0).all(1)
                 assert torch.equal(zk, zp), f"{what}: other exact-zero columns than the plain"
@@ -1228,7 +1257,8 @@ def phase_mgs2_kernel(dev, smi):
                 log(f"  {what}: projector vs plain {perr:.3e} (tol {TOL_K8[dtype]}), exact-zero "
                     f"columns {int(zk.sum())} on both, two launches bit-equal")
                 assert perr <= TOL_K8[dtype], f"{what}: projector off the plain's by {perr}"
-    assert len(plans) == 4, f"K8 plans reached: {plans}"
+    assert plans == {(d, k) for d in ("complex64", "complex128") for k in blocked_qr.MGS2_KINDS}, (
+        f"K8 plans reached: {plans}")
     a, n2, _ = mgs2_panel_input(rng, 2, 512, 32, torch.complex64, "full", dev)
     before = dict(_build.LAUNCHES)
     try:
@@ -1243,17 +1273,29 @@ def phase_mgs2_kernel(dev, smi):
         for m, p in K8_SHAPES:
             a, n2, _ = mgs2_panel_input(rng, 32, m, p, dtype, "full", dev)
             kern = lambda: blocked_qr.mgs2_panel_cuda(a, n2)
+            if parent:
+                old = lambda: parent.mgs2(a, n2)
+                qo, qk = old(), kern()
+                diff = (qo @ qo.mH - qk @ qk.mH).abs().max().item()
+                assert diff <= TOL_K8[dtype], f"K8 [32,{m},{p}]: parent's projector off by {diff}"
+                o1 = graph_ms(old)
             d1, d2 = graph_ms(kern), graph_ms(kern)
+            o2 = graph_ms(old) if parent else None
             call = time_ms(kern, 20)
             plain_ms = time_ms(lambda: blocked_qr.mgs2_panel_plain(a, n2), 2)
             lib_ms = time_ms(lambda: torch.linalg.qr(a, mode="reduced"), 3)
             bound_ms, bound_by = mgs2_bound(32, m, p, dtype)
             key = f"B32_m{m}_P{p}_{str(dtype)[6:]}"
+            plan = blocked_qr.mgs2_plan(m, p, dtype, optin)
             by_shape[key] = {"ms": (d1 + d2) / 2, "call_ms": call, "plain_ms": plain_ms,
                              "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                             "panel_smem": blocked_qr.mgs2_plan(m, p, dtype, optin).panel_smem}
-            log(f"  time K8 [32,{m},{p}] {str(dtype)[6:]} [{smi}]: device {d1:.4f} / {d2:.4f} ms "
-                f"(a CUDA graph of 20 launches), call {call:.4f} ms, plain {plain_ms:.4f} ms, "
+                             "plan": plan.kind, "epl": plan.epl, "reg_cols": plan.reg_cols,
+                             "parent_ms": (o1 + o2) / 2 if parent else None}
+            vs_parent = (f", parent's K8 {o1:.4f} / {o2:.4f} ms (turns parent, kernel, kernel, "
+                         f"parent)" if parent else "")
+            log(f"  time K8 [32,{m},{p}] {str(dtype)[6:]} [{plan.kind}] [{smi}]: device {d1:.4f} / "
+                f"{d2:.4f} ms (a CUDA graph of 20 launches){vs_parent}, call {call:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, "
                 f"torch.linalg.qr {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
                 f"{32 * _orth_ops(m, p) / 1e9:.3f} GFLOP)")
     main = by_shape[f"B32_m{K8_MAIN[0]}_P{K8_MAIN[1]}_{str(K8_MAIN[2])[6:]}"]
@@ -3078,11 +3120,17 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | python {sys.version.split()[0]}")
     parent_built = phase_build(dev)
-    err, times, stage_ms = phase_kernels(dev, parent_built)
+    if sys.argv[1:] == ["k8"]:  # K8 alone, beside the parent's where build/parent holds it
+        k8 = phase_mgs2_kernel(dev, smi, parent_kernels(dev, parent_built))
+        log(f"K8 phase done at {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"mgs2_panel": k8}))
+        return 0
+    err, times, stage_ms, parent = phase_kernels(dev, parent_built)
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f} s")
     pair_err, pair_ms = phase_pair_kernels(dev)
     log(f"pair kernels phase done at {time.perf_counter() - t_start:.1f} s")
-    k8 = phase_mgs2_kernel(dev, smi)
+    k8 = phase_mgs2_kernel(dev, smi, parent)
     log(f"K8 phase done at {time.perf_counter() - t_start:.1f} s")
 
     (WORK / "datasets").mkdir(parents=True, exist_ok=True)

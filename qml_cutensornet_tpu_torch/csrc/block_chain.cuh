@@ -69,6 +69,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 #include "bcgs2.cuh"
 
@@ -141,7 +142,7 @@ constexpr bool LIB_PAIR = false;
 // Phase ids of the stamps.
 enum Stamp {
   ST_START = 1, ST_LOAD, ST_PANEL, ST_CGS, ST_COLUMN, ST_PRODUCT, ST_ORTH, ST_END, ST_COEF,
-  ST_ROUND, ST_BUILD, ST_S2, ST_NA0
+  ST_ROUND, ST_BUILD, ST_S2, ST_NA0, ST_PROJECT
 };
 
 constexpr int NT = 512;
@@ -901,6 +902,381 @@ __device__ __noinline__ void mgs_panel_pair_mem(Cx<T>* P, int ld, int pw, int le
   __shared__ T part[2 * NT * 2];
   int buf = 0;
   mgs_pairs_mem<T, 0>(P, ld, pw, len, part, buf, n2o, dep_tol2);
+}
+
+// ------------------------------- panels of up to 32 columns (kernel K8)
+//
+// The in-panel MGS2 of kernel K8 (mgs2_panel.cu) on panels of up to WIDE =
+// 32 columns: mgs_columns's two rounds a column on a panel twice as wide. A
+// round of column t carries up to 2 t + 1 = 63 values (31 complex
+// coefficients and a norm) in three sets, each through its own warp
+// butterfly, all through one named barrier (wide_finish, as group_sums).
+// The group is the whole block, GWN warps, EPL elements a lane (element
+// threadIdx.x + u * GWN * 32 in slot u). Its registers hold the panel's
+// columns 0 .. R - 1 for the whole panel; where the panel is wider, columns
+// R .. pw - 1 wait in memory M (column s at M + (s - R) * ld, each thread
+// touching only its own elements: shared memory, or global scratch where
+// that cannot hold them). The column being projected sits in the register
+// slot y and its predecessor in slot z until its norm is known; a finished
+// column goes back to its register or memory slot. The columns run in a
+// loop, not unrolled, and a loop over the finished columns jumps into a
+// chain of unrolled steps, so every register index is a compile-time
+// constant and the code stays linear in the panel's width.
+
+constexpr int WIDE = 32;
+
+// f(std::integral_constant<int, I>{}) for I = B .. E - 1 in order, so that
+// every column index is a compile-time constant.
+template <int B, int E, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (B < E) {
+    f(std::integral_constant<int, B>{});
+    static_for<B + 1, E>(f);
+  }
+}
+
+template <typename T, int EPL>
+using CxCol = Cx<T>[EPL];
+
+template <typename T, int EPL, int R>
+struct WideCols {
+  Cx<T> x[R][EPL];  // columns 0 .. R - 1
+  Cx<T> y[EPL];     // the column being projected
+  Cx<T> z[EPL];     // the column before it, waiting for its norm
+  Cx<T>* M;         // columns R ..: M + (s - R) * ld
+  int ld;
+};
+
+template <int GWN>
+__device__ __forceinline__ int wide_elem(int u) {
+  return threadIdx.x + u * GWN * 32;
+}
+
+// Register column c (LO <= c < HI) to or from a slot, by a binary tree of
+// uniform branches, so that every register index is a constant.
+template <int LO, int HI, bool PUT, typename T, int EPL, int R>
+__device__ __forceinline__ void wide_move(WideCols<T, EPL, R>& w, int c, CxCol<T, EPL>& slot) {
+  if constexpr (HI - LO == 1) {
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) {
+      if constexpr (PUT) {
+        w.x[LO][u] = slot[u];
+      } else {
+        slot[u] = w.x[LO][u];
+      }
+    }
+  } else {
+    constexpr int MID = (LO + HI) / 2;
+    if (c < MID) {
+      wide_move<LO, MID, PUT>(w, c, slot);
+    } else {
+      wide_move<MID, HI, PUT>(w, c, slot);
+    }
+  }
+}
+
+// Column c to (PUT) or from a slot, from its registers or its memory.
+template <bool PUT, int GWN, typename T, int EPL, int R>
+__device__ __forceinline__ void wide_slot(WideCols<T, EPL, R>& w, int c, CxCol<T, EPL>& slot) {
+  if (c < R) {
+    wide_move<0, R, PUT>(w, c, slot);
+  } else {
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) {
+      Cx<T>& m = w.M[(size_t)(c - R) * w.ld + wide_elem<GWN>(u)];
+      if constexpr (PUT) {
+        m = slot[u];
+      } else {
+        slot[u] = m;
+      }
+    }
+  }
+}
+
+// Element u of a finished column S.
+template <int S, int GWN, typename T, int EPL, int R>
+__device__ __forceinline__ Cx<T> wide_col(const WideCols<T, EPL, R>& w, int u) {
+  if constexpr (S < R) {
+    return w.x[S][u];
+  } else {
+    return w.M[(size_t)(S - R) * w.ld + wide_elem<GWN>(u)];
+  }
+}
+
+// f(std::integral_constant<int, s>{}) for s = B + n - 1 down to B (0 <= n
+// <= 16): one jump into a chain of 16 unrolled calls, so that a loop over a
+// runtime number of columns keeps every register index a constant.
+template <int B, typename F>
+__device__ __forceinline__ void chain16(int n, F&& f) {
+#define QK_LINK(k)                               \
+  case (k) + 1:                                  \
+    f(std::integral_constant<int, B + (k)>{});   \
+    [[fallthrough]];
+  switch (n) {
+    QK_LINK(15) QK_LINK(14) QK_LINK(13) QK_LINK(12) QK_LINK(11) QK_LINK(10) QK_LINK(9)
+    QK_LINK(8) QK_LINK(7) QK_LINK(6) QK_LINK(5) QK_LINK(4) QK_LINK(3) QK_LINK(2) QK_LINK(1)
+    QK_LINK(0)
+    default:
+      break;
+  }
+#undef QK_LINK
+}
+
+// This lane's warp sum of value lane % N of v[0 .. N - 1] (a reduce-scatter
+// butterfly), N the least of 8, 16 and 32 that holds the n values of v.
+template <typename T>
+__device__ __forceinline__ T wide_scatter(T (&v)[32], int n, int& N) {
+  const int lane = threadIdx.x & 31;
+  if (n <= 8) {
+    N = 8;
+    butterfly<4, 32, T>(v, lane);
+    return xor_sum<8, T>(v[0]);
+  }
+  if (n <= 16) {
+    N = 16;
+    butterfly<8, 32, T>(v, lane);
+    return xor_sum<16, T>(v[0]);
+  }
+  N = 32;
+  butterfly<16, 32, T>(v, lane);
+  return v[0];
+}
+
+// The group-wide half of a round of three sets: s[a] is this lane's warp
+// sum of value lane % n[a] of set a; every thread gets the group-wide sums
+// in tot[a] (one named barrier, the GWN warp partials added in warp order).
+// ``part`` holds two buffers of GWN x 96 values, used in turn.
+template <int GWN, typename T>
+__device__ __forceinline__ void wide_finish(const T (&s)[3], T (&tot)[3], const int (&n)[3],
+                                            T* part, int& buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* pb = part + buf * (GWN * 96);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) pb[(3 * warp + a) * 32 + lane] = s[a];
+  group_bar<GWN>();
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int j = lane & (n[a] - 1);
+    T t = 0;
+#pragma unroll
+    for (int w = 0; w < GWN; ++w) t += pb[(3 * w + a) * 32 + j];
+    tot[a] = t;
+  }
+  buf ^= 1;
+  QK_STAMP(ST_ROUND);
+}
+
+// The panel's MGS2 on the group's registers and memory. Column t (t >= 1;
+// columns s < t - 1 finished, column t - 1 in slot z projected twice and
+// waiting for its norm, column t taken into slot y) takes two rounds of
+// three sets each: set 0 the coefficients conj(q_s) . x_t of
+// the finished columns s < 16, set 1 those of 16 <= s < t - 1 (absent
+// below t 18), set 2 conj(x_{t-1}) . x_t and, in the first round,
+// |x_{t-1}|^2, which finishes column t - 1 (its coefficient scaled by the
+// same factor, as the column). Each round is followed by its projection
+// x_t -= sum_s q_s c_s. The last column takes its norm in a round of its
+// own. A loop over the finished columns is one jump into a chain of
+// unrolled steps (chain16), set 1's first.
+template <typename T, int EPL, int R, int GWN>
+__device__ __forceinline__ void wide_panel(WideCols<T, EPL, R>& w, int pw, T* part,
+                                           Cx<T>* coef, int& buf, const T* n2o, T dep_tol2) {
+  // This warp's copy of a round's sums (``coef``: GWN x 48 complex), read
+  // by the projections as one broadcast load a coefficient: coefficient s
+  // of the finished columns at s, column t - 1's at 32.
+  Cx<T>* cw = coef + (threadIdx.x >> 5) * 48;
+  auto publish = [&](const T (&tot)[3]) {
+    T* slot = reinterpret_cast<T*>(cw);
+    const int lane = threadIdx.x & 31;
+    __syncwarp();
+    slot[lane] = tot[0];
+    slot[32 + lane] = tot[1];
+    slot[64 + lane] = tot[2];
+    __syncwarp();
+  };
+  // One round over the nc finished columns, slot z and (with_norm) |z|^2.
+  auto round = [&](T (&tot)[3], int nc, bool with_norm) {
+    T s3[3];
+    int n3[3] = {32, 32, 4};
+    auto dots = [&](auto S, T (&v)[32]) {
+      constexpr int s = decltype(S)::value;
+      T re = 0, im = 0;
+#pragma unroll
+      for (int u = 0; u < EPL; ++u) {
+        const Cx<T> q = wide_col<s, GWN>(w, u);
+        re += q.re * w.y[u].re + q.im * w.y[u].im;
+        im += q.re * w.y[u].im - q.im * w.y[u].re;
+      }
+      v[(2 * s) % 32] = re;
+      v[(2 * s) % 32 + 1] = im;
+    };
+    const int k1 = nc > 16 ? nc - 16 : 0, k0 = nc < 16 ? nc : 16;
+    s3[1] = T(0);
+    if (k1 > 0) {
+      T v[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) v[j] = T(0);
+      chain16<16>(k1, [&](auto S) { dots(S, v); });
+      s3[1] = wide_scatter(v, 2 * k1, n3[1]);
+    }
+    {
+      T v[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) v[j] = T(0);
+      chain16<0>(k0, [&](auto S) { dots(S, v); });
+      s3[0] = wide_scatter(v, 2 * k0, n3[0]);
+    }
+    T v2[4] = {T(0), T(0), with_norm ? norm2<T, EPL>(w.z) : T(0), T(0)};
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) {
+      v2[0] += w.z[u].re * w.y[u].re + w.z[u].im * w.y[u].im;
+      v2[1] += w.z[u].re * w.y[u].im - w.z[u].im * w.y[u].re;
+    }
+    s3[2] = warp_reduce_scatter<4>(v2);
+    wide_finish<GWN>(s3, tot, n3, part, buf);
+  };
+  // x_t -= sum_{s < nc} q_s c_s + x_{t-1} c_{t-1} (that one times
+  // ``last``), in two interleaved chains, the coefficients from this
+  // warp's copy of the round's sums.
+  auto project = [&](const T (&tot)[3], int nc, T last) {
+    publish(tot);
+    T pr[2][EPL], pi[2][EPL];
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) pr[0][u] = pr[1][u] = pi[0][u] = pi[1][u] = T(0);
+    auto step = [&](auto S) {
+      constexpr int s = decltype(S)::value;
+      const Cx<T> c = cw[s];
+#pragma unroll
+      for (int u = 0; u < EPL; ++u) {
+        const Cx<T> q = wide_col<s, GWN>(w, u);
+        pr[s & 1][u] += q.re * c.re - q.im * c.im;
+        pi[s & 1][u] += q.re * c.im + q.im * c.re;
+      }
+    };
+    chain16<16>(nc > 16 ? nc - 16 : 0, step);
+    chain16<0>(nc < 16 ? nc : 16, step);
+    const Cx<T> cz = cw[32];
+    const T cr = cz.re * last, ci = cz.im * last;
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) {
+      w.y[u].re -= (pr[0][u] + pr[1][u]) + (w.z[u].re * cr - w.z[u].im * ci);
+      w.y[u].im -= (pi[0][u] + pi[1][u]) + (w.z[u].re * ci + w.z[u].im * cr);
+    }
+    QK_STAMP(ST_PROJECT);
+  };
+  wide_slot<false, GWN>(w, 0, w.z);
+  for (int t = 1; t < pw; ++t) {
+    wide_slot<false, GWN>(w, t, w.y);
+    T tot[3];
+    round(tot, t - 1, true);
+    const T inv = finish_column<T, EPL>(w.z, __shfl_sync(0xffffffffu, tot[2], 2), n2o[t - 1],
+                                        dep_tol2);
+    wide_slot<true, GWN>(w, t - 1, w.z);
+    project(tot, t - 1, inv);
+    round(tot, t - 1, false);
+    project(tot, t - 1, T(1));
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) w.z[u] = w.y[u];
+  }
+  T s3[3] = {T(0), T(0), T(0)}, tot[3];
+  int n3[3] = {32, 32, 4};
+  T v2[4] = {norm2<T, EPL>(w.z), T(0), T(0), T(0)};
+  s3[2] = warp_reduce_scatter<4>(v2);
+  wide_finish<GWN>(s3, tot, n3, part, buf);
+  finish_column<T, EPL>(w.z, __shfl_sync(0xffffffffu, tot[2], 0), n2o[pw - 1], dep_tol2);
+  wide_slot<true, GWN>(w, pw - 1, w.z);
+}
+
+// The same MGS2 with the whole panel in memory P (column s at P + s * ld)
+// for vectors of any length len, on the block's GWN warps: each thread owns
+// the elements threadIdx.x + k * GWN * 32 of every column and is the only
+// thread to read or write them. Column t takes wide_panel's two rounds (two
+// sets of 32 values through group_sums: conj(x_s) . x_t for s < t at 2s,
+// 2s + 1 and, in the first, |x_{t-1}|^2 at 2t), each a pass over the
+// thread's elements; its projections follow its rounds at once
+// (mgs_columns_mem's order, on 32 columns).
+template <typename T, int GWN>
+__device__ __forceinline__ void wide_panel_mem(Cx<T>* P, int ld, int pw, int len, T* part,
+                                               int& buf, const T* n2o, T dep_tol2) {
+  constexpr int GT_ = GWN * 32;
+  const int tid = threadIdx.x;
+  // Column c's norm^2 from the round's sum: scale it to unit norm, or to
+  // exact zeros when dependent.
+  auto finish = [&](int c, T n2) {
+    const T keep = (n2 > dep_tol2 * n2o[c]) ? T(1) : T(0);
+    const T inv = rsqrt_(n2 + T(TINY)) * keep;
+    for (int e = tid; e < len; e += GT_) {
+      Cx<T>& x = P[(size_t)c * ld + e];
+      x.re *= inv;
+      x.im *= inv;
+    }
+    QK_STAMP(ST_COLUMN);
+    return inv;
+  };
+  for (int t = 1; t < pw; ++t) {
+    Cx<T>* xt = P + (size_t)t * ld;
+    auto round = [&](T (&tot)[2], bool with_norm) {
+      T v[2][32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) v[0][j] = v[1][j] = T(0);
+      for (int e = tid; e < len; e += GT_) {
+        const Cx<T> b = xt[e];
+        static_for<0, WIDE>([&](auto S) {
+          constexpr int s = decltype(S)::value;
+          if (s < t) {
+            const Cx<T> q = P[(size_t)s * ld + e];
+            v[s / 16][(2 * s) % 32] += q.re * b.re + q.im * b.im;
+            v[s / 16][(2 * s) % 32 + 1] += q.re * b.im - q.im * b.re;
+          } else if (with_norm && s == t) {
+            const Cx<T> x = P[(size_t)(t - 1) * ld + e];
+            v[s / 16][(2 * s) % 32] += x.re * x.re + x.im * x.im;
+          }
+        });
+      }
+      group_sums<32, 2, GWN>(v, tot, part, buf);
+    };
+    // x_t -= sum_{s < t} x_s c_s (column t - 1's coefficient times
+    // ``last``), in two interleaved chains.
+    auto project = [&](const T (&tot)[2], T last) {
+      T cr[WIDE - 1], ci[WIDE - 1];
+      static_for<0, WIDE - 1>([&](auto S) {
+        constexpr int s = decltype(S)::value;
+        if (s < t) {
+          cr[s] = __shfl_sync(0xffffffffu, tot[s / 16], (2 * s) % 32);
+          ci[s] = __shfl_sync(0xffffffffu, tot[s / 16], (2 * s) % 32 + 1);
+          if (s == t - 1) {
+            cr[s] *= last;
+            ci[s] *= last;
+          }
+        }
+      });
+      for (int e = tid; e < len; e += GT_) {
+        T sr[2] = {T(0), T(0)}, si[2] = {T(0), T(0)};
+        static_for<0, WIDE - 1>([&](auto S) {
+          constexpr int s = decltype(S)::value;
+          if (s < t) {
+            const Cx<T> q = P[(size_t)s * ld + e];
+            sr[s & 1] += q.re * cr[s] - q.im * ci[s];
+            si[s & 1] += q.re * ci[s] + q.im * cr[s];
+          }
+        });
+        xt[e].re -= sr[0] + sr[1];
+        xt[e].im -= si[0] + si[1];
+      }
+      QK_STAMP(ST_PROJECT);
+    };
+    T tot[2];
+    round(tot, true);
+    project(tot, finish(t - 1, __shfl_sync(0xffffffffu, t >= 16 ? tot[1] : tot[0], (2 * t) % 32)));
+    round(tot, false);
+    project(tot, T(1));
+  }
+  T v[1][1] = {{T(0)}}, tot[1];
+  for (int e = tid; e < len; e += GT_) {
+    const Cx<T> x = P[(size_t)(pw - 1) * ld + e];
+    v[0][0] += x.re * x.re + x.im * x.im;
+  }
+  group_sums<1, 1, GWN>(v, tot, part, buf);
+  finish(pw - 1, tot[0]);
 }
 
 // coef[i][t] = sum_e conj(X[i][e]) P[t][e] for i < p0, t < pw: each warp

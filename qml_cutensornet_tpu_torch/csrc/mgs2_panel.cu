@@ -7,8 +7,7 @@
 // Pallas basis kernel: above 128 columns in f32 with fused_split off). The
 // port's blocked route also takes complex128, where the reference runs
 // Householder QR (its blocked route takes f32 only): every f64
-// orthonormalization above 128 columns reaches this kernel. Without it the
-// port ran the scan from the host, 10 to 20 launches a column.
+// orthonormalization above 128 columns reaches this kernel.
 //
 // For each batch element b, with a[b] an [m, p] complex panel (row-major,
 // the port's column layout, p <= 32) and n2o[b] [p] its columns' squared
@@ -30,29 +29,55 @@
 //
 // What bounds it on Hopper: the latency of the column chain, not arithmetic
 // or bytes. [32, 512, 32] in complex128 is 0.26 GFLOP and 17 MB, a bound of
-// about 8 us, but every column takes two or three dependent block-wide
-// reduction rounds a pass (the coefficients, then the norm): 124 rounds for
-// a panel of 32. The design is the simple one: one 512-thread block per
-// batch element; the columns run in order inside the block. The panel is
-// transposed into rows W [p][m + 1] (each column contiguous, so that the
-// threads' reads of one column coalesce), in shared memory where they fit
-// (p (m + 1) complex: 131 KB at m 512 in complex64, m 256 in complex128,
-// and for p 16 at twice those m), else in a per-element global scratch
-// buffer that stays L2-resident (at most 33 MB for B 32, m 2048, complex128),
-// as K3's plan without the rows in shared memory does. Each thread owns the
-// elements tid + u * 512 of every column and is the only thread to touch
-// them after the load, so the rounds' sums are the only traffic between
-// threads. A round is block_chain.cuh's group_sum over the whole block
-// (warp reduce-scatter butterflies of up to 16 complex coefficients, one
-// named barrier, the 16 warps' partials added in warp order); a column past
-// the 16th takes two rounds a pass. Each warp keeps its own copy of the
-// coefficients in shared memory for the update. Complex FMAs on the CUDA
-// cores (IEEE fp32 or fp64; no TF32, no tensor cores), every sum in a fixed
-// order, no atomics: two launches on one input give bit-equal outputs.
-//
-// Left for later: thread-block clusters with distributed shared memory (a
-// complex128 panel at m >= 512 across 2 to 8 SMs) and more than B blocks
-// at a small batch.
+// about 5 us, but each column needs dependent block-wide reductions, and
+// one block per batch element fills 32 of 132 SMs. The design, on
+// block_chain.cuh's wide_panel (the sibling of K1 to K5's in-panel step
+// for 32 columns):
+// - two reduction rounds a column, 63 for a panel of 32 (the first version
+//   took 124): column t's first round also sums column t - 1's norm. A
+//   round's values go through one named barrier in three sets, each with
+//   its own warp butterfly: the coefficients of the finished columns below
+//   16 and from 16 (each butterfly as narrow as its values allow), and
+//   those of the column before t with its norm;
+// - the panel in registers: one block of 8 warps (256 threads, up to 255
+//   registers a thread) a batch element, EPL = 1, 2, 4 or 8 elements a lane
+//   chosen by m (m <= 256 EPL), 128 registers a thread for the panel's
+//   columns, so R = 128 / (EPL * 2 * sizeof(T) / 4) of them (32 columns in
+//   complex64 at m 512, 16 in complex128 at m 512). Each thread owns its
+//   elements of every column, so the rounds are the only traffic between
+//   threads;
+// - the columns run in a loop, not unrolled: a loop over the finished
+//   columns is one jump into a chain of unrolled steps (blk::chain16), so
+//   every register index is a constant and the code stays linear in the
+//   panel's width (a build that unrolled all 32 columns of every plan did
+//   not finish within 18 minutes of nvcc);
+// - where the panel is wider than R (the split plans), the columns past R
+//   wait in shared memory, are taken one at a time into registers and go
+//   back there finished, a column of the second half reading each finished
+//   column past R four times (two dots, two projections) and none of the R
+//   in registers;
+// - where shared memory cannot hold the columns past R either (complex64
+//   at m 2048 and p > 21, complex128 at m 1024 and p > 21 and at m 2048 and
+//   p > 10: 393 KB and more), they wait in global scratch in the same
+//   layout (L2-resident: at most 29 MB for B 32), the one plan that reads
+//   memory that is not on the SM. Only past m 2048, where no EPL of 8
+//   warps covers the vector, does the whole panel stay in global scratch
+//   (blk::wide_panel_mem, the block's 8 warps on any m);
+// - the panel is loaded and stored through shared memory (coalesced reads
+//   and writes of its rows, each thread then taking its own elements;
+//   columns of NT * EPL + 1 elements, so neither side has bank conflicts),
+//   each warp keeps its copy of a round's sums in shared memory for the
+//   projections' broadcast loads, and the panel's n2o is read into shared
+//   memory once, at the start.
+// Where the cycles go at [32, 512, 32] (utils/chain_stamps.py, one block):
+// 55 to 59% in the rounds (about 2000 cycles each in complex64, 3100 in
+// complex128: dots, butterflies and barrier), 31 to 33% in the
+// projections, 7 to 10% in load and store. No thread-block cluster: a cluster-wide round
+// costs 0.96 to 1.17 us (utils/cluster_probe.py), as much as a whole round
+// here, and would not shorten the chain of 63.
+// Complex FMAs on the CUDA cores (IEEE fp32 or fp64; no TF32, no tensor
+// cores), every sum in a fixed order, no atomics: two launches on one input
+// give bit-equal outputs.
 //
 // C interface (ctypes): the launch returns a cudaError_t as int.
 #include <cuda_runtime.h>
@@ -64,111 +89,214 @@
 namespace qk {
 namespace mgs2 {
 
-constexpr int NT = blk::NT;  // 512 threads, the whole block a round's group
-constexpr int NW = blk::NW;
-constexpr int MAX_P = 32;  // columns of a panel (ops/blocked_qr.PANEL)
-constexpr int CHUNK = 16;  // coefficients of one round (32 real values)
+constexpr int GWN = 8;  // warps of a block: the group of every round
+constexpr int NT = GWN * 32;
+constexpr int MAX_P = blk::WIDE;  // columns of a panel (ops/blocked_qr.PANEL)
+constexpr int PANEL_REGS = 128;   // 32-bit registers a thread gives the panel's columns
 
-// Dynamic shared memory of a launch plan: the rows W [p][m + 1] when
-// panel_smem, else none.
+// Launch plans (ops/blocked_qr.mgs2_plan): the panel in registers; R
+// columns in registers and the rest in shared memory or in global scratch;
+// the whole panel in global scratch.
+enum Kind { REGISTERS = 0, SPLIT_SMEM = 1, SPLIT_GLOBAL = 2, MEMORY = 3 };
+
+// Columns held in registers at epl elements a lane.
 template <typename T>
-size_t smem_bytes(int m, int p, int panel_smem) {
-  return panel_smem ? (size_t)p * ((size_t)m + 1) * sizeof(Cx<T>) : 0;
+__host__ __device__ constexpr int reg_cols(int epl) {
+  return PANEL_REGS / (epl * 2 * (int)(sizeof(T) / 4)) < MAX_P
+             ? PANEL_REGS / (epl * 2 * (int)(sizeof(T) / 4))
+             : MAX_P;
 }
 
-// This thread's part of conj(W[s]) . x for s in [s0, s0 + CHUNK) and s < t:
-// v[2 j], v[2 j + 1] for s = s0 + j, zeros past t.
+// Complex elements of the columns past R a batch element keeps in memory
+// (split plans: each column NT * epl long).
 template <typename T>
-__device__ __forceinline__ void dots(const Cx<T>* W, size_t ld, const Cx<T>* x, int m, int s0,
-                                     int t, T (&v)[2 * CHUNK]) {
-#pragma unroll
-  for (int j = 0; j < 2 * CHUNK; ++j) v[j] = T(0);
-  for (int e = threadIdx.x; e < m; e += NT) {
-    const Cx<T> b = x[e];
-#pragma unroll
-    for (int j = 0; j < CHUNK; ++j) {
-      if (s0 + j < t) {
-        const Cx<T> a = W[(size_t)(s0 + j) * ld + e];
-        v[2 * j] += a.re * b.re + a.im * b.im;
-        v[2 * j + 1] += a.re * b.im - a.im * b.re;
-      }
-    }
+__host__ __device__ size_t split_cx(int p, int epl) {
+  const int r = reg_cols<T>(epl);
+  return p > r ? (size_t)(p - r) * NT * epl : 0;
+}
+
+// Dynamic shared memory of a plan: the register plan's staging buffer of
+// p columns, or the split plan's columns past R, each NT * epl + 1 long
+// (an odd stride: the staging copies and each thread's own elements read
+// without bank conflicts).
+template <typename T>
+size_t smem_bytes(int p, int kind, int epl) {
+  const size_t col = ((size_t)NT * epl + 1) * sizeof(Cx<T>);
+  if (kind == REGISTERS) return (size_t)p * col;
+  if (kind == SPLIT_SMEM) return (size_t)(p - reg_cols<T>(epl)) * col;
+  return 0;
+}
+
+// Columns [c0, c0 + nc) of a row-major [m][p] panel into S[j][e] (stride
+// lds, zeros from m to ld), or back: neighbouring threads on neighbouring
+// addresses of the panel's rows.
+template <typename T>
+__device__ __forceinline__ void stage_in(Cx<T>* S, int lds, const Cx<T>* ab, int m, int ld, int p,
+                                         int c0, int nc) {
+  for (int i = threadIdx.x; i < ld * nc; i += NT) {
+    const int e = i / nc, j = i - e * nc;
+    S[(size_t)j * lds + e] = e < m ? ab[(size_t)e * p + c0 + j] : Cx<T>{T(0), T(0)};
   }
 }
 
-template <typename T, bool PANEL_SMEM>
+template <typename T>
+__device__ __forceinline__ void stage_out(Cx<T>* qb, const Cx<T>* S, int lds, int m, int p,
+                                          int c0, int nc) {
+  for (int i = threadIdx.x; i < m * nc; i += NT) {
+    const int e = i / nc, j = i - e * nc;
+    qb[(size_t)e * p + c0 + j] = S[(size_t)j * lds + e];
+  }
+}
+
+template <typename T, int EPL, bool SMEM>
 __global__ void __launch_bounds__(NT, 1)
 mgs2_panel_kernel(const Cx<T>* __restrict__ a, const T* __restrict__ n2o, Cx<T>* __restrict__ q,
                   Cx<T>* scratch, int m, int p, T dep_tol2) {
+  constexpr int R = reg_cols<T>(EPL);
+  constexpr int LD = NT * EPL, LDS = LD + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T part[2 * NW * 32];  // group_sum's two buffers
-  __shared__ __align__(16) T coef[NW][2 * MAX_P];  // each warp's copy of a pass's c
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
-  const size_t ld = (size_t)m + 1;
-  Cx<T>* W = PANEL_SMEM ? reinterpret_cast<Cx<T>*>(smem_raw) : scratch + (size_t)b * p * ld;
-  T* cw = coef[tid >> 5];
-
-  // Column j of a[b] is row j of W (coalesced reads over the panel).
+  __shared__ T part[2 * GWN * 96];      // the rounds' two buffers
+  __shared__ Cx<T> coef[GWN * 48];      // each warp's copy of a round's sums
+  __shared__ T n2s[MAX_P];
+  QK_STAMP(blk::ST_START);
+  const int b = blockIdx.x;
+  if (threadIdx.x < p) n2s[threadIdx.x] = n2o[(size_t)b * p + threadIdx.x];
+  blk::WideCols<T, EPL, R> w;
+  Cx<T>* S = reinterpret_cast<Cx<T>*>(smem_raw);
+  w.M = SMEM ? S : scratch + (size_t)b * split_cx<T>(p, EPL);
+  w.ld = SMEM ? LDS : LD;
+  const Cx<T> zero{T(0), T(0)};
   const Cx<T>* ab = a + (size_t)b * m * p;
-  for (int idx = tid; idx < m * p; idx += NT) {
-    const int e = idx / p, j = idx - e * p;
-    W[(size_t)j * ld + e] = ab[idx];
-  }
-  __syncthreads();
-
-  int buf = 0;
-  for (int t = 0; t < p; ++t) {
-    Cx<T>* x = W + (size_t)t * ld;
-    for (int pass = 0; t > 0 && pass < 2; ++pass) {
-      for (int s0 = 0; s0 < t; s0 += CHUNK) {
-        T v[2 * CHUNK];
-        dots<T>(W, ld, x, m, s0, t, v);
-        // lane l holds the block's sum of v[l]: c_{s0 + l / 2}'s re or im
-        cw[2 * s0 + lane] = blk::group_sum<2 * CHUNK, NW>(v, part, buf);
-      }
-      __syncwarp();
-      // x -= sum_s W[s] c_s, in two interleaved chains. The next write to
-      // cw follows a block-wide barrier, which every lane reaches after
-      // this loop.
-      for (int e = tid; e < m; e += NT) {
-        T sr[2] = {T(0), T(0)}, si[2] = {T(0), T(0)};
-#pragma unroll 4
-        for (int s = 0; s < t; ++s) {
-          const Cx<T> w = W[(size_t)s * ld + e];
-          const T cr = cw[2 * s], ci = cw[2 * s + 1];
-          sr[s & 1] += w.re * cr - w.im * ci;
-          si[s & 1] += w.re * ci + w.im * cr;
-        }
-        x[e].re -= sr[0] + sr[1];
-        x[e].im -= si[0] + si[1];
-      }
-    }
-    T nv[1] = {T(0)};
-    for (int e = tid; e < m; e += NT) nv[0] += x[e].re * x[e].re + x[e].im * x[e].im;
-    const T n2 = blk::group_sum<1, NW>(nv, part, buf);
-    const T keep = (n2 > dep_tol2 * n2o[(size_t)b * p + t]) ? T(1) : T(0);
-    const T inv = rsqrt_(n2 + T(TINY)) * keep;
-    for (int e = tid; e < m; e += NT) {
-      x[e].re *= inv;
-      x[e].im *= inv;
-    }
-  }
-  __syncthreads();
-
   Cx<T>* qb = q + (size_t)b * m * p;
-  for (int idx = tid; idx < m * p; idx += NT) {
-    const int e = idx / p, j = idx - e * p;
-    qb[idx] = W[(size_t)j * ld + e];
+  const int rc = p < R ? p : R;                  // columns in registers
+  const int slots = SMEM ? (p > R ? p - R : p) : 0;  // column slots of S
+  if constexpr (SMEM) {
+    // The register columns pass through S, ``slots`` at a time; the
+    // columns past R are staged into their own slots.
+    for (int c0 = 0; c0 < rc; c0 += slots) {
+      const int nc = rc - c0 < slots ? rc - c0 : slots;
+      stage_in(S, LDS, ab, m, LD, p, c0, nc);
+      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        if (s >= c0 && s < c0 + nc) {
+#pragma unroll
+          for (int u = 0; u < EPL; ++u)
+            w.x[s][u] = S[(size_t)(s - c0) * LDS + blk::wide_elem<GWN>(u)];
+        }
+      __syncthreads();
+    }
+    if (p > R) stage_in(S, LDS, ab, m, LD, p, R, p - R);
+  } else {
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) {
+      const int e = blk::wide_elem<GWN>(u);
+      const Cx<T>* row = ab + (size_t)e * p;
+#pragma unroll
+      for (int s = 0; s < R; ++s) w.x[s][u] = (s < p && e < m) ? row[s] : zero;
+      for (int s = R; s < p; ++s) w.M[(size_t)(s - R) * LD + e] = e < m ? row[s] : zero;
+    }
   }
+#pragma unroll
+  for (int u = 0; u < EPL; ++u) w.y[u] = w.z[u] = zero;
+  __syncthreads();
+  QK_STAMP(blk::ST_LOAD);
+  int buf = 0;
+  blk::wide_panel<T, EPL, R, GWN>(w, p, part, coef, buf, n2s, dep_tol2);
+  if constexpr (SMEM) {
+    __syncthreads();
+    if (p > R) stage_out(qb, S, LDS, m, p, R, p - R);
+    for (int c0 = 0; c0 < rc; c0 += slots) {
+      const int nc = rc - c0 < slots ? rc - c0 : slots;
+      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        if (s >= c0 && s < c0 + nc) {
+#pragma unroll
+          for (int u = 0; u < EPL; ++u)
+            S[(size_t)(s - c0) * LDS + blk::wide_elem<GWN>(u)] = w.x[s][u];
+        }
+      __syncthreads();
+      stage_out(qb, S, LDS, m, p, c0, nc);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < EPL; ++u) {
+      const int e = blk::wide_elem<GWN>(u);
+      if (e >= m) continue;
+      Cx<T>* row = qb + (size_t)e * p;
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        if (s < p) row[s] = w.x[s][u];
+      for (int s = R; s < p; ++s) row[s] = w.M[(size_t)(s - R) * LD + e];
+    }
+  }
+  QK_STAMP(blk::ST_END);
+}
+
+// The whole panel in global scratch (column s at P + s * m), any m.
+template <typename T>
+__global__ void __launch_bounds__(NT, 1)
+mgs2_memory_kernel(const Cx<T>* __restrict__ a, const T* __restrict__ n2o,
+                   Cx<T>* __restrict__ q, Cx<T>* scratch, int m, int p, T dep_tol2) {
+  __shared__ T part[2 * GWN * 96];
+  __shared__ T n2s[MAX_P];
+  QK_STAMP(blk::ST_START);
+  const int b = blockIdx.x;
+  if (threadIdx.x < p) n2s[threadIdx.x] = n2o[(size_t)b * p + threadIdx.x];
+  Cx<T>* P = scratch + (size_t)b * p * m;
+  const Cx<T>* ab = a + (size_t)b * m * p;
+  for (int e = threadIdx.x; e < m; e += NT)
+    for (int s = 0; s < p; ++s) P[(size_t)s * m + e] = ab[(size_t)e * p + s];
+  __syncthreads();
+  QK_STAMP(blk::ST_LOAD);
+  int buf = 0;
+  blk::wide_panel_mem<T, GWN>(P, m, p, m, part, buf, n2s, dep_tol2);
+  Cx<T>* qb = q + (size_t)b * m * p;
+  for (int e = threadIdx.x; e < m; e += NT)
+    for (int s = 0; s < p; ++s) qb[(size_t)e * p + s] = P[(size_t)s * m + e];
+  QK_STAMP(blk::ST_END);
+}
+
+// The kernel of a plan, or nullptr where none was built for it: the
+// register and shared-memory plans at every EPL, global scratch past R
+// only where shared memory cannot hold the columns past R on an H100
+// (complex64 at EPL 8, complex128 at EPL 4 and 8; ops/blocked_qr
+// SPLIT_GLOBAL_EPL).
+template <typename T>
+void (*pick(int kind, int epl))(const Cx<T>*, const T*, Cx<T>*, Cx<T>*, int, int, T) {
+  constexpr bool DBL = sizeof(T) == sizeof(double);
+  if (kind == MEMORY) return mgs2_memory_kernel<T>;
+  if (kind == REGISTERS || kind == SPLIT_SMEM) {
+    switch (epl) {
+      case 1: return mgs2_panel_kernel<T, 1, true>;
+      case 2: return mgs2_panel_kernel<T, 2, true>;
+      case 4: return mgs2_panel_kernel<T, 4, true>;
+      case 8: return mgs2_panel_kernel<T, 8, true>;
+      default: return nullptr;
+    }
+  }
+  if (kind == SPLIT_GLOBAL && epl == 8) return mgs2_panel_kernel<T, 8, false>;
+  if constexpr (DBL) {
+    if (kind == SPLIT_GLOBAL && epl == 4) return mgs2_panel_kernel<T, 4, false>;
+  }
+  return nullptr;
 }
 
 template <typename T>
 int launch(const void* a, const void* n2o, void* q, void* scratch, int B, int m, int p,
-           double dep_tol2, int panel_smem, long long smem, cudaStream_t stream) {
+           double dep_tol2, int kind, int epl, int rcols, long long smem, cudaStream_t stream) {
   if (B < 1 || m < 1 || p < 1 || p > MAX_P) return (int)cudaErrorInvalidValue;
-  if (smem < (long long)smem_bytes<T>(m, p, panel_smem)) return (int)cudaErrorInvalidValue;
-  void (*kern)(const Cx<T>*, const T*, Cx<T>*, Cx<T>*, int, int, T) =
-      panel_smem ? mgs2_panel_kernel<T, true> : mgs2_panel_kernel<T, false>;
+  if (kind != MEMORY) {
+    // The group must hold the vector, the plan's register columns must be
+    // the kernel's, and the register plan must hold the panel.
+    if ((long long)m > (long long)NT * epl || epl < 1 || rcols != reg_cols<T>(epl))
+      return (int)cudaErrorInvalidValue;
+    if ((kind == REGISTERS) != (p <= rcols)) return (int)cudaErrorInvalidValue;
+  }
+  if (smem < (long long)smem_bytes<T>(p, kind, epl)) return (int)cudaErrorInvalidValue;
+  auto kern = pick<T>(kind, epl);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   // A request over the card's limit fails here AND at the launch; both
   // errors surface through the single cudaGetLastError() below.
   if (smem > 48 * 1024)
@@ -184,22 +312,32 @@ int launch(const void* a, const void* n2o, void* q, void* scratch, int B, int m,
 
 extern "C" {
 
-// Dynamic shared memory of a launch plan for [m, p] panels (dbl: complex128).
-long long qk_mgs2_smem(int m, int p, int dbl, int panel_smem) {
-  return dbl ? (long long)qk::mgs2::smem_bytes<double>(m, p, panel_smem)
-             : (long long)qk::mgs2::smem_bytes<float>(m, p, panel_smem);
+// Dynamic shared memory of a launch plan for panels of p columns (dbl:
+// complex128; kind, epl as in qk_mgs2_launch).
+long long qk_mgs2_smem(int p, int dbl, int kind, int epl) {
+  return dbl ? (long long)qk::mgs2::smem_bytes<double>(p, kind, epl)
+             : (long long)qk::mgs2::smem_bytes<float>(p, kind, epl);
+}
+
+// Columns a register or split plan holds in registers at epl elements a
+// lane (dbl: complex128).
+int qk_mgs2_reg_cols(int dbl, int epl) {
+  return dbl ? qk::mgs2::reg_cols<double>(epl) : qk::mgs2::reg_cols<float>(epl);
 }
 
 // a [B, m, p] and q [B, m, p] complex, n2o [B, p] real of the same precision;
-// dep_tol2 the cutoff on squared norms; panel_smem 0: ``scratch`` holds
-// p * (m + 1) complex elements per batch element.
+// dep_tol2 the cutoff on squared norms; kind 0 the panel in registers, 1
+// the columns past rcols in shared memory, 2 in global scratch (``scratch``:
+// (p - rcols) * 256 * epl complex elements per batch element), 3 the whole
+// panel in global scratch (p * m per element); epl elements a lane and rcols
+// register columns of the plan (kinds 0 to 2).
 int qk_mgs2_launch(const void* a, const void* n2o, void* q, void* scratch, int B, int m, int p,
-                   int dbl, double dep_tol2, int panel_smem, long long smem_bytes,
+                   int dbl, double dep_tol2, int kind, int epl, int rcols, long long smem_bytes,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dbl ? qk::mgs2::launch<double>(a, n2o, q, scratch, B, m, p, dep_tol2, panel_smem,
-                                        smem_bytes, s)
-             : qk::mgs2::launch<float>(a, n2o, q, scratch, B, m, p, dep_tol2, panel_smem,
+  return dbl ? qk::mgs2::launch<double>(a, n2o, q, scratch, B, m, p, dep_tol2, kind, epl,
+                                        rcols, smem_bytes, s)
+             : qk::mgs2::launch<float>(a, n2o, q, scratch, B, m, p, dep_tol2, kind, epl, rcols,
                                        smem_bytes, s);
 }
 

@@ -85,7 +85,8 @@ SOURCES = {
     },
     "mgs2_panel.cu": {
         "qk_mgs2_smem": ([_i] * 4, _ll),
-        "qk_mgs2_launch": ([_vp] * 4 + [_i] * 4 + [_d, _i, _ll, _vp], _i),
+        "qk_mgs2_reg_cols": ([_i] * 2, _i),
+        "qk_mgs2_launch": ([_vp] * 4 + [_i] * 4 + [_d] + [_i] * 3 + [_ll, _vp], _i),
     },
 }
 # Sources built once, without a pair library.

@@ -118,42 +118,87 @@ def mgs2_panel(a: torch.Tensor, n2_orig: torch.Tensor, precision: str = "highest
     return mgs2_panel_cuda(a, n2_orig)
 
 
+MGS2_WARPS = 8  # K8's block: 8 warps, the group of every round
+MGS2_THREADS = 32 * MGS2_WARPS
+MGS2_EPL = (1, 2, 4, 8)  # elements a lane of the register and split plans
+MGS2_PANEL_REGS = 128  # 32-bit registers a thread gives the panel's columns
+# The global-scratch split plan is built for these elements a lane only:
+# where shared memory cannot hold the columns past the registers' on an
+# H100 (``csrc/mgs2_panel.cu`` ``pick``).
+SPLIT_GLOBAL_EPL = {torch.complex64: (8,), torch.complex128: (4, 8)}
+MGS2_KINDS = ("registers", "split_smem", "split_global", "memory")
+
+
 @dataclasses.dataclass(frozen=True)
 class Mgs2Plan:
     """How K8 is launched (``csrc/mgs2_panel.cu``): one block of
-    ``_block.NT`` threads per batch element; the rows ``W [P][m + 1]`` in
-    shared memory (``panel_smem``, ``smem_bytes`` of dynamic shared memory)
-    or in a per-element global scratch buffer of ``scratch_cx`` complex
-    elements."""
+    ``MGS2_THREADS`` threads per batch element, ``epl`` elements a lane
+    (the vector ``MGS2_THREADS * epl`` long, zero past m). ``kind``:
+    "registers", the whole panel in registers, loaded and stored through
+    ``smem_bytes`` of dynamic shared memory (P staged columns); "split_smem"
+    and "split_global", its first ``reg_cols`` columns in registers and the
+    rest in shared memory (``smem_bytes``, through which the register
+    columns are also staged) or in a per-element global scratch buffer of
+    ``scratch_cx`` complex elements; "memory" (m past ``8 *
+    MGS2_THREADS``), the whole panel in global scratch (``epl`` and
+    ``reg_cols`` 0). A column in shared memory is ``MGS2_THREADS * epl + 1``
+    elements long."""
 
-    panel_smem: bool
+    kind: str
+    epl: int
+    reg_cols: int
     smem_bytes: int
     scratch_cx: int
 
+    @property
+    def code(self) -> int:
+        """The plan's kind as the C side numbers it."""
+        return MGS2_KINDS.index(self.kind)
+
+
+def mgs2_reg_cols(dtype: torch.dtype, epl: int) -> int:
+    """Columns K8 holds in registers at ``epl`` elements a lane: as many as
+    ``MGS2_PANEL_REGS`` registers a thread take, at most ``PANEL``."""
+    return min(PANEL, MGS2_PANEL_REGS // (epl * _block.cx_bytes(dtype) // 4))
+
 
 def mgs2_static_bytes(dtype: torch.dtype) -> int:
-    """K8's static shared memory: the reduction's two buffers of 16 warps x
-    32 values and each warp's copy of 2 x ``PANEL`` coefficient values."""
-    return (2 * _block.NW * 32 + _block.NW * 2 * PANEL) * (_block.cx_bytes(dtype) // 2)
+    """K8's static shared memory: the rounds' two buffers of 8 warps x 96
+    values (three sets of 32), each warp's copy of a round's 96 sums and
+    the panel's ``PANEL`` norms before projection."""
+    return (3 * MGS2_WARPS * 96 + PANEL) * (_block.cx_bytes(dtype) // 2)
 
 
 def mgs2_plan(m: int, p: int, dtype: torch.dtype, smem_optin: int) -> Mgs2Plan:
     """K8's launch plan, a pure function of the panel's shape, the dtype and
-    the shared memory a block may opt in to: the rows in shared memory where
-    they fit beside the static slots, else in global scratch."""
-    rows = p * (m + 1) * _block.cx_bytes(dtype)
-    if rows + mgs2_static_bytes(dtype) <= smem_optin:
-        return Mgs2Plan(True, rows, 0)
-    return Mgs2Plan(False, 0, p * (m + 1))
+    the shared memory a block may opt in to: the fewest elements a lane
+    that cover m; the whole panel in registers where its columns fit their
+    ``MGS2_PANEL_REGS`` (staged through shared memory); else the columns
+    past them in shared memory where they fit beside the static slots,
+    else in global scratch; past m ``8 * MGS2_THREADS`` the whole panel in
+    global scratch."""
+    epl = next((e for e in MGS2_EPL if m <= e * MGS2_THREADS), None)
+    if epl is None:
+        return Mgs2Plan("memory", 0, 0, 0, p * m)
+    r = mgs2_reg_cols(dtype, epl)
+    column = (MGS2_THREADS * epl + 1) * _block.cx_bytes(dtype)  # a staged column
+    if p <= r:
+        return Mgs2Plan("registers", epl, r, p * column, 0)
+    if (p - r) * column + mgs2_static_bytes(dtype) <= smem_optin:
+        return Mgs2Plan("split_smem", epl, r, (p - r) * column, 0)
+    if epl in SPLIT_GLOBAL_EPL[dtype]:
+        return Mgs2Plan("split_global", epl, r, 0, (p - r) * MGS2_THREADS * epl)
+    return Mgs2Plan("memory", 0, 0, 0, p * m)
 
 
 def mgs2_panel_cuda(a: torch.Tensor, n2_orig: torch.Tensor,
-                    smem_bytes: int | None = None) -> torch.Tensor:
+                    smem_bytes: int | None = None, plan: Mgs2Plan | None = None
+                    ) -> torch.Tensor:
     """Launch K8 on the panel ``a [B, m, P]`` (P <= 32, contiguous) with
     ``n2_orig [B, P]`` (contiguous, of ``a``'s real dtype) and the cutoff
-    ``orth.dep_tol2`` as :func:`mgs2_plan` says. ``smem_bytes`` overrides the
-    plan's dynamic shared memory request (used only to test the
-    launch-error path)."""
+    ``orth.dep_tol2`` as :func:`mgs2_plan` says. ``plan`` and ``smem_bytes``
+    override the plan and its dynamic shared memory request (used only to
+    test the launch-error paths)."""
     if a.dtype not in (torch.complex64, torch.complex128):
         raise TypeError(f"mgs2_panel: expected complex64 or complex128, got {a.dtype}")
     if a.dim() != 3 or not a.is_contiguous():
@@ -170,13 +215,14 @@ def mgs2_panel_cuda(a: torch.Tensor, n2_orig: torch.Tensor,
         raise ValueError(f"mgs2_panel: expected a CUDA tensor, got device {a.device}")
     dbl = a.dtype == torch.complex128
     lib = _build.load()
-    plan = mgs2_plan(m, p, a.dtype, _build.smem_optin(a.device.index))
+    if plan is None:
+        plan = mgs2_plan(m, p, a.dtype, _build.smem_optin(a.device.index))
     q = torch.empty_like(a)
     scratch = torch.empty((B, plan.scratch_cx), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = lib.qk_mgs2_launch(a.data_ptr(), n2_orig.data_ptr(), q.data_ptr(), scratch.data_ptr(),
-                            B, m, p, int(dbl), orth.dep_tol2(a.dtype),
-                            int(plan.panel_smem),
+                            B, m, p, int(dbl), orth.dep_tol2(a.dtype), plan.code, plan.epl,
+                            plan.reg_cols,
                             plan.smem_bytes if smem_bytes is None else smem_bytes, stream)
     _build.check(rc, "mgs2_panel kernel launch")
     _build.count_launch("mgs2_panel", False)

@@ -4,7 +4,12 @@ kernels.
     python3 -m qml_cutensornet_tpu_torch.utils.chain_stamps [KERNEL ...]   # needs one GPU
 
 KERNEL is any of ``split``, ``orth_r``, ``orth``, ``gate_split``,
-``brick_split`` (default: all five). Builds their sources
+``brick_split`` (default: these five), ``mgs2_panel`` (K8) and
+``mgs2_panel_parent`` (the parent commit's K8, unpacked into
+``build/parent`` by ``git archive`` as for ``chip_smoke.py``: its source
+gets the same phase stamps at the ends of its load, projections, column
+ends and store before it is built; its rounds stamp themselves through
+``block_chain.cuh``). Builds their sources
 (``csrc/subspace_split.cu``, ``orth_r.cu``, ``orth.cu``, ``gate_split.cu``,
 ``brick_split.cu``) with ``-DQK_STAMPS`` into ``build/stamps/``
 (gitignored; ``orth.cu`` also with ``-DQK_ORTH_CANDIDATES``, which adds the
@@ -22,16 +27,22 @@ brick route's full width (408 pairs, chi 128, nc 128), where one block of
 K3 (B 32) at v [32, 128, 64] (the unfused route at chi 64) and on the
 blocked route's panels of 32 columns at m 256 and 512, once for every
 in-panel group (``ORTH_GROUPS``: warps, elements a lane; -1 the panel in
-memory) that holds the length, with its rows in shared memory. The same
-launch's CUDA-event time gives the cycle rate (over all waves). The last
-lines are the card's name and power limit and a JSON object of the
-breakdowns.
+memory) that holds the length, with its rows in shared memory; K8 (B 32)
+at the main path's panel [32, 512, 32] in complex128 and at [32, 512, 32]
+in complex64, its phases the load, the rounds (each column's dots, warp
+butterflies and barrier; in the redesign also the previous column's
+second projection, which the first round's loop carries), the first
+projections, the column ends and the store. The same launch's CUDA-event
+time gives the cycle rate (over all waves). The last lines are the card's
+name and power limit and a JSON object of the breakdowns.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -45,9 +56,38 @@ from qml_cutensornet_tpu_torch.utils.device import nvidia_smi
 STAMP_DIR = _build.BUILD_DIR.parent / "stamps"
 PHASES = {1: "start", 2: "load", 3: "panel_norms", 4: "cgs_update", 5: "column_end",
           6: "product", 7: "orth_end", 8: "epilogue", 9: "cgs_coefficients", 10: "group_round",
-          11: "theta_build", 12: "s2", 13: "na0"}
+          11: "theta_build", 12: "s2", 13: "na0", 14: "projection"}
 SOURCES = {"split": "subspace_split", "orth_r": "orth_r", "orth": "orth",
-           "gate_split": "gate_split", "brick_split": "brick_split"}
+           "gate_split": "gate_split", "brick_split": "brick_split",
+           "mgs2_panel": "mgs2_panel", "mgs2_panel_parent": "mgs2_panel"}
+DEFAULT = ("split", "orth_r", "orth", "gate_split", "brick_split")
+PARENT_CSRC = _build.BUILD_DIR.parent / "parent" / "qml_cutensornet_tpu_torch" / "csrc"
+# K8's shapes: (m, P, dtype), the main path's first.
+MGS2_SHAPES = ((512, 32, torch.complex128), (512, 32, torch.complex64))
+# Stamps for the parent's K8 (its source has none of its own but the
+# rounds'): (anchor, the line to insert after it).
+PARENT_MGS2_STAMPS = (
+    ("  T* cw = coef[tid >> 5];\n", "  QK_STAMP(blk::ST_START);\n"),
+    ("  __syncthreads();\n\n  int buf = 0;\n", "  QK_STAMP(blk::ST_LOAD);\n"),
+    ("        x[e].im -= si[0] + si[1];\n      }\n", "      QK_STAMP(14);\n"),
+    ("      x[e].im *= inv;\n    }\n", "    QK_STAMP(blk::ST_COLUMN);\n"),
+    ("    qb[idx] = W[(size_t)j * ld + e];\n  }\n", "  QK_STAMP(blk::ST_END);\n"),
+)
+
+
+def _parent_mgs2_source() -> pathlib.Path:
+    """The parent's K8 source with its phase stamps, beside its headers in
+    ``build/stamps/parent_csrc``."""
+    out = STAMP_DIR / "parent_csrc"
+    out.mkdir(parents=True, exist_ok=True)
+    for header in _build.HEADERS:
+        shutil.copy(PARENT_CSRC / header, out / header)
+    text = (PARENT_CSRC / "mgs2_panel.cu").read_text()
+    for anchor, line in PARENT_MGS2_STAMPS:
+        assert text.count(anchor) == 1, f"parent mgs2_panel.cu: anchor {anchor!r} not found once"
+        text = text.replace(anchor, anchor + line)
+    (out / "mgs2_panel.cu").write_text(text)
+    return out / "mgs2_panel.cu"
 # K3's in-panel groups (warps, elements a lane; _block.EPL_MEM: the panel in
 # memory): the plan's and the candidates of -DQK_ORTH_CANDIDATES.
 ORTH_GROUPS = ((4, 1), (4, 2), (4, 4), (8, 1), (8, 2), (16, 1), (16, 2), (16, _block.EPL_MEM))
@@ -57,27 +97,34 @@ def _libs(kernels):
     """Build each kernel's source with -DQK_STAMPS (one nvcc each, all at
     once) and load it with the C signatures of ``ops/_build.py``."""
     STAMP_DIR.mkdir(parents=True, exist_ok=True)
+    src = {name: (_parent_mgs2_source() if name == "mgs2_panel_parent"
+                  else _build.CSRC / f"{SOURCES[name]}.cu") for name in kernels}
     procs = {name: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-DQK_STAMPS",
          *(["-DQK_ORTH_CANDIDATES"] if name == "orth" else []), "-o",
-         str(STAMP_DIR / f"lib{SOURCES[name]}_stamps.so"),
-         str(_build.CSRC / f"{SOURCES[name]}.cu")],
+         str(STAMP_DIR / f"lib{name}_stamps.so"), str(src[name])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in kernels}
     libs = {}
     for name, proc in procs.items():
         out = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCES[name]}.cu:\n{out}")
-        if name == "orth":  # the candidates' registers and spills
+            raise RuntimeError(f"nvcc failed on {src[name]}:\n{out}")
+        if name in ("orth", "mgs2_panel", "mgs2_panel_parent"):  # registers and spills
             for line in out.splitlines():
-                if any(w in line for w in ("orth_kernel", "Function properties", "registers",
+                if any(w in line for w in ("_kernel", "Function properties", "registers",
                                            "spill")):
-                    print("ptxas orth: " + line.strip())
-        lib = ctypes.CDLL(str(STAMP_DIR / f"lib{SOURCES[name]}_stamps.so"))
+                    print(f"ptxas {name}: " + line.strip())
+        lib = ctypes.CDLL(str(STAMP_DIR / f"lib{name}_stamps.so"))
         lib.qk_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         lib.qk_read_stamps.restype = ctypes.c_int
-        for fn, (argtypes, restype) in _build.SOURCES[f"{SOURCES[name]}.cu"].items():
-            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
+        if name == "mgs2_panel_parent":  # the parent's C interface
+            lib.qk_mgs2_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                                           + [ctypes.c_double, ctypes.c_int, ctypes.c_longlong,
+                                              ctypes.c_void_p])
+            lib.qk_mgs2_launch.restype = ctypes.c_int
+        else:
+            for fn, (argtypes, restype) in _build.SOURCES[f"{SOURCES[name]}.cu"].items():
+                getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
         libs[name] = lib
     return libs
 
@@ -113,6 +160,55 @@ def _stamped(lib, launch):
     return out
 
 
+def _mean_us(launch, n=20):
+    """Mean time of one of ``n`` back-to-back launches, by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / n
+
+
+def _mgs2_stamps(name, lib, rng, dev, optin, stream):
+    """K8's breakdowns at ``MGS2_SHAPES`` (B 32): the current kernel with
+    its plan (``ops/blocked_qr.mgs2_plan``), or the parent's with its own
+    (the rows ``[P][m + 1]`` in shared memory where they fit beside its
+    16384 B of static slots in complex128, 8192 B in complex64, else in
+    global scratch)."""
+    from qml_cutensornet_tpu_torch.ops import blocked_qr
+
+    out = {}
+    for m, p, dtype in MGS2_SHAPES:
+        B = 32
+        a = torch.from_numpy(_crandn(rng, B, m, p)).to(dev, dtype)
+        n2 = (a.real ** 2 + a.imag ** 2).sum(1).contiguous()
+        q = torch.empty_like(a)
+        dbl, tol = int(dtype == torch.complex128), orth.dep_tol2(dtype)
+        cx = _block.cx_bytes(dtype)
+        if name == "mgs2_panel":
+            plan = blocked_qr.mgs2_plan(m, p, dtype, optin)
+            scratch = torch.empty((B, max(plan.scratch_cx, 1)), dtype=dtype, device=dev)
+            launch = lambda: lib.qk_mgs2_launch(
+                a.data_ptr(), n2.data_ptr(), q.data_ptr(), scratch.data_ptr(), B, m, p, dbl, tol,
+                plan.code, plan.epl, plan.reg_cols, plan.smem_bytes, stream)
+            what = f"{plan.kind} epl {plan.epl} R {plan.reg_cols}"
+        else:
+            rows = p * (m + 1) * cx
+            in_smem = rows + (2 * 16 * 32 + 16 * 2 * 32) * cx // 2 <= optin
+            scratch = torch.empty((B, 1 if in_smem else p * (m + 1)), dtype=dtype, device=dev)
+            launch = lambda: lib.qk_mgs2_launch(
+                a.data_ptr(), n2.data_ptr(), q.data_ptr(), scratch.data_ptr(), B, m, p, dbl, tol,
+                int(in_smem), rows if in_smem else 0, stream)
+            what = "rows in shared memory" if in_smem else "rows in global scratch"
+        res = _stamped(lib, launch)
+        res["mean_us_20_launches"] = _mean_us(launch)
+        res["plan"] = what
+        out[f"{name}_m{m}_P{p}_{str(dtype)[6:]}"] = res
+    return out
+
+
 def _crandn(rng, *shape):
     x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
     return x / np.abs(x).max()
@@ -122,7 +218,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chain_stamps: needs a CUDA card", file=sys.stderr)
         return 2
-    kernels = list(argv if argv is not None else sys.argv[1:]) or list(SOURCES)
+    kernels = list(argv if argv is not None else sys.argv[1:]) or list(DEFAULT)
     unknown = set(kernels) - set(SOURCES)
     if unknown:
         print(f"chain_stamps: unknown kernels {sorted(unknown)}; known: {list(SOURCES)}",
@@ -174,14 +270,7 @@ def main(argv=None) -> int:
                 launch = lambda: lib.qk_orth_launch(v.data_ptr(), qo.data_ptr(), 0, B, m, k, 0,
                                                     1, warps, epl, p.smem_bytes, stream)
                 res = _stamped(lib, launch)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(20):
-                    launch()
-                end.record()
-                torch.cuda.synchronize()
-                res["mean_us_20_launches"] = start.elapsed_time(end) * 1e3 / 20
+                res["mean_us_20_launches"] = _mean_us(launch)
                 result[f"orth_m{m}_k{k}_g{warps}x{epl}{chosen}"] = res
     for name, shapes in (("gate_split", ((32, 32), (32, 64))), ("brick_split", ((408, 128),))):
         if name not in kernels:
@@ -210,12 +299,17 @@ def main(argv=None) -> int:
                     q2.data_ptr(), na0.data_ptr(), s2.data_ptr(), tot.data_ptr(),
                     scratch.data_ptr(), B, chi, chi, 2, 0, *where)
             result[f"{name}_chi{chi}" + (f"_B{B}" if B != 32 else "")] = _stamped(lib, launch)
+    for name in ("mgs2_panel", "mgs2_panel_parent"):
+        if name in kernels:
+            result.update(_mgs2_stamps(name, libs[name], rng, dev, optin, stream))
     for name, res in result.items():
         parts = ", ".join(f"{k} {v['share']:.3f} ({v['count']} x {v['cycles_each']:.0f})"
                           for k, v in res.items() if isinstance(v, dict))
         mean = (f", {res['mean_us_20_launches']:.1f} us a launch over 20"
                 if "mean_us_20_launches" in res else "")
-        print(f"{name}: {res['total_cycles']} cycles, {res['event_us']:.1f} us{mean}; {parts}")
+        plan = f" [{res['plan']}]" if "plan" in res else ""
+        print(f"{name}{plan}: {res['total_cycles']} cycles, {res['event_us']:.1f} us{mean}; "
+              f"{parts}")
     print(nvidia_smi())
     print(json.dumps(result))
     return 0

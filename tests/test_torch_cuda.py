@@ -214,23 +214,30 @@ def _mgs2_input(rng, B, m, p, dtype, kind, collapsed=True):
     return a, (a.real ** 2 + a.imag ** 2).sum(1), zeros
 
 
-@pytest.mark.parametrize("m", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("m", [256, 512, 1024, 2048, 2560])
 @pytest.mark.parametrize("p", [32, 16])
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
 @pytest.mark.parametrize("kind", ["full", "degenerate"])
 def test_mgs2_panel_kernel_matches_plain(dev, m, p, dtype, kind):
     """K8 (the scanned panel step) against its plain version at the blocked
     route's panel shapes (m = 2 chi for chi 128 to 1024, a panel of 32 and a
-    last panel of 16), batch 32, each dtype at its cutoff
-    (``orth.dep_tol2``): the same exact-zero columns, projectors within
+    last panel of 16; m 2560 for the plan with the whole panel in global
+    scratch), batch 32, each dtype at its cutoff (``orth.dep_tol2``), on
+    whichever plan ``mgs2_plan`` names (every plan is reached: see
+    test_mgs2_panel_plans): the same exact-zero columns, projectors within
     1e-5 (complex64) and 1e-12 (complex128), two launches bit-equal, one
-    launch counted each."""
+    launch counted each; a launch over the shared-memory opt-in raises and
+    is not counted."""
     a, n2, zeros = _mgs2_input(np.random.default_rng(m + p), 32, m, p, dtype, kind,
                                collapsed=dtype == np.complex64)
     a, n2 = a.to(dev), n2.to(dev)
     before = _build.LAUNCHES["mgs2_panel"]
     qk = blocked_qr.mgs2_panel_cuda(a, n2)
+    assert _build.LAUNCHES["mgs2_panel"] == before + 1
     again = blocked_qr.mgs2_panel_cuda(a, n2)
+    assert _build.LAUNCHES["mgs2_panel"] == before + 2
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        blocked_qr.mgs2_panel_cuda(a, n2, smem_bytes=_build.smem_optin(dev.index) + 4096)
     assert _build.LAUNCHES["mgs2_panel"] == before + 2
     qp = blocked_qr.mgs2_panel_plain(a, n2)
     torch.cuda.synchronize()
@@ -239,6 +246,39 @@ def test_mgs2_panel_kernel_matches_plain(dev, m, p, dtype, kind):
     assert (qk == 0).all(1).sum().item() == 32 * zeros
     tol = 1e-5 if dtype == np.complex64 else 1e-12
     assert (qk @ qk.mH - qp @ qp.mH).abs().max().item() <= tol
+
+
+def test_mgs2_panel_plans(dev):
+    """The plans of test_mgs2_panel_kernel_matches_plain's shapes reach all
+    four kinds in both dtypes; the C side's shared memory and register
+    columns equal the Python plan's; and a launch whose plan the C side was
+    not built for (register columns other than its own, a register plan on
+    a panel wider than its registers, a vector longer than the group) is
+    refused, raises and counts nothing."""
+    optin = _build.smem_optin(dev.index)
+    lib = _build.load()
+    kinds = set()
+    for dtype in (torch.complex64, torch.complex128):
+        dbl = int(dtype == torch.complex128)
+        for m in (256, 512, 1024, 2048, 2560):
+            for p in (32, 16):
+                plan = blocked_qr.mgs2_plan(m, p, dtype, optin)
+                kinds.add((dtype, plan.kind))
+                assert lib.qk_mgs2_smem(p, dbl, plan.code, plan.epl) == plan.smem_bytes
+                if plan.kind != "memory":
+                    assert lib.qk_mgs2_reg_cols(dbl, plan.epl) == plan.reg_cols
+    assert kinds == {(d, k) for d in (torch.complex64, torch.complex128)
+                     for k in blocked_qr.MGS2_KINDS}
+    a, n2, _ = _mgs2_input(np.random.default_rng(4), 2, 512, 32, np.complex64, "full")
+    a, n2 = a.to(dev), n2.to(dev)
+    good = blocked_qr.mgs2_plan(512, 32, torch.complex64, optin)
+    before = dict(_build.LAUNCHES)
+    for bad in (dataclasses.replace(good, reg_cols=16),
+                blocked_qr.Mgs2Plan("registers", 4, 16, 0, 0),
+                dataclasses.replace(good, epl=1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            blocked_qr.mgs2_panel_cuda(a, n2, plan=bad)
+    assert _build.LAUNCHES == before
 
 
 def test_mgs2_panel_refusals_and_routing(dev):

@@ -235,24 +235,48 @@ def test_kernel_wrapper_refuses(case):
     assert _build.LAUNCHES == before and _build.PLAIN_ON_CUDA["mgs2_panel"] == 0
 
 
-@pytest.mark.parametrize("m,p,dtype,in_smem", [
-    (256, 32, torch.complex64, True), (512, 32, torch.complex64, True),
-    (1024, 32, torch.complex64, False), (1024, 16, torch.complex64, True),
-    (2048, 16, torch.complex64, False), (256, 32, torch.complex128, True),
-    (512, 32, torch.complex128, False), (512, 16, torch.complex128, True),
-    (1024, 16, torch.complex128, False)])
-def test_launch_plan(m, p, dtype, in_smem):
-    """K8's plan on an H100 (232448 bytes a block may opt in to): the rows
-    ``[P][m + 1]`` in shared memory where they fit beside the static slots,
-    else in global scratch of ``P (m + 1)`` complex elements an element."""
+C64, C128 = torch.complex64, torch.complex128
+
+
+# Every (m, P, dtype) of chip_smoke.K8_SHAPES, and past m 2048 the whole
+# panel in global scratch: (m, P, dtype, plan kind, elements a lane).
+@pytest.mark.parametrize("m,p,dtype,kind,epl", [
+    (256, 32, C64, "registers", 1), (256, 16, C64, "registers", 1),
+    (512, 32, C64, "registers", 2), (512, 16, C64, "registers", 2),
+    (1024, 32, C64, "split_smem", 4), (1024, 16, C64, "registers", 4),
+    (2048, 32, C64, "split_global", 8), (2048, 16, C64, "split_smem", 8),
+    (256, 32, C128, "registers", 1), (256, 16, C128, "registers", 1),
+    (512, 32, C128, "split_smem", 2), (512, 16, C128, "registers", 2),
+    (1024, 32, C128, "split_global", 4), (1024, 16, C128, "split_smem", 4),
+    (2048, 32, C128, "split_global", 8), (2048, 16, C128, "split_global", 8),
+    (2560, 32, C64, "memory", 0), (2560, 16, C128, "memory", 0)])
+def test_launch_plan(m, p, dtype, kind, epl):
+    """K8's plan on an H100 (232448 bytes a block may opt in to): 256
+    threads at the fewest elements a lane (1, 2, 4, 8) that cover m, the
+    columns that fit 128 registers a thread held in registers (staged
+    through shared memory, a column 256 x epl + 1 long), the rest in
+    shared memory where they fit beside the static slots, else in global
+    scratch; past m 2048 the whole panel in global scratch. The dynamic and
+    static shared memory fit the block's opt-in."""
     plan = blocked_qr.mgs2_plan(m, p, dtype, 232448)
-    assert plan.panel_smem == in_smem
-    cx = 16 if dtype == torch.complex128 else 8
-    if in_smem:
-        assert plan.smem_bytes == p * (m + 1) * cx and plan.scratch_cx == 0
-        assert plan.smem_bytes + blocked_qr.mgs2_static_bytes(dtype) <= 232448
+    assert (plan.kind, plan.epl) == (kind, epl)
+    assert plan.smem_bytes + blocked_qr.mgs2_static_bytes(dtype) <= 232448
+    cx, threads = (16 if dtype == C128 else 8), blocked_qr.MGS2_THREADS
+    if kind == "memory":
+        assert m > 8 * threads
+        assert (plan.reg_cols, plan.smem_bytes, plan.scratch_cx) == (0, 0, p * m)
+        return
+    assert (epl // 2) * threads < m <= epl * threads  # the group covers m, at the fewest
+    r = plan.reg_cols
+    assert r == min(32, 128 // (epl * cx // 4))  # the columns' registers a thread
+    column = (threads * epl + 1) * cx
+    if kind == "registers":
+        assert p <= r and plan.smem_bytes == p * column and plan.scratch_cx == 0
+    elif kind == "split_smem":
+        assert p > r and plan.smem_bytes == (p - r) * column and plan.scratch_cx == 0
     else:
-        assert plan.smem_bytes == 0 and plan.scratch_cx == p * (m + 1)
+        assert p > r and plan.smem_bytes == 0 and plan.scratch_cx == (p - r) * threads * epl
+        assert (p - r) * column + blocked_qr.mgs2_static_bytes(dtype) > 232448
 
 
 def test_f64_gram_above_128_columns_matches_reference(monkeypatch):
