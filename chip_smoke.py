@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py       # needs one CUDA card
     python3 chip_smoke.py k8    # phases 1, 2 and 3c only (K8 beside the parent's)
+    python3 chip_smoke.py harness  # phases 1, 2 and 12b only
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -169,6 +170,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    printed) serves the train and the test Gram.
 12. ``cli.main_track_mem`` at nf 100, r 2, d 6, chi 64, one circuit: one
    ``MPS size`` line per op of the schedule (3744), all positive.
+12b. harness: the experiment suites of ``qml_cutensornet_tpu_torch/runs``
+   into a temporary directory, ``PREWARM=0``: qubit_scaling at nf 30, gamma
+   1.0, 5 + 5 points, d 6 (cap 64) and crossover at d 2 (nf 100, cap 64) in
+   both modes, then their ``csv`` steps; every row against its profiling
+   JSON, every Gram symmetric with a unit diagonal, the launches against
+   the op stream's (K1 and K2).
 13. residency: ``cli.main_no_test`` at the crossover sweep's d-8
    configuration (nf 100, r 2, d 8, chi 256, 5 + 5 points, one sim batch of
    8) with the default ``QMLTPU_STATES_DEVICE_BYTES`` (the states stay on
@@ -2627,6 +2634,69 @@ def phase_track_mem(smi):
     return launches
 
 
+def phase_harness(smi):
+    """Phase 12b: the qubit_scaling and crossover suites on the card at one
+    point each (d 2 in both modes), their CSVs against the profiles, their
+    Grams and launches."""
+    import contextlib
+    import tempfile
+
+    from qml_cutensornet_tpu_torch.runs import _harness, common, crossover, qubit_scaling
+    from qml_cutensornet_tpu_torch.utils.device import environ
+
+    assert "QMLTPU_CHI" not in os.environ and "QMLTPU_SIM_BATCH" not in os.environ
+    out = pathlib.Path(tempfile.mkdtemp(prefix="harness_", dir=WORK))
+    qs_argv = ["main_no_test", "GPU", "30", "2", "1.0", "6", "5", "5", "5", CSV_V1]
+    xo_argv = ["main_no_test", "{}", "100", "2", "1.0", "2", "5", "5", "5", CSV_V1]
+    # Both suites run at cap 64 (CHI_FOR_NF[30], chi_for_d(2)) and a sim
+    # batch of 10: the 8 train points in one batch.
+    assert qubit_scaling.CHI_FOR_NF[30] == crossover.chi_for_d(2) == 64
+    with environ(QMLTPU_CHI="64", QMLTPU_SIM_BATCH="10"):
+        want = expected_launches(qs_argv, 1)
+        for label in ("CPU", "GPU"):
+            _add_all(want, expected_launches([a.format(label) for a in xo_argv], 1))
+    knobs = dict(QMLTPU_RUNS_DIR=str(out), PREWARM="0", NFS="30", GAMMAS="1.0", NTR="5", D="6",
+                 DS="2")
+    t0 = time.perf_counter()
+    with environ(**knobs):
+        grams, launches = count_launches(
+            lambda: {**qubit_scaling.run(), **crossover.run("cpu", "gpu")}, want, "harness")
+        with contextlib.redirect_stdout(sys.stderr):
+            qs_rows = qubit_scaling.csv()
+            gpu_rows, cpu_rows = crossover.csv()
+        lines = {(r.get("mode", "qs"), r["record"]): r
+                 for suite in ("qubit_scaling", "crossover") for r in _harness.read_runs(suite)}
+    assert "QMLTPU_CHI" not in os.environ and "QMLTPU_SIM_BATCH" not in os.environ
+    assert len(grams) == 3 and len(qs_rows) == len(gpu_rows) == len(cpu_rows) == 1, grams.keys()
+    for name, K in grams.items():
+        check_train_gram(K, 8, f"harness {name}")
+    checks = [("qs", qs_rows[0], out / "qubit_scaling/raw",
+               {"avg_mps_time": "avg_circ_sim", "avg_dot_time": "avg_product",
+                "avg_mps_mem": "avg_mps_mem"}),
+              ("gpu", gpu_rows[0], out / "crossover/raw/gpu",
+               {"median_mps_time": "median_circ_sim", "median_dot_time": "median_product",
+                "q1_mps_time": "q1_circ_sim", "avg_mps_mem": "avg_mps_mem"}),
+              ("cpu", cpu_rows[0], out / "crossover/raw/cpu",
+               {"median_mps_time": "median_circ_sim", "q3_dot_time": "q3_product"})]
+    for label, row, raw, keys in checks:
+        (path,) = raw.glob("*.json")
+        prof = json.loads(path.read_text())
+        assert row["features"] == int(path.name.split("_")[1][2:]), (row, path.name)
+        for col, key in keys.items():
+            assert row[col] == prof[key][0], (path.name, col, row[col], prof[key][0])
+        chi = common.avg_max_chi(prof)
+        assert row["avg_max_chi"] == chi, (path.name, row["avg_max_chi"], chi)
+        line = lines[(label, path.stem)]
+        log(f"harness {label} {path.stem} [{smi}]: avg_max_chi {chi}, sim "
+            f"{prof['r0_circ_sim'][0]:.3f} s, tiles {prof['kernel_mat_time'][0]:.3f} s, peak "
+            f"{line['peak_bytes']} B, states {line['states']}, criterion "
+            f"{line.get('criterion', 'fidelity')}")
+    assert gpu_rows[0]["avg_max_chi"] == cpu_rows[0]["avg_max_chi"]
+    log(f"harness phase: launches {launches}, {time.perf_counter() - t0:.3f} s")
+    shutil.rmtree(out)
+    return launches
+
+
 def phase_residency(smi):
     """The large-chi memory path: ``cli.main_no_test`` at the crossover's d-8
     configuration (nf 100, chi 256, 8 points in one sim batch) with the default
@@ -3126,6 +3196,14 @@ def main() -> int:
         print(smi)
         print(json.dumps({"mgs2_panel": k8}))
         return 0
+    if sys.argv[1:] == ["harness"]:  # the experiment suites alone
+        WORK.mkdir(parents=True, exist_ok=True)
+        os.environ["QMLTPU_DEVICE"] = "cuda"
+        launches = phase_harness(smi)
+        log(f"harness phase done at {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"harness": launches}))
+        return 0
     err, times, stage_ms, parent = phase_kernels(dev, parent_built)
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f} s")
     pair_err, pair_ms = phase_pair_kernels(dev)
@@ -3171,6 +3249,8 @@ def main() -> int:
     log(f"auto chi done at {time.perf_counter() - t_start:.1f} s")
     by_path["track_mem"] = phase_track_mem(smi)
     log(f"main_track_mem done at {time.perf_counter() - t_start:.1f} s")
+    by_path["harness"] = phase_harness(smi)
+    log(f"harness done at {time.perf_counter() - t_start:.1f} s")
     by_path["residency"] = phase_residency(smi)
     log(f"residency done at {time.perf_counter() - t_start:.1f} s")
     k7, lowp_paths = phase_reduced_precision(dev, smi, golden, K_default, x_train)
