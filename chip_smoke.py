@@ -175,7 +175,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    1.0, 5 + 5 points, d 6 (cap 64) and crossover at d 2 (nf 100, cap 64) in
    both modes, then their ``csv`` steps; every row against its profiling
    JSON, every Gram symmetric with a unit diagonal, the launches against
-   the op stream's (K1 and K2).
+   the op stream's (K1 and K2); then runtime_scaling's ``run`` at nf 165,
+   d 1, 4 + 4 points in this process and on the ring at world size 1, and
+   its ``ladder`` rung at world size 1 (16 qubits, chi 64, truncating),
+   each Gram against its in-process or single-device twin.
 13. residency: ``cli.main_no_test`` at the crossover sweep's d-8
    configuration (nf 100, r 2, d 8, chi 256, 5 + 5 points, one sim batch of
    8) with the default ``QMLTPU_STATES_DEVICE_BYTES`` (the states stay on
@@ -458,17 +461,33 @@ def compare_orth(orth_mod, v, what, pair=False):
     return compare(qk, qk.mH @ v, qp, qp.mH @ v, v, what, False)
 
 
+def resid_errors(split_mod, resk, resp, theta, q, r, tot):
+    """The residual ``||theta - q r||^2`` of K4 or K5 against its plain
+    version's (relative to the largest total; the two bases differ by
+    rounding, as the sorted s2 do) and against the residual of the kernel's
+    own factors (relative to each total), each held to its bar."""
+    vs_plain = ((resk - resp).abs().max() / tot.max()).item()
+    own = ((resk - split_mod.residual_norm2(theta, q, r)).abs() / tot).max().item()
+    assert vs_plain <= TOL_S2, f"residual vs plain {vs_plain} > {TOL_S2}"
+    assert own <= TOL_TOT, f"residual vs the kernel's factors {own} > {TOL_TOT}"
+    return vs_plain, own
+
+
 def compare_gate(split_mod, A, Bm, g, v0, iters, what, surplus=False, pair=False):
-    """Kernel K4 against its plain version: the factorization of theta and
-    ``tot = ||theta||^2`` (``surplus`` as in :func:`compare`)."""
-    qk, rk, totk = split_mod.gate_subspace_factor_cuda(A, Bm, g, v0, iters, pair)
-    qp, rp, totp = split_mod.gate_subspace_factor_plain(A, Bm, g, v0, iters, pair)
+    """Kernel K4 against its plain version: the factorization of theta,
+    ``tot = ||theta||^2`` and ``resid = ||theta - q r||^2`` (``surplus`` as in
+    :func:`compare`)."""
+    qk, rk, totk, resk = split_mod.gate_subspace_factor_cuda(A, Bm, g, v0, iters, pair)
+    qp, rp, totp, resp = split_mod.gate_subspace_factor_plain(A, Bm, g, v0, iters, pair)
     torch.cuda.synchronize()
     theta = split_mod.gate_theta(A, Bm, g)
     tot_err = max(((totk - totp).abs() / totp).max().item(),
                   ((totk - theta.abs().pow(2).sum((1, 2))).abs() / totp).max().item())
     assert tot_err <= TOL_TOT, f"{what}: tot error {tot_err} > {TOL_TOT}"
-    return max(compare(qk, rk, qp, rp, theta, what, True, surplus), tot_err)
+    res_err = resid_errors(split_mod, resk, resp, theta, qk, rk, totp)
+    log(f"  {what}: tot {tot_err:.2e} resid {res_err[0]:.2e} (vs plain), {res_err[1]:.2e} "
+        f"(vs its factors)")
+    return max(compare(qk, rk, qp, rp, theta, what, True, surplus), tot_err, *res_err)
 
 
 def compare_brick(split_mod, A, Bm, g, lam, v0, iters, what, pair=False):
@@ -481,10 +500,12 @@ def compare_brick(split_mod, A, Bm, g, lam, v0, iters, what, pair=False):
     surplus row can survive the dependent-column cutoff by rounding in
     either version, as in K1's comparison (it adds nothing to the projected
     pair: theta_t has no rows where the weights are zero)."""
-    q2, na0, s2, tot = split_mod.brick_gate_split_cuda(A, Bm, g, lam, v0, iters, pair)
-    pq2, pna0, ps2, ptot = split_mod.brick_gate_split_plain(A, Bm, g, lam, v0, iters, pair)
+    q2, na0, s2, tot, res = split_mod.brick_gate_split_cuda(A, Bm, g, lam, v0, iters, pair)
+    pq2, pna0, ps2, ptot, pres = split_mod.brick_gate_split_plain(A, Bm, g, lam, v0, iters, pair)
     torch.cuda.synchronize()
     theta_t = split_mod.gate_theta(A, Bm, g)
+    th_h, q = (theta_t * torch.cat([lam, lam], 1)[:, :, None]).mH, q2.mT
+    res_err = resid_errors(split_mod, res, pres, th_h, q, q.mH @ th_h, ptot)
     proj = lambda na, q: na.mT @ q.conj()
     prod = ((proj(na0, q2) - proj(pna0, pq2)).abs().max() / theta_t.abs().max()).item()
     srt = lambda x: torch.sort(x, dim=1, descending=True).values
@@ -500,12 +521,13 @@ def compare_brick(split_mod, A, Bm, g, lam, v0, iters, what, pair=False):
     assert torch.count_nonzero(na0.transpose(1, 2)[zero_rows]) == 0, f"{what}: na0 leaked"
     assert torch.count_nonzero(q2.transpose(1, 2)[zero_cols]) == 0, f"{what}: q2 leaked"
     log(f"  {what}: prod {prod:.2e} s2 {s2e:.2e} tot {tot_err:.2e} orth {orth_err:.2e} "
+        f"resid {res_err[0]:.2e} / {res_err[1]:.2e} "
         f"kept {int(live.sum(1).min())}..{int(live.sum(1).max())}")
     assert prod <= TOL_PROD, f"{what}: projected-pair error {prod} > {TOL_PROD}"
     assert s2e <= TOL_S2, f"{what}: sorted s2 error {s2e} > {TOL_S2}"
     assert tot_err <= TOL_TOT, f"{what}: total error {tot_err} > {TOL_TOT}"
     assert orth_err <= TOL_ORTH, f"{what}: orthonormality error {orth_err} > {TOL_ORTH}"
-    return max(prod, s2e, tot_err)
+    return max(prod, s2e, tot_err, *res_err)
 
 
 def time_ms(fn, reps):
@@ -757,13 +779,13 @@ def bound(ops, nbytes):
 
 def brick_bound(Bn, chi, nc, iters):
     """K5 on ``Bn`` pairs: the theta build (A·B, the gate combine, the lambda
-    weight), the chain on theta_w^H (its last product gives s2) and the na0
-    product; inputs A, B, g, lam and v0 read once, q2, na0, s2 and total
-    written once."""
+    weight), the chain on theta_w^H (its last product gives s2), the residual
+    product and the na0 product; inputs A, B, g, lam and v0 read once, q2,
+    na0, s2, total and resid written once."""
     m = 2 * chi
-    ops = Bn * (_chain_ops(m, m, nc, iters) + 8.0 * m * nc * m + 8.0 * m * chi * m
+    ops = Bn * (_chain_ops(m, m, nc, iters) + 2 * 8.0 * m * nc * m + 8.0 * m * chi * m
                 + 8.0 * 4 * m * m + 2.0 * m * m)
-    nbytes = 8.0 * (Bn * (2 * m * chi + 16 + 2 * nc * m) + m * nc) + 4.0 * Bn * (chi + nc + 1)
+    nbytes = 8.0 * (Bn * (2 * m * chi + 16 + 2 * nc * m) + m * nc) + 4.0 * Bn * (chi + nc + 2)
     return bound(ops, nbytes)
 
 
@@ -776,9 +798,10 @@ def kernel_bounds(B, chi, iters):
         "orth_r": bound(B * (_orth_ops(m, chi) + 8.0 * chi * chi * m),
                         c * B * (2 * m * chi + chi * chi)),
         "orth": bound(B * _orth_ops(m, chi), c * B * 2 * m * chi),
-        "gate_split": bound(
-            B * (_chain_ops(m, k, nc, iters) + 8.0 * m * chi * k + 8.0 * 4 * m * k),
-            c * (B * (2 * m * chi + 16) + m * nc + B * m * nc + B * nc * k) + 4.0 * B),
+        "gate_split": bound(  # the theta build, the chain, the residual product
+            B * (_chain_ops(m, k, nc, iters) + 8.0 * m * chi * k + 8.0 * 4 * m * k
+                 + 8.0 * m * k * nc),
+            c * (B * (2 * m * chi + 16) + m * nc + B * m * nc + B * nc * k) + 2 * 4.0 * B),
     }
 
 
@@ -1131,7 +1154,7 @@ def phase_kernels(dev, parent_built):
     p1 = time_ms(plain, 2)
     if parent:
         old = lambda: parent.brick_split(*brick, v0b, 2)
-        (qn, nn, _, _), (qo, no, _, _) = kern(), old()
+        (qn, nn, *_), (qo, no, *_) = kern(), old()
         pair_o = no.mT @ qo.conj()
         diff = ((nn.mT @ qn.conj() - pair_o).abs().max() / pair_o.abs().max()).item()
         assert diff <= TOL_PROD, f"brick_split: parent's projected pair off by {diff}"
@@ -2117,7 +2140,8 @@ def phase_svd_methods(smi, golden, K_default, x_train):
     params_svd = pipe.parse_argv(list(ARGV_SVD))
     ansatz_svd = pipe.make_ansatz(params_svd)
     K_default_r1, _ = count_launches(
-        lambda: pipe.build(params_svd, ansatz_svd, X=x_train[:n], info_file="svd_default_r1"),
+        lambda: pipe.build(params_svd, ansatz_svd, X=x_train[:n], engine=pipe.engine_kwargs(),
+                           info_file="svd_default_r1"),
         expected_launches(ARGV_SVD, 1), f"default route, r 1, {n} points")
     refs = {"svd": (ARGV_SVD, K_default_r1, False),
             "eigh": (ARGV, K_default[:n, :n], True)}
@@ -2130,7 +2154,8 @@ def phase_svd_methods(smi, golden, K_default, x_train):
         info = f"svd_method_{method}_{precision}"
         with environ(QMLTPU_SVD=method, QMLTPU_PRECISION=precision):
             K, launches = count_launches(
-                lambda: pipe.build(params, ansatz, X=x_train[:n], info_file=info),
+                lambda: pipe.build(params, ansatz, X=x_train[:n], engine=pipe.engine_kwargs(),
+                                   info_file=info),
                 expected_launches(argv, -(-n // 32)), what)
         assert launches["split"] == 0 and launches["orth_r"] > 0, launches
         _add_all(total, launches)
@@ -2305,8 +2330,10 @@ def phase_mesh(smi, golden, K_default):
     by_path = {}
     for ws in sizes:
         calls = [
-            (pipe.build, (params, ansatz), dict(X=x_train, info_file=f"mesh{ws}_stepwise"), {}),
-            (pipe.build, (params, ansatz), dict(X=x_train, info_file=f"mesh{ws}_fused"),
+            (pipe.build, (params, ansatz),
+             dict(X=x_train, engine=dryrun.ENGINE, info_file=f"mesh{ws}_stepwise"), {}),
+            (pipe.build, (params, ansatz),
+             dict(X=x_train, engine=dryrun.ENGINE, info_file=f"mesh{ws}_fused"),
              {"QMLTPU_RING": "fused"}),
             # the same Gram on this rank's card alone, in the same process
             (build_kernel_matrix, (ansatz, x_train),
@@ -2692,8 +2719,99 @@ def phase_harness(smi):
             f"{line['peak_bytes']} B, states {line['states']}, criterion "
             f"{line.get('criterion', 'fidelity')}")
     assert gpu_rows[0]["avg_max_chi"] == cpu_rows[0]["avg_max_chi"]
+    _add_all(launches, phase_runtime_scaling(smi, out))
     log(f"harness phase: launches {launches}, {time.perf_counter() - t0:.3f} s")
     shutil.rmtree(out)
+    return launches
+
+
+def phase_runtime_scaling(smi, out):
+    """Phase 12b, the runtime_scaling suite: ``run`` at nf 165, d 1, 4 + 4
+    points in this process and on the ring at world size 1 (one rank of
+    ``mesh.launch``), and ``ladder`` at world size 1 on the card at 16
+    qubits (bonds up to 256 uncapped, so the cap of 64 truncates: the rung's
+    avg_max_chi is 64 and its avg_fidelity below 1; at the suite's 100
+    qubits the svd method makes a rung's builds take minutes, 80 s each on
+    an H100), its Gram held to the single-device build of the same
+    features. Each run's launches
+    equal the op stream's (the rank's own counters for the ring and the
+    ladder, reset before each call); returns their sum."""
+    import contextlib
+
+    from qml_cutensornet_tpu_torch.config import SimConfig
+    from qml_cutensornet_tpu_torch.models.ansatz import KernelStateAnsatz
+    from qml_cutensornet_tpu_torch.models.entanglement import entanglement_graph
+    from qml_cutensornet_tpu_torch.models.gram import build_kernel_matrix
+    from qml_cutensornet_tpu_torch.parallel import gram as pgram
+    from qml_cutensornet_tpu_torch.runs import _harness, common, runtime_scaling
+    from qml_cutensornet_tpu_torch.utils.device import environ
+
+    t0 = time.perf_counter()
+    argv = ["main_no_test", "GPU", "165", "2", "0.1", "1", "4", "4", "5",
+            _harness.SYNTHETIC_CSV]
+    knobs = dict(QMLTPU_RUNS_DIR=str(out), PREWARM="0", NF="165", NTRS="4", RING_NTRS="4",
+                 NDEVS="1", NQ="16")
+    with environ(**knobs):
+        grams, launches = count_launches(runtime_scaling.run, expected_launches(argv, 1),
+                                         "runtime_scaling")
+        with contextlib.redirect_stdout(sys.stderr):
+            rows = runtime_scaling.csv()
+            ladder = runtime_scaling.ladder()
+        lines = _harness.read_runs("runtime_scaling")
+    raw = out / "runtime_scaling" / "raw"
+    (one, ring), (line_one, line_ring, line_ladder) = sorted(grams), lines
+    assert ring == f"{one}_ring" and one.endswith("_m1"), sorted(grams)
+    prof = {name: json.loads((raw / f"{name}.json").read_text()) for name in (one, ring)}
+    n = prof[one]["lenX"][0]
+    for name in (one, ring):
+        check_train_gram(grams[name], n, f"runtime_scaling {name}")
+        assert prof[name]["n_procs"] == [1, "devices"], prof[name]["n_procs"]
+    ring_err = float(np.abs(grams[ring] - grams[one]).max())
+    block, _ = pgram.ring_rows(n, None, 1, 32)
+    want_ring = expected_launches(argv, -(-n // block))
+    assert line_ring["launches"] == want_ring, (line_ring["launches"], want_ring)
+    by_name = {r["data_set"]: r for r in rows}
+    for name, key in ((one, "elliptic_preproc_m1"), (ring, "elliptic_preproc_m1_ring")):
+        row = by_name[key]
+        assert (row["mps_wall_time"], row["dot_wall_time"], row["total_wall_time"]) == (
+            prof[name]["r0_circ_sim"][0], prof[name]["r0_product"][0],
+            prof[name]["total_time"][0]), (name, row)
+        assert row["avg_max_chi"] == common.avg_max_chi(prof[name]), (name, row)
+
+    # The ladder's rung: the reference's dataclass defaults (the svd method,
+    # the fused split off) at chi 64, d 6, 4 points, one dispatch a build,
+    # cold and warm.
+    (row,) = ladder["rows"]
+    K = ladder["grams"][1]
+    cfg = SimConfig(chi=row["chi"], precision="f32")
+    ladder_argv = ["ladder", "GPU", str(row["nq"]), str(row["layers"]), "1.0", str(row["d"]),
+                   "4", "4", "5", _harness.SYNTHETIC_CSV]
+    block, _ = pgram.ring_rows(row["points"], None, 1, 32)
+    want_ladder = expected_launches(ladder_argv, -(-row["points"] // block), cfg)
+    for key in ("cold_launches", "launches"):
+        assert line_ladder[key] == want_ladder, (key, line_ladder[key], want_ladder)
+    check_train_gram(K, row["points"], "runtime_scaling ladder")
+    single = build_kernel_matrix(
+        KernelStateAnsatz(row["nq"], row["layers"], 1.0, entanglement_graph(row["nq"], row["d"])),
+        ladder["features"][1], cfg=cfg, device=os.environ["QMLTPU_DEVICE"])
+    ladder_err = float(np.abs(K - single).max())
+    log(f"runtime_scaling [{smi}]: {one}: sim {prof[one]['r0_circ_sim'][0]:.3f} s, tiles "
+        f"{prof[one]['kernel_mat_time'][0]:.3f} s, avg_max_chi {common.avg_max_chi(prof[one])}, "
+        f"avg_fidelity {prof[one]['avg_fidelity'][0]:.8f}, peak {line_one['peak_bytes']} B; the "
+        f"ring at world size 1: sim {prof[ring]['r0_circ_sim'][0]:.3f} s, ring "
+        f"{prof[ring]['kernel_mat_time'][0]:.3f} s, Gram vs in-process {ring_err:.3e} (tol "
+        f"{TOL_RING_SINGLE}), launches {line_ring['launches']}; ladder rung 1: {json.dumps(row)}, "
+        f"sim {line_ladder['sim_s']:.3f} s, ring {line_ladder['ring_s']:.3f} s, Gram vs the "
+        f"single-device build {ladder_err:.3e} (tol {TOL_RING_SINGLE}), launches a build "
+        f"{line_ladder['launches']}; {time.perf_counter() - t0:.3f} s")
+    assert ring_err <= TOL_RING_SINGLE, f"runtime_scaling: ring off in-process by {ring_err}"
+    assert ladder_err <= TOL_RING_SINGLE, f"runtime_scaling: ladder off one device by {ladder_err}"
+    assert line_ladder["avg_max_chi"] == row["chi"] and line_ladder["avg_fidelity"] < 1.0, (
+        f"runtime_scaling: the ladder's rung does not truncate: {line_ladder}")
+    assert row["eff_program"] == 1.0, row
+    assert ("NCCL" in row["platform"]) == (os.environ["QMLTPU_DEVICE"] == "cuda"), row
+    for extra in (line_ring["launches"], line_ladder["cold_launches"], line_ladder["launches"]):
+        _add_all(launches, extra)
     return launches
 
 

@@ -258,10 +258,11 @@ def engine_kwargs() -> dict:
     return kwargs
 
 
-def n_procs() -> int:
+def n_procs(engine: dict) -> int:
     """Ranks of the run: the size of the ring or site mesh over the process
-    group that :func:`engine_kwargs` initializes under torchrun, else 1."""
-    mesh = engine_kwargs().get("mesh")
+    group that :func:`engine_kwargs` initializes under torchrun, else 1.
+    ``engine`` is that call's result."""
+    mesh = engine.get("mesh")
     if mesh is not None:
         return mesh.size
     return dist.get_world_size() if dist.is_initialized() else 1
@@ -329,7 +330,9 @@ def info_names(params: RunParams):
     return run_info("train", *args), run_info("test", *args)
 
 
-def build(params: RunParams, ansatz, X, Y=None, info_file=None):
+def build(params: RunParams, ansatz, X, engine: dict, Y=None, info_file=None):
+    """The Gram of ``X`` (against ``Y``) on ``engine``, the result of
+    :func:`engine_kwargs`."""
     pathlib.Path("kernels").mkdir(exist_ok=True)
     pathlib.Path("data").mkdir(exist_ok=True)
     return build_kernel_matrix(
@@ -340,5 +343,5 @@ def build(params: RunParams, ansatz, X, Y=None, info_file=None):
         truncation_error=TRUNCATION_ERROR,
         cfg=sim_config(params, sample_features=X),
         loglevel=20,
-        **engine_kwargs(),
+        **engine,
     )

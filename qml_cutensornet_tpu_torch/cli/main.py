@@ -25,21 +25,23 @@ from qml_cutensornet_tpu_torch.models.svm import svc_sweep
 
 def main(argv=None):
     params = pipe.parse_argv(argv)
-    pipe.echo_params(params, n_procs=pipe.n_procs())
+    engine = pipe.engine_kwargs()
+    pipe.echo_params(params, n_procs=pipe.n_procs(engine))
 
     x_train, y_train, x_test, y_test = pipe.prepare(params)
     ansatz = pipe.make_ansatz(params)
     train_info, test_info = pipe.info_names(params)
 
     time0 = time.perf_counter()
-    kernel_train = pipe.build(params, ansatz, X=x_train, info_file=train_info)
+    kernel_train = pipe.build(params, ansatz, X=x_train, info_file=train_info, engine=engine)
     time1 = time.perf_counter()
     print(f"Built kernel matrix on training set. Time: {round(time1 - time0, 2)} seconds\n")
     if pipe.is_writer():
         np.save(f"kernels/{train_info}.npy", kernel_train)
 
     time0 = time.perf_counter()
-    kernel_test = pipe.build(params, ansatz, X=x_train, Y=x_test, info_file=test_info)
+    kernel_test = pipe.build(params, ansatz, X=x_train, Y=x_test, info_file=test_info,
+                             engine=engine)
     time1 = time.perf_counter()
     print(f"Built kernel matrix on test set. Time: {round(time1 - time0, 2)} seconds\n")
     if pipe.is_writer():

@@ -1663,6 +1663,79 @@ __device__ __forceinline__ void split_outputs(const Cx<T>* th, int ldt, const Ro
   }
 }
 
+// ||theta - q r||^2 of one element (K4, K5): theta [m, k] at th (row
+// stride ldt), q [m, nc] read from the rows (q[i][c] = V[c][i]) and r [nc,
+// k] at rb (row stride k), which the block has just written. The weight
+// that the split's nc directions miss, for the kept fraction's discarded
+// weight (ops/svd._kept_fraction): formed from small terms, so that f32
+// reads it to its own rounding. gemm's tiles (TJ 4 by TC) with each output
+// compared with theta and squared in registers, never stored; summed in a
+// fixed order (each warp's lanes by a butterfly, then the warps in order)
+// in red [NW]. Starts and ends with a barrier.
+template <typename T>
+__device__ __forceinline__ T residual_norm2(const Cx<T>* th, int ldt, const Rows<T>& x,
+                                            const Cx<T>* rb, int m, int k, int nc, T* red) {
+  constexpr int TJ = 4;
+  __syncthreads();  // rb written, red free
+  const int lc = gemm_lanes(k);
+  const int jw = (32 / lc) * TJ, cw = lc * TC;
+  const int njt = (m + jw - 1) / jw, nct = (k + cw - 1) / cw;
+  const int ntiles = njt * nct;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T part = 0;
+  for (int t0 = 0; t0 < ntiles; t0 += NW) {
+    const int tile = t0 + warp;
+    if (tile >= ntiles) break;
+    const int j0 = (tile / nct) * jw + (lane / lc) * TJ;
+    const int c0 = (tile % nct) * cw + (lane % lc);
+    T ar[TJ][TC], ai[TJ][TC];
+#pragma unroll
+    for (int u = 0; u < TJ; ++u)
+#pragma unroll
+      for (int v = 0; v < TC; ++v) ar[u][v] = ai[u][v] = T(0);
+    int jr[TJ], cr[TC];
+#pragma unroll
+    for (int u = 0; u < TJ; ++u) jr[u] = (j0 + u < m) ? j0 + u : 0;
+#pragma unroll
+    for (int v = 0; v < TC; ++v) cr[v] = (c0 + v * lc < k) ? c0 + v * lc : 0;
+#pragma unroll 2
+    for (int c = 0; c < nc; ++c) {
+      Cx<T> a[TJ], b[TC];
+#pragma unroll
+      for (int u = 0; u < TJ; ++u) a[u] = x.V[(size_t)c * x.ldv + jr[u]];
+#pragma unroll
+      for (int v = 0; v < TC; ++v) b[v] = rb[(size_t)c * k + cr[v]];
+#pragma unroll
+      for (int u = 0; u < TJ; ++u)
+#pragma unroll
+        for (int v = 0; v < TC; ++v) {
+          ar[u][v] += a[u].re * b[v].re - a[u].im * b[v].im;
+          ai[u][v] += a[u].re * b[v].im + a[u].im * b[v].re;
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < TJ; ++u) {
+      if (j0 + u >= m) continue;
+#pragma unroll
+      for (int v = 0; v < TC; ++v) {
+        const int c = c0 + v * lc;
+        if (c >= k) continue;
+        const Cx<T> t = th[(size_t)(j0 + u) * ldt + c];
+        const T dr = t.re - ar[u][v], di = t.im - ai[u][v];
+        part += dr * dr + di * di;
+      }
+    }
+  }
+  part = warp_sum(part);
+  if (lane == 0) red[warp] = part;
+  __syncthreads();
+  T total = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) total += red[w];
+  __syncthreads();  // every thread has read red
+  return total;
+}
+
 // ------------------------------------------------ the theta build (K4, K5)
 
 // The pair's theta from the site tensors A [2 chi, chi] (rows (u, al),

@@ -25,6 +25,8 @@
 //                                            tensor, from the UNWEIGHTED theta,
 //                                            with no division by lambda)
 //   s2[b]  [nc]        = row norms^2 of conj(V) theta_w^H (= ||theta_w v_j||^2)
+//   resid[b]           = ||theta_w^H - V^T conj(V) theta_w^H||_F^2, the weight the
+//                        nc directions miss (block_chain.cuh residual_norm2)
 // The TPU kernel's replicated-lane gate rows and its sublane-partial tot are
 // layout workarounds of that compiler and are not carried over.
 //
@@ -71,7 +73,7 @@ brick_split_kernel(const Cx<T>* __restrict__ A, const Cx<T>* __restrict__ Bm,
                    const Cx<T>* __restrict__ g, const T* __restrict__ lam,
                    const Cx<T>* __restrict__ v0, Cx<T>* __restrict__ q2,
                    Cx<T>* __restrict__ na0, T* __restrict__ s2, T* __restrict__ tot,
-                   Cx<T>* scratch, int chi, int nc, int iters) {
+                   T* __restrict__ resid, Cx<T>* scratch, int chi, int nc, int iters) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x;
   const int m = 2 * chi;
@@ -139,7 +141,8 @@ brick_split_kernel(const Cx<T>* __restrict__ A, const Cx<T>* __restrict__ Bm,
     acc = warp_sum(acc);
     if (lane == 0) s2[(size_t)b * nc + j] = acc;
   }
-  __syncthreads();
+  const T res = blk::residual_norm2<T>(thH, ldh, x, nab, m, m, nc, reinterpret_cast<T*>(slab));
+  if (threadIdx.x == 0) resid[b] = res;
   QK_STAMP(blk::ST_S2);
   // na0[j][e] = sum_kk V[j][kk] thT[kk][e] = (theta_t q)[e, j]
   if constexpr (ROWS_SMEM) {
@@ -153,8 +156,8 @@ brick_split_kernel(const Cx<T>* __restrict__ A, const Cx<T>* __restrict__ Bm,
 template <typename T, bool THETA_SMEM, bool ROWS_SMEM, bool INPLACE>
 int brick_split_launch_as(const void* A, const void* Bm, const void* g, const void* lam,
                           const void* v0, void* q2, void* na0, void* s2, void* tot,
-                          void* scratch, int B, int chi, int nc, int iters, long long smem_bytes,
-                          cudaStream_t stream) {
+                          void* resid, void* scratch, int B, int chi, int nc, int iters,
+                          long long smem_bytes, cudaStream_t stream) {
   auto kern = brick_split_kernel<T, THETA_SMEM, ROWS_SMEM, INPLACE>;
   // A request over the card's limit fails here AND at the launch; both
   // errors surface through the single cudaGetLastError() below.
@@ -164,14 +167,14 @@ int brick_split_launch_as(const void* A, const void* Bm, const void* g, const vo
       static_cast<const Cx<T>*>(A), static_cast<const Cx<T>*>(Bm), static_cast<const Cx<T>*>(g),
       static_cast<const T*>(lam), static_cast<const Cx<T>*>(v0), static_cast<Cx<T>*>(q2),
       static_cast<Cx<T>*>(na0), static_cast<T*>(s2), static_cast<T*>(tot),
-      static_cast<Cx<T>*>(scratch), chi, nc, iters);
+      static_cast<T*>(resid), static_cast<Cx<T>*>(scratch), chi, nc, iters);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int brick_split_launch(const void* A, const void* Bm, const void* g, const void* lam,
-                       const void* v0, void* q2, void* na0, void* s2, void* tot, void* scratch,
-                       int B, int chi, int nc, int iters, blk::SplitPlan plan,
+                       const void* v0, void* q2, void* na0, void* s2, void* tot, void* resid,
+                       void* scratch, int B, int chi, int nc, int iters, blk::SplitPlan plan,
                        long long smem_bytes, cudaStream_t stream) {
   const int m = 2 * chi;
   if (plan.inplace && !(plan.rows_smem && blk::split_inplace_ok(m, m, nc)))
@@ -180,8 +183,8 @@ int brick_split_launch(const void* A, const void* Bm, const void* g, const void*
   if (smem_bytes < (long long)blk::gate_split_smem_bytes<T>(chi, nc, plan))
     return (int)cudaErrorInvalidValue;
 #define QK_BRICK_SPLIT(TH, RS, IP) \
-  brick_split_launch_as<T, TH, RS, IP>(A, Bm, g, lam, v0, q2, na0, s2, tot, scratch, B, chi, \
-                                       nc, iters, smem_bytes, stream)
+  brick_split_launch_as<T, TH, RS, IP>(A, Bm, g, lam, v0, q2, na0, s2, tot, resid, scratch, B, \
+                                       chi, nc, iters, smem_bytes, stream)
   if (plan.theta_smem) return plan.inplace ? QK_BRICK_SPLIT(true, true, true)
                                            : QK_BRICK_SPLIT(true, true, false);
   if (plan.rows_smem) return plan.inplace ? QK_BRICK_SPLIT(false, true, true)
@@ -204,16 +207,17 @@ long long qk_brick_split_smem(int chi, int nc, int dbl, int theta_in_smem, int r
 }
 
 int qk_brick_split_launch(const void* A, const void* Bm, const void* g, const void* lam,
-                          const void* v0, void* q2, void* na0, void* s2, void* tot, void* scratch,
-                          int B, int chi, int nc, int iters, int dbl, int theta_in_smem,
-                          int rows_in_smem, int inplace, long long smem_bytes, void* stream) {
+                          const void* v0, void* q2, void* na0, void* s2, void* tot, void* resid,
+                          void* scratch, int B, int chi, int nc, int iters, int dbl,
+                          int theta_in_smem, int rows_in_smem, int inplace, long long smem_bytes,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const qk::blk::SplitPlan p{theta_in_smem, rows_in_smem, inplace};
   return dbl ? QK_DOUBLE(qk::brick_split_launch<double>(A, Bm, g, lam, v0, q2, na0, s2, tot,
-                                                        scratch, B, chi, nc, iters, p,
+                                                        resid, scratch, B, chi, nc, iters, p,
                                                         smem_bytes, s))
-             : qk::brick_split_launch<float>(A, Bm, g, lam, v0, q2, na0, s2, tot, scratch, B,
-                                             chi, nc, iters, p, smem_bytes, s);
+             : qk::brick_split_launch<float>(A, Bm, g, lam, v0, q2, na0, s2, tot, resid, scratch,
+                                             B, chi, nc, iters, p, smem_bytes, s);
 }
 
 }  // extern "C"

@@ -16,7 +16,10 @@
 //   theta[(s alpha), (t beta)] = sum_uv g[2s+t, 2u+v] theta0[(u alpha), (v beta)]
 //   tot[b] = ||theta||_F^2
 // and then runs kernel K1's chain on theta (block_chain.cuh split_chain and
-// split_outputs), writing q[b] [2 chi, nc] and r[b] [nc, 2 chi]. The gate is
+// split_outputs), writing q[b] [2 chi, nc] and r[b] [nc, 2 chi], and
+//   resid[b] = ||theta - q r||_F^2   (block_chain.cuh residual_norm2),
+// the weight the nc directions miss, which the kept fraction needs and which
+// only the kernel can form (theta is never stored outside it). The gate is
 // read as [4, 4] and tot is one scalar per element: the TPU kernel's
 // replicated-lane gate rows and its sublane-partial tot are layout
 // workarounds of that compiler and are not carried over.
@@ -60,7 +63,7 @@ __global__ void __launch_bounds__(blk::NT, 1)
 gate_split_kernel(const Cx<T>* __restrict__ A, const Cx<T>* __restrict__ Bm,
                   const Cx<T>* __restrict__ g, const Cx<T>* __restrict__ v0,
                   Cx<T>* __restrict__ q, Cx<T>* __restrict__ r, T* __restrict__ tot,
-                  Cx<T>* scratch, int chi, int nc, int iters) {
+                  T* __restrict__ resid, Cx<T>* scratch, int chi, int nc, int iters) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x;
   const int m = 2 * chi;
@@ -98,13 +101,16 @@ gate_split_kernel(const Cx<T>* __restrict__ A, const Cx<T>* __restrict__ Bm,
                                                           m, m, nc, iters, slab);
   blk::split_outputs<T, !ROWS_SMEM>(th, ldt, x, q + (size_t)b * m * nc, r + (size_t)b * nc * m,
                                     m, m, nc, slab);
+  const T res = blk::residual_norm2<T>(th, ldt, x, r + (size_t)b * nc * m, m, m, nc,
+                                       reinterpret_cast<T*>(slab));
+  if (threadIdx.x == 0) resid[b] = res;
   QK_STAMP(blk::ST_END);
 }
 
 template <typename T, bool THETA_SMEM, bool ROWS_SMEM, bool INPLACE>
 int gate_split_launch_as(const void* A, const void* Bm, const void* g, const void* v0, void* q,
-                         void* r, void* tot, void* scratch, int B, int chi, int nc, int iters,
-                         long long smem_bytes, cudaStream_t stream) {
+                         void* r, void* tot, void* resid, void* scratch, int B, int chi, int nc,
+                         int iters, long long smem_bytes, cudaStream_t stream) {
   auto kern = gate_split_kernel<T, THETA_SMEM, ROWS_SMEM, INPLACE>;
   // A request over the card's limit fails here AND at the launch; both
   // errors surface through the single cudaGetLastError() below, which also
@@ -114,14 +120,15 @@ int gate_split_launch_as(const void* A, const void* Bm, const void* g, const voi
   kern<<<B, blk::NT, (size_t)smem_bytes, stream>>>(
       static_cast<const Cx<T>*>(A), static_cast<const Cx<T>*>(Bm), static_cast<const Cx<T>*>(g),
       static_cast<const Cx<T>*>(v0), static_cast<Cx<T>*>(q), static_cast<Cx<T>*>(r),
-      static_cast<T*>(tot), static_cast<Cx<T>*>(scratch), chi, nc, iters);
+      static_cast<T*>(tot), static_cast<T*>(resid), static_cast<Cx<T>*>(scratch), chi, nc,
+      iters);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int gate_split_launch(const void* A, const void* Bm, const void* g, const void* v0, void* q,
-                      void* r, void* tot, void* scratch, int B, int chi, int nc, int iters,
-                      blk::SplitPlan plan, long long smem_bytes, cudaStream_t stream) {
+                      void* r, void* tot, void* resid, void* scratch, int B, int chi, int nc,
+                      int iters, blk::SplitPlan plan, long long smem_bytes, cudaStream_t stream) {
   const int m = 2 * chi;
   if (plan.inplace && !(plan.rows_smem && blk::split_inplace_ok(m, m, nc)))
     return (int)cudaErrorInvalidValue;
@@ -129,8 +136,8 @@ int gate_split_launch(const void* A, const void* Bm, const void* g, const void* 
   if (smem_bytes < (long long)blk::gate_split_smem_bytes<T>(chi, nc, plan))
     return (int)cudaErrorInvalidValue;
 #define QK_GATE_SPLIT(TH, RS, IP) \
-  gate_split_launch_as<T, TH, RS, IP>(A, Bm, g, v0, q, r, tot, scratch, B, chi, nc, iters, \
-                                      smem_bytes, stream)
+  gate_split_launch_as<T, TH, RS, IP>(A, Bm, g, v0, q, r, tot, resid, scratch, B, chi, nc, \
+                                      iters, smem_bytes, stream)
   if (plan.theta_smem) return plan.inplace ? QK_GATE_SPLIT(true, true, true)
                                            : QK_GATE_SPLIT(true, true, false);
   if (plan.rows_smem) return plan.inplace ? QK_GATE_SPLIT(false, true, true)
@@ -152,15 +159,15 @@ long long qk_gate_split_smem(int chi, int nc, int dbl, int theta_in_smem, int ro
 }
 
 int qk_gate_split_launch(const void* A, const void* Bm, const void* g, const void* v0, void* q,
-                         void* r, void* tot, void* scratch, int B, int chi, int nc, int iters,
-                         int dbl, int theta_in_smem, int rows_in_smem, int inplace,
+                         void* r, void* tot, void* resid, void* scratch, int B, int chi, int nc,
+                         int iters, int dbl, int theta_in_smem, int rows_in_smem, int inplace,
                          long long smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const qk::blk::SplitPlan p{theta_in_smem, rows_in_smem, inplace};
-  return dbl ? QK_DOUBLE(qk::gate_split_launch<double>(A, Bm, g, v0, q, r, tot, scratch, B,
-                                                       chi, nc, iters, p, smem_bytes, s))
-             : qk::gate_split_launch<float>(A, Bm, g, v0, q, r, tot, scratch, B, chi, nc, iters,
-                                            p, smem_bytes, s);
+  return dbl ? QK_DOUBLE(qk::gate_split_launch<double>(A, Bm, g, v0, q, r, tot, resid, scratch,
+                                                       B, chi, nc, iters, p, smem_bytes, s))
+             : qk::gate_split_launch<float>(A, Bm, g, v0, q, r, tot, resid, scratch, B, chi, nc,
+                                            iters, p, smem_bytes, s);
 }
 
 }  // extern "C"

@@ -72,11 +72,11 @@ SOURCES = {
     },
     "gate_split.cu": {
         "qk_gate_split_smem": ([_i] * 6, _ll),
-        "qk_gate_split_launch": ([_vp] * 8 + [_i] * 8 + [_ll, _vp], _i),
+        "qk_gate_split_launch": ([_vp] * 9 + [_i] * 8 + [_ll, _vp], _i),
     },
     "brick_split.cu": {
         "qk_brick_split_smem": ([_i] * 6, _ll),
-        "qk_brick_split_launch": ([_vp] * 10 + [_i] * 8 + [_ll, _vp], _i),
+        "qk_brick_split_launch": ([_vp] * 11 + [_i] * 8 + [_ll, _vp], _i),
     },
     "bf16_cgemm.cu": {
         "qk_cgemm_plan": ([_ll, _i, _i, _i], _i),

@@ -18,8 +18,11 @@ chi]`` (rows ``(u, alpha)`` u-major) and ``Bm [B, chi, 2chi]`` (columns
 ``(v, beta)`` v-major) and the gate ``g [B, 4, 4]`` (``g[2s+t, 2u+v]``),
 builds ``theta[(s alpha), (t beta)] = sum_uv g[2s+t, 2u+v] (A Bm)[(u alpha),
 (v beta)]`` and runs the same chain on it, returning ``(q [B, 2chi, nc],
-r [B, nc, 2chi], tot [B])`` with ``tot = ||theta||_F^2`` (theta itself is
-not returned: the truncation mask needs only its weight).
+r [B, nc, 2chi], tot [B], resid [B])`` with ``tot = ||theta||_F^2`` and
+``resid = ||theta - q r||_F^2``, the weight the ``nc`` directions miss
+(theta itself is not returned: the truncation mask needs only its weight,
+and the kept fraction these two and ``r``'s row norms,
+``ops/svd._kept_fraction``).
 
 
 :func:`brick_gate_split` is the port of ``_make_brick_split_kernel`` (the
@@ -29,10 +32,11 @@ it builds ``theta_t`` (gate applied, unweighted) and ``theta_w =
 diag(lam, lam) theta_t`` (rows ``(s alpha)`` weighted by ``lam[alpha]``),
 runs the same chain on ``theta_w^H`` (so its basis spans the top right
 singular subspace of ``theta_w``) and returns ``(q2 [B, nc, 2chi], na0
-[B, nc, 2chi], s2 [B, nc], total [B])``: ``q2`` the basis as rows (``V =
-conj(q2)``), ``na0`` the rows of ``theta_t q`` (= ``(theta_t V^H)^T``, no
-lambda inverse), ``s2`` the squared norms ``||theta_w q_j||^2`` and ``total =
-||theta_w||_F^2``.
+[B, nc, 2chi], s2 [B, nc], total [B], resid [B])``: ``q2`` the basis as rows
+(``V = conj(q2)``), ``na0`` the rows of ``theta_t q`` (= ``(theta_t V^H)^T``,
+no lambda inverse), ``s2`` the squared norms ``||theta_w q_j||^2``, ``total =
+||theta_w||_F^2`` and ``resid = ||theta_w^H - q r||_F^2`` with ``q =
+q2^T`` and ``r = q^H theta_w^H``.
 
 Routing: a CPU tensor runs the plain version; a CUDA tensor runs the CUDA
 kernel (``csrc/subspace_split.cu``, ``csrc/gate_split.cu`` and
@@ -66,6 +70,11 @@ def _chain_plain(theta: torch.Tensor, v0: torch.Tensor, iters: int, pair: bool):
         w = bcgs2_plain(theta.mH @ v, pair)
         v = bcgs2_plain(theta @ w, pair)
     return v, v.mH @ theta
+
+
+def residual_norm2(theta: torch.Tensor, q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``||theta - q r||_F^2 [B]``, the weight a split's directions miss."""
+    return torch.view_as_real(torch.baddbmm(theta, q, r, alpha=-1)).square().sum((1, 2, 3))
 
 
 def subspace_factor_plain(theta: torch.Tensor, v0: torch.Tensor, iters: int,
@@ -222,13 +231,13 @@ def gate_subspace_factor_plain(A, Bm, g, v0, iters: int, pair: bool = False):
     theta = gate_theta(A, Bm, g)
     tot = abs2(theta).sum((1, 2))
     q, r = _chain_plain(theta, v0, iters, pair)
-    return q, r, tot
+    return q, r, tot, residual_norm2(theta, q, r)
 
 
 def gate_subspace_factor(A, Bm, g, v0, iters: int, pair: bool = False):
     """``A [B, 2chi, chi]``, ``Bm [B, chi, 2chi]``, ``g [B, 4, 4]``, ``v0
-    [2chi, nc]`` -> ``(q [B, 2chi, nc], r [B, nc, 2chi], tot [B])``: kernel
-    K4 for CUDA tensors, its plain version for CPU tensors."""
+    [2chi, nc]`` -> ``(q [B, 2chi, nc], r [B, nc, 2chi], tot [B], resid
+    [B])``: kernel K4 for CUDA tensors, its plain version for CPU tensors."""
     if A.device.type == "cpu":
         return gate_subspace_factor_plain(A, Bm, g, v0, iters, pair)
     return gate_subspace_factor_cuda(A, Bm, g, v0, iters, pair)
@@ -269,35 +278,38 @@ def gate_subspace_factor_cuda(A, Bm, g, v0, iters: int, pair: bool = False,
     q = torch.empty((B, m, nc), dtype=A.dtype, device=A.device)
     r = torch.empty((B, nc, m), dtype=A.dtype, device=A.device)
     tot = torch.empty(B, dtype=A.real.dtype, device=A.device)
+    resid = torch.empty(B, dtype=A.real.dtype, device=A.device)
     scratch = torch.empty((B, plan.scratch_cx), dtype=A.dtype, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     rc = lib.qk_gate_split_launch(A.data_ptr(), Bm.data_ptr(), g.data_ptr(), v0.data_ptr(),
-                                  q.data_ptr(), r.data_ptr(), tot.data_ptr(),
+                                  q.data_ptr(), r.data_ptr(), tot.data_ptr(), resid.data_ptr(),
                                   scratch.data_ptr(), B, chi, nc, int(iters), int(dbl),
                                   int(plan.theta_smem), int(plan.rows_smem), int(plan.inplace),
                                   plan.smem_bytes if smem_bytes is None else smem_bytes, stream)
     _build.check(rc, "gate_split kernel launch")
     _build.count_launch("gate_split", pair)
-    return q, r, tot
+    return q, r, tot, resid
 
 
 def brick_gate_split_plain(A, Bm, g, lam, v0, iters: int, pair: bool = False):
     """Plain version of K5: ``theta_t`` by :func:`gate_theta`, the lambda
-    row weight, the chain on ``theta_w^H``, then ``s2`` and ``na0``."""
+    row weight, the chain on ``theta_w^H``, then ``s2``, ``na0`` and the
+    residual."""
     if A.is_cuda:
         _build.PLAIN_ON_CUDA["brick_split"] += 1
     theta_t = gate_theta(A, Bm, g)
     theta_w = theta_t * torch.cat([lam, lam], 1)[:, :, None]
     total = abs2(theta_w).sum((1, 2))
-    q, r = _chain_plain(theta_w.mH, v0, iters, pair)  # q [B, 2chi, nc]: columns of the basis
-    return q.mT, (theta_t @ q).mT, abs2(r).sum(2), total
+    theta_h = theta_w.mH
+    q, r = _chain_plain(theta_h, v0, iters, pair)  # q [B, 2chi, nc]: columns of the basis
+    return q.mT, (theta_t @ q).mT, abs2(r).sum(2), total, residual_norm2(theta_h, q, r)
 
 
 def brick_gate_split(A, Bm, g, lam, v0, iters: int, pair: bool = False):
     """``A [B, 2chi, chi]``, ``Bm [B, chi, 2chi]``, ``g [B, 4, 4]``, ``lam
     [B, chi]`` (real), ``v0 [2chi, nc]`` -> ``(q2 [B, nc, 2chi], na0 [B, nc,
-    2chi], s2 [B, nc], total [B])``: kernel K5 for CUDA tensors, its plain
-    version for CPU tensors."""
+    2chi], s2 [B, nc], total [B], resid [B])``: kernel K5 for CUDA tensors,
+    its plain version for CPU tensors."""
     if A.device.type == "cpu":
         return brick_gate_split_plain(A, Bm, g, lam, v0, iters, pair)
     return brick_gate_split_cuda(A, Bm, g, lam, v0, iters, pair)
@@ -321,14 +333,16 @@ def brick_gate_split_cuda(A, Bm, g, lam, v0, iters: int, pair: bool = False,
     na0 = torch.empty((B, nc, m), dtype=A.dtype, device=A.device)
     s2 = torch.empty((B, nc), dtype=lam.dtype, device=A.device)
     total = torch.empty(B, dtype=lam.dtype, device=A.device)
+    resid = torch.empty(B, dtype=lam.dtype, device=A.device)
     scratch = torch.empty((B, plan.scratch_cx), dtype=A.dtype, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     rc = lib.qk_brick_split_launch(A.data_ptr(), Bm.data_ptr(), g.data_ptr(), lam.data_ptr(),
                                    v0.data_ptr(), q2.data_ptr(), na0.data_ptr(), s2.data_ptr(),
-                                   total.data_ptr(), scratch.data_ptr(), B, chi, nc, int(iters),
+                                   total.data_ptr(), resid.data_ptr(), scratch.data_ptr(), B, chi,
+                                   nc, int(iters),
                                    int(dbl), int(plan.theta_smem), int(plan.rows_smem),
                                    int(plan.inplace),
                                    plan.smem_bytes if smem_bytes is None else smem_bytes, stream)
     _build.check(rc, "brick_split kernel launch")
     _build.count_launch("brick_split", pair)
-    return q2, na0, s2, total
+    return q2, na0, s2, total, resid

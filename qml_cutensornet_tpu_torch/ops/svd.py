@@ -75,7 +75,11 @@ torch's complex factorizations give the basis directly.
 On the subspace routes the per-direction squared singular values are the row
 norms of ``r``; the truncation mask is the reference's sorted-threshold eps
 rule plus the sv-ratio floor and ``value_of_zero``. Discarded directions are
-exact zeros (the padding invariant).
+exact zeros (the padding invariant). At a full class the kept fraction
+comes from the discarded weight (:func:`_kept_fraction`): the split routes
+form ``||theta - q r||^2`` after the chain, kernels K4 and K5 (which never
+store theta outside the kernel) return it; so f32 reads what f64 reads. The
+reduced classes keep the reference's row-norm form.
 """
 
 from __future__ import annotations
@@ -146,19 +150,29 @@ def _split_subspace(theta: torch.Tensor, cfg: SimConfig, keep: int):
             v = orth.qr_orth(lowp.matmul(theta, w, pp), cfg.fused_split, cfg.mgs_pair, p)
         q, r = v, lowp.matmul(v, theta, p, "h")
     total = orth.abs2(theta).sum((1, 2))
-    return _finish_subspace(q, r, total, cfg, keep, nc)
+    resid2 = None
+    if not lowp.reduced_passes(cfg.matmul_precision, theta.dtype):
+        resid2 = split.residual_norm2(theta, q, r)
+    return _finish_subspace(q, r, total, cfg, keep, nc, resid2)
 
 
-def _finish_subspace(q, r, total, cfg: SimConfig, keep: int, nc: int):
+def _finish_subspace(q, r, total, cfg: SimConfig, keep: int, nc: int, resid2=None):
     """Squared singular values from the right factor's row norms, top-keep
-    gather when oversampled, truncation mask, masked factors."""
+    gather when oversampled, truncation mask, kept fraction
+    (:func:`_kept_fraction`, from ``resid2 = ||theta - q r||^2 [B]`` where
+    given), masked factors."""
     s2 = orth.abs2(r).sum(2)  # [B, nc]
+    unseen = resid2
     if nc > keep:
-        sel = torch.argsort(-s2, dim=1, stable=True)[:, :keep]
+        order = torch.argsort(-s2, dim=1, stable=True)
+        sel = order[:, :keep]
+        if unseen is not None:
+            unseen = unseen + torch.gather(s2, 1, order[:, keep:]).sum(1)
         q = torch.gather(q, 2, sel[:, None, :].expand(-1, q.shape[1], -1))
         r = torch.gather(r, 1, sel[:, :, None].expand(-1, -1, r.shape[2]))
         s2 = torch.gather(s2, 1, sel)
-    mask, kept_fraction = _mask_from_s2(s2, total, cfg, keep)
+    mask = _mask_from_s2(s2, total, cfg, keep)
+    kept_fraction = _kept_fraction(s2, mask, total, unseen)
     mf = mask.to(s2.dtype)
     left = q * mf[:, None, :]
     right = r * mf[:, :, None]
@@ -185,11 +199,32 @@ def _mask_from_s2(s2, total, cfg: SimConfig, keep: int):
     mask = (s2 >= torch.clamp(thresh, min=0.0)) & (s2 > floor)
     if cfg.value_of_zero > 0.0:
         mask = mask & (torch.sqrt(s2) > cfg.value_of_zero)
-    kept = torch.where(mask, s2, torch.zeros_like(s2)).sum(1)
-    safe_total = torch.where(total > 0, total, torch.ones_like(total))
-    kept_fraction = torch.clamp(
-        torch.where(total > 0, kept / safe_total, torch.ones_like(total)), max=1.0)
-    return mask, kept_fraction
+    return mask
+
+
+def _kept_fraction(s2, mask, total, unseen=None):
+    """The reference's ``min(kept / total, 1)`` (1 where ``total`` is 0) over
+    ``s2 [B, keep]`` and its ``mask``.
+
+    Without ``unseen``, the reference's form: ``kept = sum(s2[mask])``. With
+    ``unseen`` (``||theta - q r||^2`` over all ``nc`` directions, plus the
+    oversampled directions not gathered), ``kept = total - discarded``, the
+    discarded weight summed from small terms alone: ``unseen`` and the
+    masked-out ``s2``. The two are equal in exact arithmetic (the residual
+    is orthogonal to the basis), and the second is never above 1, so it
+    needs no clamp. In f32 the first carries the basis's rounding: the row
+    norms of ``q^H theta`` sum to ``||theta||^2`` only as far as ``q`` is
+    orthonormal, about 1.6e-7 of noise a split either way; most splits
+    truncate nothing, their ratio is 1, and the clamp at 1 keeps only the
+    low half of that noise, a bias of about 5e-8 a split that the fidelity
+    multiplies over every split of a circuit. The second's error is
+    relative to the discarded weight itself, so a split that truncates
+    nothing reads 1 to within f32's square."""
+    safe_total = torch.where(total > 0, total, 1.0)
+    if unseen is None:
+        kept = torch.where(mask, s2, 0.0).sum(1)
+        return torch.where(total > 0, torch.clamp(kept / safe_total, max=1.0), 1.0)
+    return 1.0 - (unseen + torch.where(mask, 0.0, s2).sum(1)) / safe_total
 
 
 def _tail_weights(p_desc: torch.Tensor):
@@ -212,11 +247,7 @@ def _truncation_mask(s, tail, total, cfg: SimConfig, keep: int):
     if cfg.value_of_zero > 0.0:
         mask = mask & (s > cfg.value_of_zero)
     mask[:, 0] = True
-    kept = torch.where(mask, s * s, torch.zeros_like(s)).sum(1)
-    safe_total = torch.where(total > 0, total, torch.ones_like(total))
-    kept_fraction = torch.clamp(
-        torch.where(total > 0, kept / safe_total, torch.ones_like(total)), max=1.0)
-    return mask, kept_fraction
+    return mask, _kept_fraction(s * s, mask, total)
 
 
 _ROTATION_CACHE: dict = {}
@@ -349,9 +380,9 @@ def truncated_svd_gate(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, cfg: S
     chi = a.shape[1]
     nc = keep + max(0, cfg.oversample)
     v0 = start_block(2 * chi, nc, a.dtype, a.device)
-    q, r, total = split.gate_subspace_factor(*gate_feeds(a, b, g, is_left), v0,
-                                             max(1, cfg.subspace_iters), cfg.mgs_pair)
-    return _finish_subspace(q, r, total, cfg, keep, nc)
+    q, r, total, resid2 = split.gate_subspace_factor(*gate_feeds(a, b, g, is_left), v0,
+                                                     max(1, cfg.subspace_iters), cfg.mgs_pair)
+    return _finish_subspace(q, r, total, cfg, keep, nc, resid2)
 
 
 def truncated_split_right(theta: torch.Tensor, cfg: SimConfig, keep: int):
@@ -389,13 +420,16 @@ def fused_brick_update(a: torch.Tensor, b: torch.Tensor, g4: torch.Tensor, lam: 
     Bm = b.reshape(Bn, chi, 2 * chi).contiguous()  # columns (t, be)
     nc = keep + max(0, cfg.oversample)
     v0 = start_block(2 * chi, nc, a.dtype, a.device)
-    q2, na0, s2, total = split.brick_gate_split(A, Bm, g4.contiguous(), lam.contiguous(), v0,
-                                                max(1, cfg.subspace_iters), cfg.mgs_pair)
+    q2, na0, s2, total, unseen = split.brick_gate_split(
+        A, Bm, g4.contiguous(), lam.contiguous(), v0, max(1, cfg.subspace_iters), cfg.mgs_pair)
     if nc > keep:
-        sel = torch.argsort(-s2, dim=1, stable=True)[:, :keep]
+        order = torch.argsort(-s2, dim=1, stable=True)
+        sel = order[:, :keep]
+        unseen = unseen + torch.gather(s2, 1, order[:, keep:]).sum(1)
         rows = sel[:, :, None].expand(-1, -1, 2 * chi)
         q2, na0, s2 = torch.gather(q2, 1, rows), torch.gather(na0, 1, rows), torch.gather(s2, 1, sel)
-    mask, kept_fraction = _mask_from_s2(s2, total, cfg, keep)
+    mask = _mask_from_s2(s2, total, cfg, keep)
+    kept_fraction = _kept_fraction(s2, mask, total, unseen)
     mf = mask.to(s2.dtype)
     v = q2.conj() * mf[:, :, None]  # V = conj(Q rows); masked rows of V = masked columns of new_a
     na = na0 * mf[:, :, None]

@@ -46,6 +46,7 @@ from qml_cutensornet_tpu_torch.utils.device import environ
 TOL = 2e-6  # ring vs single device, f32 (the reference's dry-run bar)
 SITE_TOL = 1e-6  # site-sharded vs whole-chain MPS tensors, f32 (the reference's dry-run bar)
 MESH = "<mesh>"  # a keyword argument of run_calls with this value gets the rank's mesh
+ENGINE = "<engine>"  # ... and with this one the rank's cli._pipeline.engine_kwargs()
 
 
 def _toy_problem(nq=8, reps=2, nn=2, gamma=1.0, chi=8, n_points=8):
@@ -200,11 +201,24 @@ def ring_snapshot(ansatz, X, cfg: SimConfig, mesh: Mesh, info_file, checkpoint_d
     return path
 
 
+def _marked(value, mesh):
+    """What a keyword argument of :func:`run_calls` stands for."""
+    if isinstance(value, str) and value == MESH:
+        return mesh
+    if isinstance(value, str) and value == ENGINE:
+        from qml_cutensornet_tpu_torch.cli import _pipeline
+
+        return _pipeline.engine_kwargs()
+    return value
+
+
 def run_calls(device: str, calls) -> list[dict]:
     """Make each call ``(fn, args, kwargs, env)`` in turn on this rank of an
     initialized process group, with the environment knobs ``env`` set around
     it; a keyword argument whose value is :data:`MESH` gets this rank's
-    mesh (one row over the group: the ring's, and the 1-D site mesh).
+    mesh (one row over the group: the ring's, and the 1-D site mesh), one
+    whose value is :data:`ENGINE` the engine the CLI's ``engine_kwargs``
+    gives under those knobs.
     Returns one record a call: ``out`` (its return value),
     ``launches`` (the kernels' launch counts of the call: counters set to 0
     just before it, read just after), ``seconds`` (wall time, after a device
@@ -216,10 +230,9 @@ def run_calls(device: str, calls) -> list[dict]:
     on_card = mesh.device.type == "cuda"
     records = []
     for fn, args, kwargs, env in calls:
-        kwargs = {k: (mesh if isinstance(v, str) and v == MESH else v)
-                  for k, v in kwargs.items()}
         buf = io.StringIO()
         with environ(**env), contextlib.redirect_stdout(buf):
+            kwargs = {k: _marked(v, mesh) for k, v in kwargs.items()}
             if on_card:
                 torch.cuda.synchronize(mesh.device)
                 torch.cuda.reset_peak_memory_stats(mesh.device)

@@ -14,8 +14,9 @@ The runtime suites (qubit_scaling, mem_evol, crossover) read the pinned v1
 data, ``datasets/elliptic_bitcoin_dataset_v1`` preprocessed to
 ``elliptic_preproc_bench.csv``, and refuse to run without it; their record
 names end in that CSV's stem. The quality suites (table2, table3,
-qml_figures) write the synthetic data of ``cli.make_synthetic`` into their
-own ``work/datasets``.
+qml_figures) and runtime_scaling, whose largest size draws more illicit
+rows than the v1 set holds, write the synthetic data of
+``cli.make_synthetic`` into their own ``work/datasets``.
 """
 
 from __future__ import annotations
@@ -129,12 +130,10 @@ class _Tee(io.TextIOBase):
 
 def call(entry, argv: list, suite: str, record: str | None = None, **note):
     """Run ``entry.main(argv)`` in-process and append its line to
-    ``runs.jsonl``: ``record`` (the profiling JSON's stem, read for the sim
-    and tile seconds and ``avg_max_chi``), the wall seconds, the peak of
-    ``torch.cuda.max_memory_allocated`` over the call, the kernel launches
-    (``ops/_build.LAUNCHES``), where the build's states lived (its ``States
-    ...-resident`` line) and the card, beside ``note``. Returns
-    ``entry.main``'s result."""
+    ``runs.jsonl`` (:func:`log_run`), its peak device memory the peak of
+    ``torch.cuda.max_memory_allocated`` over the call and its launches those
+    of the kernels' counters (``ops/_build.LAUNCHES``) over the call.
+    Returns ``entry.main``'s result."""
     import torch
 
     from qml_cutensornet_tpu_torch.ops import _build
@@ -148,13 +147,26 @@ def call(entry, argv: list, suite: str, record: str | None = None, **note):
         out = entry.main(list(argv))
     if on_card():
         torch.cuda.synchronize()
+    log_run(suite, argv, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() if on_card() else None,
+            {k: n - before[k] for k, n in _build.LAUNCHES.items()}, tee.buf.getvalue(), record,
+            **note)
+    return out
+
+
+def log_run(suite: str, argv: list, wall_s: float, peak_bytes, launches: dict, stdout: str,
+            record: str | None = None, **note) -> None:
+    """Append one CLI call's line to the suite's ``runs.jsonl``: ``record``
+    (the profiling JSON's stem in the working directory, read for the sim
+    and tile seconds, ``avg_max_chi`` and ``avg_fidelity``), the wall
+    seconds, the ``QMLTPU_*`` knobs, the peak device memory, the kernel
+    launches, where the build's states lived (its ``States ...-resident``
+    line in ``stdout``) and the card, beside ``note``."""
     line = {"argv": [str(a) for a in argv[1:]], **note,
-            "wall_s": time.perf_counter() - t0,
+            "wall_s": wall_s,
             "knobs": {k: v for k, v in sorted(os.environ.items()) if k.startswith("QMLTPU_")},
-            "peak_bytes": torch.cuda.max_memory_allocated() if on_card() else None,
-            "launches": {k: n - before[k] for k, n in _build.LAUNCHES.items()},
-            "card": card()}
-    regime = re.search(r"States (\w+)-resident", tee.buf.getvalue())
+            "peak_bytes": peak_bytes, "launches": launches, "card": card()}
+    regime = re.search(r"States (\w+)-resident", stdout)
     line["states"] = regime.group(1) if regime else None
     if record is not None:
         line["record"] = record
@@ -166,7 +178,6 @@ def call(entry, argv: list, suite: str, record: str | None = None, **note):
                         avg_fidelity=prof["avg_fidelity"][0])
     with open(suite_dir(suite) / "runs.jsonl", "a") as fp:
         fp.write(json.dumps(line) + "\n")
-    return out
 
 
 def keep(src: pathlib.Path, dest: pathlib.Path) -> None:
@@ -201,12 +212,12 @@ def pyplot():
     return plt
 
 
-def dispatch(argv, run, csv, plot) -> None:
+def dispatch(argv, run, csv, plot, **more) -> None:
     """``python -m qml_cutensornet_tpu_torch.runs.<suite> run|csv|plot
-    [arguments]``."""
+    [arguments]``, and the suite's ``more`` steps by name."""
     args = sys.argv[1:] if argv is None else list(argv)
     cmd, rest = (args[0], args[1:]) if args else ("run", [])
-    steps = {"run": run, "csv": csv, "plot": plot}
+    steps = {"run": run, "csv": csv, "plot": plot, **more}
     if cmd not in steps:
-        raise SystemExit(f"usage: run | csv | plot (got {cmd!r})")
+        raise SystemExit(f"usage: {' | '.join(steps)} (got {cmd!r})")
     steps[cmd](*rest)

@@ -284,20 +284,21 @@ def main(argv=None) -> int:
             plan_fn = split.gate_split_plan if name == "gate_split" else split.brick_split_plan
             p = plan_fn(B, chi, chi, A.dtype, optin)
             scratch = empty(B, p.scratch_cx)
-            tot = torch.empty(B, device=dev)
+            tot, resid = torch.empty(B, device=dev), torch.empty(B, device=dev)
             where = (int(p.theta_smem), int(p.rows_smem), int(p.inplace), p.smem_bytes, stream)
             if name == "gate_split":
                 q, r = empty(B, m, chi), empty(B, chi, m)
                 launch = lambda: lib.qk_gate_split_launch(
                     A.data_ptr(), Bm.data_ptr(), g.data_ptr(), v0.data_ptr(), q.data_ptr(),
-                    r.data_ptr(), tot.data_ptr(), scratch.data_ptr(), B, chi, chi, 2, 0, *where)
+                    r.data_ptr(), tot.data_ptr(), resid.data_ptr(), scratch.data_ptr(), B, chi,
+                    chi, 2, 0, *where)
             else:
                 lam = torch.from_numpy(rng.uniform(0.3, 1.0, (B, chi)).astype(np.float32)).to(dev)
                 q2, na0, s2 = empty(B, chi, m), empty(B, chi, m), torch.empty((B, chi), device=dev)
                 launch = lambda: lib.qk_brick_split_launch(
                     A.data_ptr(), Bm.data_ptr(), g.data_ptr(), lam.data_ptr(), v0.data_ptr(),
                     q2.data_ptr(), na0.data_ptr(), s2.data_ptr(), tot.data_ptr(),
-                    scratch.data_ptr(), B, chi, chi, 2, 0, *where)
+                    resid.data_ptr(), scratch.data_ptr(), B, chi, chi, 2, 0, *where)
             result[f"{name}_chi{chi}" + (f"_B{B}" if B != 32 else "")] = _stamped(lib, launch)
     for name in ("mgs2_panel", "mgs2_panel_parent"):
         if name in kernels:

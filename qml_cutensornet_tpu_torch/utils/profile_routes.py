@@ -4,7 +4,9 @@ one NVIDIA GPU:
     python3 -m qml_cutensornet_tpu_torch.utils.profile_routes [ROUTE ...]
 
 ROUTE is any of ``default`` (K1 + K2), ``fused_gate`` (K4 + K2), ``unfused``
-(K3 + matrix products), ``ambient_high`` and ``ambient_bfloat16`` (the
+(K3 + matrix products), ``runtime_scaling`` (K1 + K2 at the runtime_scaling
+suite's configuration: nf 165, r 2, gamma 0.1, d 1, chi 64, on the v1
+data), ``ambient_high`` and ``ambient_bfloat16`` (the
 CLI's config at ``SimConfig.matmul_precision`` "high" or "bfloat16": K2,
 K3 and every product on K7), ``brick_k5``, ``brick_k1``,
 ``brick_k5_sharded``, ``brick14_k5`` and ``brick14_k5_sharded`` (default:
@@ -48,6 +50,8 @@ from qml_cutensornet_tpu_torch.utils.device import environ, nvidia_smi
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 ARGV = ["profile", "GPU", "32", "2", "1.0", "6", "64", "64", "5", "elliptic_preproc_bench.csv"]
+ARGV_RS = ["profile", "GPU", "165", "2", "0.1", "1", "64", "64", "5",
+           "elliptic_preproc_bench.csv"]
 ARGV_BRICK = ["profile", "GPU", "100", "2", "1.0", "6", "5", "5", "5",
               "elliptic_preproc_bench.csv"]
 ARGV_BRICK14 = ["profile", "GPU", "14", "2", "1.0", "6", "20", "20", "5",
@@ -60,6 +64,7 @@ ROUTES = {
     "default": (ARGV, {}, 32),
     "fused_gate": (ARGV, {"QMLTPU_FUSED_GATE": "1"}, 32),
     "unfused": (ARGV, {"QMLTPU_FUSED_SPLIT": "0"}, 32),
+    "runtime_scaling": (ARGV_RS, {}, 32),
     "ambient_high": (ARGV, {}, 32, "high"),
     "ambient_bfloat16": (ARGV, {}, 32, "bfloat16"),
     "brick_k5": (ARGV_BRICK, K5, 8),

@@ -130,14 +130,19 @@ def _close_gate(dev, A, Bm, g, nc, iters, tol):
     A, Bm, g = (torch.from_numpy(x).to(dev) for x in (A, Bm, g))
     v0 = start_block(A.shape[1], nc, A.dtype, dev)
     before = _build.LAUNCHES["gate_split"]
-    qk, rk, totk = split.gate_subspace_factor(A, Bm, g, v0, iters)
+    qk, rk, totk, resk = split.gate_subspace_factor(A, Bm, g, v0, iters)
     assert _build.LAUNCHES["gate_split"] == before + 1
-    qp, rp, totp = split.gate_subspace_factor_plain(A, Bm, g, v0, iters)
+    qp, rp, totp, resp = split.gate_subspace_factor_plain(A, Bm, g, v0, iters)
     torch.cuda.synchronize()
     _close(qk, rk, qp, rp, tol)
-    assert ((totk - totp).abs() / totp).max().item() <= (1e-5 if tol > 1e-9 else 1e-12)
+    rel = 1e-5 if tol > 1e-9 else 1e-12
+    assert ((totk - totp).abs() / totp).max().item() <= rel
     theta = split.gate_theta(A, Bm, g)
     assert ((totk - theta.abs().pow(2).sum((1, 2))).abs() / totp).max().item() <= 1e-5
+    # The weight the directions miss: against the plain version's, and
+    # against ||theta - q r||^2 of the kernel's own factors.
+    assert (resk - resp).abs().max().item() <= tol * totp.max().item()
+    assert ((resk - split.residual_norm2(theta, qk, rk)).abs() / totp).max().item() <= rel
 
 
 @pytest.mark.parametrize("chi", [8, 16, 32, 64])
@@ -377,16 +382,23 @@ def _close_brick(dev, A, Bm, g, lam, nc, iters, tol):
     A, Bm, g, lam = (torch.from_numpy(x).to(dev) for x in (A, Bm, g, lam))
     v0 = start_block(A.shape[1], nc, A.dtype, dev)
     before = _build.LAUNCHES["brick_split"]
-    q2, na0, s2, tot = split.brick_gate_split(A, Bm, g, lam, v0, iters)
+    q2, na0, s2, tot, res = split.brick_gate_split(A, Bm, g, lam, v0, iters)
     assert _build.LAUNCHES["brick_split"] == before + 1
-    pq2, pna0, ps2, ptot = split.brick_gate_split_plain(A, Bm, g, lam, v0, iters)
+    pq2, pna0, ps2, ptot, pres = split.brick_gate_split_plain(A, Bm, g, lam, v0, iters)
     torch.cuda.synchronize()
     scale = split.gate_theta(A, Bm, g).abs().max().item()
     proj = lambda na, q: na.mT @ q.conj()
     assert ((proj(na0, q2) - proj(pna0, pq2)).abs().max().item()) / scale <= tol
     srt = lambda x: torch.sort(x, dim=1, descending=True).values
     assert (srt(s2) - srt(ps2)).abs().max().item() <= tol * ps2.max().item()
-    assert ((tot - ptot).abs() / ptot).max().item() <= (1e-5 if tol > 1e-9 else 1e-12)
+    rel = 1e-5 if tol > 1e-9 else 1e-12
+    assert ((tot - ptot).abs() / ptot).max().item() <= rel
+    # The weight the directions miss, as in _close_gate: the chain runs on
+    # theta_w^H with q = q2^T.
+    assert (res - pres).abs().max().item() <= tol * ptot.max().item()
+    th_h = (split.gate_theta(A, Bm, g) * torch.cat([lam, lam], 1)[:, :, None]).mH
+    q = q2.mT
+    assert ((res - split.residual_norm2(th_h, q, q.mH @ th_h)).abs() / ptot).max().item() <= rel
     live = q2.abs().pow(2).sum(2) > 0.25
     gram = q2.conj() @ q2.mT - torch.diag_embed(live.to(q2.real.dtype)).to(q2.dtype)
     assert gram.abs().max().item() <= (5e-6 if tol > 1e-9 else 1e-12)
@@ -613,15 +625,15 @@ def test_gate_and_brick_kernels_each_launch_plan(dev, B, chi, nc, dtype, plan, k
     if nc > chi and kind != "full":
         tA, tB, tg = (torch.from_numpy(x).to(dev) for x in (A, Bm, g))
         v0 = start_block(2 * chi, nc, tA.dtype, dev)
-        qk, rk, _ = split.gate_subspace_factor_cuda(tA, tB, tg, v0, 2)
-        qp, rp, _ = split.gate_subspace_factor_plain(tA, tB, tg, v0, 2)
+        qk, rk, _, _ = split.gate_subspace_factor_cuda(tA, tB, tg, v0, 2)
+        qp, rp, _, _ = split.gate_subspace_factor_plain(tA, tB, tg, v0, 2)
         torch.cuda.synchronize()
         assert (qk @ rk - qp @ rp).abs().max().item() <= tol
     else:
         _close_gate(dev, A, Bm, g, nc, 2, tol)
     tA, tB, tg = (torch.from_numpy(x).to(dev) for x in (A, Bm, g))
-    qk, _, _ = split.gate_subspace_factor_cuda(tA, tB, tg, start_block(2 * chi, nc, tA.dtype,
-                                                                       dev), 2)
+    qk, _, _, _ = split.gate_subspace_factor_cuda(tA, tB, tg, start_block(2 * chi, nc, tA.dtype,
+                                                                          dev), 2)
     _zeros_kept(qk, split.gate_theta(tA, tB, tg))
     lam = _lam(rng, B, chi, chi if kind == "full" else 5,
                np.float32 if dtype == C64 else np.float64)
@@ -665,8 +677,8 @@ def test_refused_gate_and_brick_launches_raise_and_are_not_counted(dev):
         with pytest.raises(RuntimeError, match="CUDA error"):
             split.brick_gate_split_cuda(A, Bm, g, lam, v0, 1, smem_bytes=nbytes)
     assert _build.LAUNCHES == before
-    q, _, tot = split.gate_subspace_factor_cuda(A, Bm, g, v0, 1)  # the next launches are clean
-    q2, na0, _, total = split.brick_gate_split_cuda(A, Bm, g, lam, v0, 1)
+    q, _, tot, _ = split.gate_subspace_factor_cuda(A, Bm, g, v0, 1)  # the next launches are clean
+    q2, na0, _, total, _ = split.brick_gate_split_cuda(A, Bm, g, lam, v0, 1)
     torch.cuda.synchronize()
     assert q.abs().max().item() == 0.0 and tot.abs().max().item() == 0.0
     assert q2.abs().max().item() == 0.0 and na0.abs().max().item() == 0.0

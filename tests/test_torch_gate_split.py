@@ -82,9 +82,9 @@ def test_plain_matches_pallas_kernel(iters):
     re, im = jsvd._subspace_start(2 * chi, nc, "float32")
     v0 = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
 
-    q, r, tot = split.gate_subspace_factor(torch.from_numpy(A), torch.from_numpy(Bm),
-                                           torch.from_numpy(g), v0, iters)
-    q, r, tot = q.numpy(), r.numpy(), tot.numpy()
+    q, r, tot, res = split.gate_subspace_factor(torch.from_numpy(A), torch.from_numpy(Bm),
+                                                torch.from_numpy(g), v0, iters)
+    q, r, tot, res = q.numpy(), r.numpy(), tot.numpy(), res.numpy()
     qj, rj, totj = gate_split_factor_batched(
         _cpx(A), _cpx(Bm), _cpx(g), Cpx(jnp.asarray(re), jnp.asarray(im)), nc,
         iters=iters, interpret=True)
@@ -98,6 +98,9 @@ def test_plain_matches_pallas_kernel(iters):
     np.testing.assert_allclose(tot, (np.abs(theta) ** 2).sum((1, 2)), rtol=1e-5)
     np.testing.assert_allclose(tot, np.asarray(totj), rtol=1e-5)
     hT = lambda x: np.conj(np.swapaxes(x, 1, 2))
+    # the weight the directions miss, ||theta - q r||^2 of the port's factors
+    np.testing.assert_allclose(res, (np.abs(theta - q @ r) ** 2).sum((1, 2)),
+                               atol=1e-6 * tot.max())
     np.testing.assert_allclose(q @ hT(q), qj @ hT(qj), atol=TOL)
     np.testing.assert_allclose(q @ r, qj @ rj, atol=TOL)
     s2 = lambda x: np.sort((np.abs(x) ** 2).sum(2), axis=1)

@@ -182,7 +182,7 @@ def test_gate_split_pair_matches_reference(kind):
         interpret=True, pair=True)
     qj, rj, totj = jcpx.to_np(qj), jcpx.to_np(rj), np.asarray(totj)
     tA, tB, tg = (torch.from_numpy(x) for x in (A, Bm, g))
-    q, r, tot = split.gate_subspace_factor(
+    q, r, tot, _ = split.gate_subspace_factor(
         tA, tB, tg, svd.start_block(2 * chi, chi, torch.complex64, CPU), 2, pair=True)
     theta = split.gate_theta(tA, tB, tg).numpy()
     _check_factor(q.numpy(), r.numpy(), qj, rj, theta)
@@ -212,7 +212,7 @@ def test_brick_split_pair_matches_reference(swap_w):
         Cpx(jnp.asarray(re), jnp.asarray(im)), chi, iters=2, interpret=True, pair=True)
     q2j, na0j = jcpx.to_np(out[0]), jcpx.to_np(out[1])
     s2j, totj = np.asarray(out[2]), np.asarray(out[3])
-    q2, na0, s2, tot = (t.numpy() for t in split.brick_gate_split(
+    q2, na0, s2, tot, _ = (t.numpy() for t in split.brick_gate_split(
         torch.from_numpy(A), torch.from_numpy(Bm), g, torch.from_numpy(lam),
         svd.start_block(2 * chi, chi, torch.complex64, CPU), 2, pair=True))
     proj = lambda na, q: na.transpose(0, 2, 1) @ q.conj()

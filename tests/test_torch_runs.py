@@ -30,7 +30,8 @@ ref = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(ref)
 
 V1 = "elliptic_preproc_bench.csv"
-SUITES = ("qubit_scaling", "mem_evol", "crossover", "table2", "table3", "qml_figures")
+SUITES = ("qubit_scaling", "mem_evol", "crossover", "table2", "table3", "qml_figures",
+          "runtime_scaling")
 KNOBS = ("QMLTPU_CHI", "QMLTPU_SIM_BATCH", "QMLTPU_ROUTING", "QMLTPU_FUSED_GATE",
          "QMLTPU_OVERSAMPLE", "NFS", "NF", "GAMMAS", "NTR", "NTRS", "D", "DS", "XS", "SEEDS",
          "RS", "PREWARM")

@@ -125,7 +125,7 @@ def test_brick_plain_matches_pallas_kernel(iters, nc):
     re, im = jsvd._subspace_start(2 * chi, nc, "float32")
     v0 = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
 
-    q2, na0, s2, total = (x.numpy() for x in split.brick_gate_split(
+    q2, na0, s2, total, res = (x.numpy() for x in split.brick_gate_split(
         torch.from_numpy(A), torch.from_numpy(Bm), torch.from_numpy(g), torch.from_numpy(lam),
         v0, iters))
     jq2, jna0, js2, jtot = brick_gate_split_batched(
@@ -139,6 +139,10 @@ def test_brick_plain_matches_pallas_kernel(iters, nc):
     theta_w = theta_t * np.concatenate([lam, lam], 1)[:, :, None]
     np.testing.assert_allclose(total, (np.abs(theta_w) ** 2).sum((1, 2)), rtol=1e-5)
     np.testing.assert_allclose(total, jtot, rtol=1e-5)
+    # the weight the directions miss: the chain runs on theta_w^H with q = q2^T
+    th_h, q = np.conj(np.swapaxes(theta_w, 1, 2)), np.swapaxes(q2, 1, 2)
+    resid = np.abs(th_h - q @ (np.conj(np.swapaxes(q, 1, 2)) @ th_h)) ** 2
+    np.testing.assert_allclose(res, resid.sum((1, 2)), atol=1e-6 * total.max())
     proj = lambda na, q: np.swapaxes(na, 1, 2) @ np.conj(q)  # theta_t V^H V, V = conj(q2)
     scale = np.abs(theta_t).max()
     np.testing.assert_allclose(proj(na0, q2) / scale, proj(jna0, jq2) / scale, atol=TOL_BASIS)
